@@ -1,0 +1,178 @@
+// flash_decode_stacked for Hopper (sm_90a): ragged-causal GQA decode
+// attention of a small query block (T*G <= 64 rows per KV head) against one
+// layer of the stacked packed cache [L, B, S, Hkv*D].
+//
+// Replaces magicdec_tpu/ops/pallas/flash_decode.py flash_decode_stacked
+// (pallas_call at :488). Bound on the H100: bytes. Each call streams the
+// K and V of every valid slot once (B * len * Hkv*D * 2 * itemsize) and
+// does ~2*T*G*D FLOPs per slot and head, far below the card's ~295 FLOP/byte
+// ridge. Design against that bound:
+//  * Split-KV: one CTA per (KV split, KV head, b), so B=8 x Hkv=8 fills the
+//    132 SMs; a second kernel merges the splits. Each CTA reads its head's
+//    columns of its slot range exactly once (16-byte vector loads), and all
+//    G*T query rows of the head share that read.
+//  * The layer is a pointer offset, not a copy; no slot at or past a row
+//    bound (valid_upto) is read, so rolled-back tails cost nothing.
+// Numerics (the full-budget acceptance == 1.0 invariant):
+//  * Splits sit at fixed multiples of SPLIT slots and tiles at multiples of
+//    TILE, independent of S, B, T and the SM count, so a draft cache of
+//    capacity budget+64 and a target cache of capacity max_len holding the
+//    same prefix give the same bits.
+//  * Splits merge as unnormalised (acc, m, l) in split order, dividing once
+//    at the end; an empty split (l == 0) is skipped, an exact identity.
+//  * Rows are independent (see flash_common.cuh).
+#include "flash_common.cuh"
+
+namespace mdt {
+
+constexpr int SPLIT = 512;  // slots per KV split: a global constant
+
+// grid (nsplit, Hkv, B). Partials: acc [B, Hkv, nsplit, M, D], ml [.., M, 2].
+template <typename T, int D, int MR>
+__global__ void __launch_bounds__(NT)
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
+                    const T* __restrict__ v_layer, const int* __restrict__ valid,
+                    float* __restrict__ part_acc, float* __restrict__ part_ml,
+                    int T_, int Hq, int Hkv, int S, int s_extent, float scale) {
+  constexpr int R = 2 * MR;
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int nsplit = gridDim.x;
+  const int G = Hq / Hkv, M = T_ * G;
+  Smem<D> sm(R);
+
+  for (int idx = threadIdx.x; idx < R * D; idx += NT) {
+    const int r = idx / D, d = idx % D;
+    float x = 0.f;
+    if (r < M) {
+      const int t = r / G, g = r % G;
+      x = to_f32(q[(((int64_t)b * T_ + t) * Hq + h * G + g) * D + d]);
+    }
+    sm.q[idx] = x;
+  }
+  for (int r = threadIdx.x; r < M; r += NT) {
+    sm.hi[r] = min(valid[b * T_ + r / G], s_extent);
+    sm.m[r] = NEG_INF;
+    sm.l[r] = 0.f;
+  }
+  row_bounds(sm, M);
+
+  float acc[MR];
+#pragma unroll
+  for (int i = 0; i < MR; ++i) acc[i] = 0.f;
+  const int64_t row_stride = (int64_t)Hkv * D;
+  const T* kb = k_layer + (int64_t)b * S * row_stride + h * D;
+  const T* vb = v_layer + (int64_t)b * S * row_stride + h * D;
+  const int start = sp * SPLIT;
+  attend_range<T, D, MR>(kb, vb, row_stride, start, min(start + SPLIT, s_extent),
+                         M, scale, sm, acc);
+
+  const int64_t base = (((int64_t)b * Hkv + h) * nsplit + sp) * M;
+  const int d = threadIdx.x % D, rg = threadIdx.x / D;
+#pragma unroll
+  for (int i = 0; i < MR; ++i) {
+    const int r = rg + NGRP * i;
+    if (r < M) part_acc[(base + r) * D + d] = acc[i];
+  }
+  for (int r = threadIdx.x; r < M; r += NT) {
+    part_ml[(base + r) * 2] = sm.m[r];
+    part_ml[(base + r) * 2 + 1] = sm.l[r];
+  }
+}
+
+// grid (M, Hkv, B), D threads: merge the splits of one query row in order.
+template <typename T, int D>
+__global__ void decode_merge_kernel(const float* __restrict__ part_acc,
+                                    const float* __restrict__ part_ml,
+                                    T* __restrict__ out, int T_, int Hq, int Hkv,
+                                    int nsplit) {
+  const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
+  const int M = gridDim.x, G = Hq / Hkv;
+  float m = NEG_INF, l = 0.f, a = 0.f;
+  bool any = false;
+  for (int sp = 0; sp < nsplit; ++sp) {
+    const int64_t row = (((int64_t)b * Hkv + h) * nsplit + sp) * M + r;
+    const float l_i = part_ml[row * 2 + 1];
+    if (l_i == 0.f) continue;  // empty split: identity
+    const float m_i = part_ml[row * 2], a_i = part_acc[row * D + d];
+    if (!any) {
+      m = m_i; l = l_i; a = a_i; any = true;
+    } else {
+      const float mn = fmaxf(m, m_i);
+      const float ca = expf(m - mn), cb = expf(m_i - mn);
+      a = a * ca + a_i * cb;
+      l = l * ca + l_i * cb;
+      m = mn;
+    }
+  }
+  const int t = r / G, g = r % G;
+  out[(((int64_t)b * T_ + t) * Hq + h * G + g) * D + d] = from_f32<T>(any ? a / l : 0.f);
+}
+
+template <typename T, int MR>
+int launch_decode(const void* q, const void* k, const void* v, const int* valid,
+                  void* out, float* part_acc, float* part_ml, int layer, int B,
+                  int T_, int Hq, int Hkv, int S, int s_extent, cudaStream_t stream) {
+  constexpr int D = 64;
+  const size_t smem = Smem<D>::bytes(2 * MR);
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<T, D, MR>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int nsplit = (s_extent + SPLIT - 1) / SPLIT;
+  const int64_t layer_off = (int64_t)layer * B * S * Hkv * D;
+  const float scale = 1.0f / sqrtf((float)D);
+  decode_split_kernel<T, D, MR><<<dim3(nsplit, Hkv, B), NT, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k) + layer_off,
+      static_cast<const T*>(v) + layer_off, valid, part_acc, part_ml, T_, Hq, Hkv,
+      S, s_extent, scale);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const int M = T_ * (Hq / Hkv);
+  decode_merge_kernel<T, D><<<dim3(M, Hkv, B), D, 0, stream>>>(
+      part_acc, part_ml, static_cast<T*>(out), T_, Hq, Hkv, nsplit);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_rows(const void* q, const void* k, const void* v, const int* valid,
+                  void* out, float* part_acc, float* part_ml, int layer, int B,
+                  int T_, int Hq, int Hkv, int S, int s_extent, cudaStream_t stream) {
+  const int rows_per_group = (T_ * (Hq / Hkv) + NGRP - 1) / NGRP;
+#define MDT_LAUNCH(MR)                                                            \
+  return launch_decode<T, MR>(q, k, v, valid, out, part_acc, part_ml, layer, B,   \
+                              T_, Hq, Hkv, S, s_extent, stream)
+  if (rows_per_group <= 2) MDT_LAUNCH(2);
+  if (rows_per_group <= 4) MDT_LAUNCH(4);
+  if (rows_per_group <= 8) MDT_LAUNCH(8);
+  if (rows_per_group <= 16) MDT_LAUNCH(16);
+  if (rows_per_group <= 32) MDT_LAUNCH(32);
+#undef MDT_LAUNCH
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace mdt
+
+// C interface (ctypes). dtype: 0 = float32, 1 = bfloat16. Shapes: q and out
+// [B, T, Hq, 64]; k, v [L, B, S, Hkv*64]; valid [B, T] int32; part_acc
+// [B, Hkv, nsplit, T*Hq/Hkv, 64] and part_ml [.., 2] f32 scratch with
+// nsplit = ceil(s_extent / 512). Returns the CUDA error code (0 = success).
+extern "C" int mdt_split_slots() { return mdt::SPLIT; }
+
+extern "C" int mdt_flash_decode_stacked(int dtype, const void* q, const void* k,
+                                        const void* v, const int* valid, void* out,
+                                        float* part_acc, float* part_ml, int layer,
+                                        int B, int T, int Hq, int Hkv, int S,
+                                        int s_extent, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return mdt::dispatch_rows<float>(q, k, v, valid, out, part_acc, part_ml, layer,
+                                     B, T, Hq, Hkv, S, s_extent, st);
+  if (dtype == 1)
+    return mdt::dispatch_rows<__nv_bfloat16>(q, k, v, valid, out, part_acc, part_ml,
+                                             layer, B, T, Hq, Hkv, S, s_extent, st);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,193 @@
+"""Attention implementations plugged into the model's layer loop (port of
+the main-path factories of magicdec_tpu/engine/attention_impls.py).
+
+Each factory takes the step's metadata (positions, lengths; the same for
+every layer), computes the rope tables and row bounds once, and returns an
+`attn_impl(q, k, v, caches, l)` for models/llama.py: `caches` are the full
+stacked [L, B, S, Hkv*D] tensors, written in place at layer l, and reads go
+through the port's kernels (ops/flash_decode.py) straight out of the stacked
+cache. Small query blocks (T*G <= 64) take the decode kernel, prefill chunks
+the prefill kernel; on the CPU both run their plain version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from magicdec_tpu_torch import cache as cache_lib
+from magicdec_tpu_torch.models.config import ModelArgs
+from magicdec_tpu_torch.ops import snapkv as snapkv_ops
+from magicdec_tpu_torch.ops.attention import decode_valid_upto
+from magicdec_tpu_torch.ops.flash_decode import (flash_decode_stacked,
+                                                 flash_prefill)
+from magicdec_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+
+# the decode kernel holds a KV head's T*G query rows in one CTA
+FLASH_MAX_TG = 64
+
+
+def _attend_stacked(config: ModelArgs, q, ck, cv, l: int, valid,
+                    cap: int | None = None) -> torch.Tensor:
+    """Ragged prefix attention against stacked caches, kernel-dispatched.
+    `cap` bounds the attended slots (chunked prefill's power-of-2 bucket)."""
+    T = q.shape[1]
+    if T * (config.n_head // config.n_kv_head) <= FLASH_MAX_TG:
+        return flash_decode_stacked(q, ck, cv, l, valid, s_cap=cap)
+    return flash_prefill(q, ck, cv, l, valid, s_cap=cap)
+
+
+def _flat(ctx: torch.Tensor) -> torch.Tensor:
+    B, T, H, D = ctx.shape
+    return ctx.reshape(B, T, H * D)
+
+
+def _positions(lengths_before: torch.Tensor, T: int) -> torch.Tensor:
+    t = torch.arange(T, dtype=torch.int32, device=lengths_before.device)
+    return lengths_before.to(torch.int32)[:, None] + t[None, :]
+
+
+class _Slots:
+    """The append slots of one step (cache.append_slots), computed once per
+    cache size and shared by every layer's K and V writes."""
+
+    def __init__(self, lengths: torch.Tensor, T: int, write_mask=None):
+        self.lengths, self.T, self.write_mask = lengths, T, write_mask
+        self._by_size: dict[int, cache_lib.AppendSlots] = {}
+
+    def write(self, cache: torch.Tensor, new: torch.Tensor, l: int) -> None:
+        S = cache.shape[2]
+        if S not in self._by_size:
+            self._by_size[S] = cache_lib.append_slots(self.lengths, self.T, S,
+                                                      self.write_mask)
+        cache_lib.write_slots(cache, new, l, self._by_size[S])
+
+
+class _Rotary:
+    """Rope tables for one step's positions, shared by every layer."""
+
+    def __init__(self, config: ModelArgs, positions: torch.Tensor):
+        self.cos, self.sin = rope_cos_sin(config, positions)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_rope(x, self.cos, self.sin)
+
+
+def _target_step_meta(config, lengths_before, T, uniform_start):
+    """(rotary, valid [B, T] int32) of a target-cache step."""
+    B = lengths_before.shape[0]
+    if uniform_start is not None:
+        positions = (uniform_start + torch.arange(
+            T, dtype=torch.int32, device=lengths_before.device))[None, :]
+        valid = (positions + 1).expand(B, T).contiguous()
+    else:
+        positions = _positions(lengths_before, T)
+        valid = decode_valid_upto(lengths_before, T)
+    return _Rotary(config, positions), valid
+
+
+def _append_target(ck, cv, k, v, l, uniform_start, slots):
+    if uniform_start is not None:
+        cache_lib.append_at_layer_uniform(ck, k, uniform_start, l)
+        cache_lib.append_at_layer_uniform(cv, v, uniform_start, l)
+    else:
+        slots.write(ck, k, l)
+        slots.write(cv, v, l)
+
+
+def target_attn(config: ModelArgs, lengths_before: torch.Tensor, T: int,
+                cap: int | None = None, write_mask=None,
+                uniform_start: int | None = None):
+    """Decode/verify/prefill against the target cache; caches = (ck, cv).
+
+    Queries sit at absolute positions lengths_before + t; K is rotated before
+    it is appended. `cap` bounds the attended slots (lengths_before + T <=
+    cap). `uniform_start` (int): every sequence writes at this offset
+    (chunked prefill) — one slice write and [1, T] rope tables.
+    """
+    rot, valid = _target_step_meta(config, lengths_before, T, uniform_start)
+    slots = _Slots(lengths_before, T, write_mask)
+
+    def impl(q, k, v, caches, l):
+        ck, cv = caches
+        q, k = rot(q), rot(k)
+        _append_target(ck, cv, k, v, l, uniform_start, slots)
+        return _flat(_attend_stacked(config, q, ck, cv, l, valid, cap=cap))
+
+    return impl
+
+
+def verify_dual_attn(config: ModelArgs, lengths_before: torch.Tensor,
+                     draft_lengths_before: torch.Tensor, T: int):
+    """SnapKV verify: target attention that also appends the rotated k/v into
+    the draft cache at its round-start offset, keeping the compressed cache
+    in sync; acceptance then rewinds lengths only. caches = (ck, cv, dk, dv).
+    """
+    rot = _Rotary(config, _positions(lengths_before, T))
+    valid = decode_valid_upto(lengths_before, T)
+    target_slots = _Slots(lengths_before, T)
+    draft_slots = _Slots(draft_lengths_before, T)
+
+    def impl(q, k, v, caches, l):
+        ck, cv, dk, dv = caches
+        q, k = rot(q), rot(k)
+        target_slots.write(ck, k, l)
+        target_slots.write(cv, v, l)
+        draft_slots.write(dk, k, l)
+        draft_slots.write(dv, v, l)
+        return _flat(_attend_stacked(config, q, ck, cv, l, valid))
+
+    return impl
+
+
+def snapkv_draft_attn(config: ModelArgs, target_positions_base: torch.Tensor,
+                      draft_lengths_before: torch.Tensor, T: int,
+                      write_mask=None):
+    """Draft decode against a SnapKV-compressed cache: keys are rotated at
+    their original positions, so queries rotate at the true context position
+    (target length + offset) while the mask runs in draft-slot coordinates.
+    caches = (dk, dv)."""
+    rot = _Rotary(config, _positions(target_positions_base, T))
+    valid = decode_valid_upto(draft_lengths_before, T)
+    slots = _Slots(draft_lengths_before, T, write_mask)
+
+    def impl(q, k, v, caches, l):
+        dk, dv = caches
+        q, k = rot(q), rot(k)
+        slots.write(dk, k, l)
+        slots.write(dv, v, l)
+        return _flat(_attend_stacked(config, q, dk, dv, l, valid))
+
+    return impl
+
+
+def prefill_snapkv_attn(config: ModelArgs, lengths_before: torch.Tensor,
+                        T: int, context_len: int, budget: int, window: int,
+                        cap: int | None = None,
+                        uniform_start: int | None = None):
+    """Last prefill chunk: target prefill attention plus the SnapKV
+    draft-cache build, writing the first `budget` slots of dk/dv.
+    caches = (ck, cv, dk, dv)."""
+    rot, valid = _target_step_meta(config, lengths_before, T, uniform_start)
+    slots = _Slots(lengths_before, T)
+    Hkv, D = config.n_kv_head, config.head_dim
+
+    def impl(q, k, v, caches, l):
+        ck, cv, dk, dv = caches
+        q, k = rot(q), rot(k)
+        _append_target(ck, cv, k, v, l, uniform_start, slots)
+        # the same kernel path as the plain prefill chunks: every engine must
+        # build bit-identical prefill states
+        ctx = _attend_stacked(config, q, ck, cv, l, valid, cap=cap)
+        k_l, v_l = ck[l], cv[l]
+        if cap is not None and cap < k_l.shape[1]:
+            k_l, v_l = k_l[:, :cap], v_l[:, :cap]
+        B, S = k_l.shape[:2]
+        cku, cvu = k_l.reshape(B, S, Hkv, D), v_l.reshape(B, S, Hkv, D)
+        scores = snapkv_ops.snapkv_scores(q, cku, context_len, window)
+        sel_k, sel_v = snapkv_ops.snapkv_select(scores, cku, cvu, context_len,
+                                                budget, window)
+        dk[l, :, :budget] = sel_k.reshape(B, budget, -1)
+        dv[l, :, :budget] = sel_v.reshape(B, budget, -1)
+        return _flat(ctx)
+
+    return impl

@@ -1,0 +1,219 @@
+"""Speculative decoding control loops (port of the baseline and SnapKV parts
+of magicdec_tpu/engine/spec.py).
+
+A round is gamma draft steps on the budget cache, one dual-write verify of
+gamma+1 tokens, vectorized cumprod acceptance, a length-only rollback, the
+output scatter and the bonus pick, all on the device. Where the JAX package
+runs the rounds inside one lax.while_loop, the port runs a Python loop over
+rounds with one host read per round (of the flag that ends the loop), as
+the JAX package's fused=False driver does.
+
+Acceptance semantics (as in the JAX package):
+  * a drafted token equal to the target argmax and not EOS is accepted;
+  * accept = 1 + length of the accepted cumprod prefix (the +1 emits the
+    round's input token, the previous round's bonus);
+  * emitted tokens are the buffer tokens [0..accept), the bonus
+    target_tokens[accept-1] seeds the next round;
+  * rollback rewinds cache lengths only.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import torch
+
+from magicdec_tpu_torch.cache import DraftKVCache, KVCache
+from magicdec_tpu_torch.engine import attention_impls as impls
+from magicdec_tpu_torch.engine.backend import Engine
+from magicdec_tpu_torch.engine.sampling import argmax_tokens, sample
+from magicdec_tpu_torch.models import llama
+
+
+def _is_eot(tokens: torch.Tensor, eot: torch.Tensor) -> torch.Tensor:
+    return (tokens == eot[0]) | (tokens == eot[1])
+
+
+def _eot_array(eot_ids, device=None) -> torch.Tensor:
+    ids = list(eot_ids)[:2] + [-1, -1]
+    return torch.tensor(ids[:2], dtype=torch.int32, device=device)
+
+
+def _accept_and_update(buffer, target_tokens, eot, gamma: int, output,
+                       gen_counts):
+    """Vectorized acceptance, output scatter, bonus/terminal computation.
+
+    output [B, O + 1]: column O is a dump column that takes the writes the
+    JAX package drops (out-of-range positions of rejected tokens), so the
+    scatter needs no host sync. Returns (accept [B], bonus [B, 1], gen_counts,
+    terminal (0-d bool), accepted_drafts (0-d int)); output is written in
+    place."""
+    draft_tokens = buffer[:, 1:]
+    flag = (target_tokens[:, :gamma] == draft_tokens) & ~_is_eot(draft_tokens, eot)
+    cum = torch.cumprod(flag.to(torch.int32), dim=1)
+    accept = 1 + cum.sum(dim=1, dtype=torch.int32)          # [B] in [1, gamma+1]
+    bonus = torch.gather(target_tokens, 1, (accept[:, None] - 1).long())
+
+    O = output.shape[1] - 1
+    ar = torch.arange(gamma + 1, dtype=torch.int32, device=buffer.device)
+    pos = gen_counts[:, None] + ar[None, :]
+    keep = ar[None, :] < accept[:, None]
+    pos = torch.where(keep, torch.clamp(pos, max=O - 1), O)
+    output.scatter_(1, pos.long(), buffer)
+    gen_counts = gen_counts + accept
+
+    terminal = ((cum.bool() & _is_eot(draft_tokens, eot)).any()
+                | _is_eot(bonus, eot).any())
+    return accept, bonus, gen_counts, terminal, cum.sum()
+
+
+@torch.inference_mode()
+def snapkv_round(params, config, cache: KVCache, draft: DraftKVCache,
+                 buffer0, output, gen_counts, eot, gamma: int):
+    """One SnapKV self-speculation round (the draft shares the target
+    weights). Caches and output are written in place; returns
+    (bonus [B, 1], gen_counts, info)."""
+    lenT0, lenD0 = cache.lengths, draft.lengths
+    lens, tok = lenD0, buffer0
+    drafted = []
+    for i in range(gamma):
+        impl = impls.snapkv_draft_attn(config, lenT0 + i, lens, 1)
+        logits = llama.forward(params, config, tok, impl, (draft.k, draft.v),
+                               last_only=True)
+        tok = argmax_tokens(logits)
+        lens = lens + 1
+        drafted.append(tok)
+    buffer = torch.cat([buffer0] + drafted, dim=1)          # [B, gamma+1]
+
+    # verify: target attention, dual-append at the round-start draft offset
+    # (overwriting the spec-written entries with target-quality k/v)
+    impl = impls.verify_dual_attn(config, lenT0, lenD0, gamma + 1)
+    logits = llama.forward(params, config, buffer, impl,
+                           (cache.k, cache.v, draft.k, draft.v))
+    target_tokens = argmax_tokens(logits)
+
+    accept, bonus, gen_counts, terminal, accepted = _accept_and_update(
+        buffer, target_tokens, eot, gamma, output, gen_counts)
+    cache.lengths = lenT0 + accept
+    draft.lengths = lenD0 + accept
+    return bonus, gen_counts, dict(terminal=terminal, accepted_drafts=accepted,
+                                   accept_nums=accept)
+
+
+@dataclass
+class SpecStats:
+    rounds: int = 0
+    total_drafted: int = 0
+    total_accepted_drafts: int = 0
+    generated_tokens: int = 0
+    wall_time_s: float = 0.0
+
+    @property
+    def acceptance_rate(self) -> float:
+        return (self.total_accepted_drafts / self.total_drafted
+                if self.total_drafted else 0.0)
+
+    @property
+    def avg_accepted_per_round(self) -> float:
+        return (self.generated_tokens / self.rounds) if self.rounds else 0.0
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def generate_autoregressive(engine: Engine, input_ids, max_new_tokens: int,
+                            eot_ids=(), temperature: float = 0.0,
+                            top_p: float = 1.0,
+                            generator: torch.Generator | None = None
+                            ) -> tuple[torch.Tensor, SpecStats]:
+    """Baseline decode loop: 1-token steps with per-row EOS tracking, as the
+    JAX package's fused while_loop. Returns (output [B, max_new_tokens],
+    stats). With eot_ids the host reads the alive flags once per step; without
+    them no row can stop early and the loop runs without host reads.
+    temperature > 0 samples (nucleus top_p) from `generator`. Timing starts
+    after prefill."""
+    dev = engine.device
+    eot = _eot_array(eot_ids, dev)
+    tok = engine.encode(input_ids)
+    B = tok.shape[0]
+    stats = SpecStats()
+    output = torch.zeros((B, max_new_tokens), dtype=torch.int32, device=dev)
+    output[:, 0] = tok[:, 0]
+    alive = ~_is_eot(tok[:, 0], eot)
+    counts = torch.ones(B, dtype=torch.int32, device=dev)
+    _sync(dev)
+    t0 = time.perf_counter()
+    step = 1
+    while step < max_new_tokens and (not eot_ids or bool(alive.any())):
+        impl = impls.target_attn(engine.config, engine.cache.lengths, 1)
+        logits = llama.forward(engine.params, engine.config, tok, impl,
+                               (engine.cache.k, engine.cache.v))
+        if temperature > 0.0:
+            nxt = sample(logits, generator, temperature, top_p)
+        else:
+            nxt = argmax_tokens(logits)
+        engine.cache.lengths = engine.cache.lengths + alive.to(torch.int32)
+        output[:, step] = torch.where(alive, nxt[:, 0], 0)
+        counts = counts + alive.to(torch.int32)
+        alive = alive & ~_is_eot(nxt[:, 0], eot)
+        tok = nxt
+        step += 1
+    _sync(dev)
+    stats.wall_time_s = time.perf_counter() - t0
+    stats.generated_tokens = int(counts.sum())
+    stats.rounds = int(counts.max())
+    return output, stats
+
+
+@torch.inference_mode()
+def generate_selfspec(engine: Engine, input_ids, gamma: int,
+                      max_new_tokens: int, eot_ids=()
+                      ) -> tuple[torch.Tensor, torch.Tensor, SpecStats]:
+    """SnapKV self-speculation driver. Returns (output [B, cap], gen_counts
+    [B], stats) with cap = max_new_tokens + gamma + 2. Rounds run while no
+    sequence hit EOS, some sequence has fewer than max_new_tokens tokens and
+    the target cache has room for gamma + 1 more: the JAX fused loop's
+    condition, read on the host once per round."""
+    if engine.spec != "snapkv":
+        raise ValueError(f"generate_selfspec needs spec='snapkv', "
+                         f"not {engine.spec!r}")
+    dev = engine.device
+    input_ids = torch.as_tensor(input_ids, dtype=torch.int32, device=dev)
+    B = input_ids.shape[0]
+    eot = _eot_array(eot_ids, dev)
+    cap = max_new_tokens + gamma + 2
+    output = torch.zeros((B, cap + 1), dtype=torch.int32, device=dev)
+    gen_counts = torch.zeros(B, dtype=torch.int32, device=dev)
+
+    buffer0 = engine.encode(input_ids)
+    stats = SpecStats()
+    accepted = torch.zeros((), dtype=torch.int64, device=dev)
+    terminal = torch.zeros((), dtype=torch.bool, device=dev)
+    max_len = engine.cache.max_len
+    _sync(dev)
+    t0 = time.perf_counter()
+    while True:
+        go = (~terminal & (gen_counts.min() < max_new_tokens)
+              & (engine.cache.lengths.max() + gamma + 1 <= max_len))
+        if not bool(go):
+            break
+        buffer0, gen_counts, info = snapkv_round(
+            engine.params, engine.config, engine.cache, engine.draft, buffer0,
+            output, gen_counts, eot, gamma)
+        stats.rounds += 1
+        accepted = accepted + info["accepted_drafts"]
+        terminal = terminal | info["terminal"]
+    # final bonus token
+    idx = torch.clamp(gen_counts, max=cap - 1).long()
+    output[torch.arange(B, device=dev), idx] = buffer0[:, 0]
+    gen_counts = gen_counts + 1
+    _sync(dev)
+    stats.wall_time_s = time.perf_counter() - t0
+    stats.total_drafted = stats.rounds * B * gamma
+    stats.total_accepted_drafts = int(accepted)
+    stats.generated_tokens = int(gen_counts.sum())
+    return output[:, :cap], gen_counts, stats

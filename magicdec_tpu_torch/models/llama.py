@@ -1,0 +1,184 @@
+"""Llama/Qwen/Yi/Mistral decoder core (port of magicdec_tpu/models/llama.py).
+
+Plain functions over a params dict in the JAX package's layout: weights are
+[in, out], layers are stacked on a leading axis, wqkv columns are
+KV-head-major ([q-heads of kv-group 0 | k0 | v0 | q-heads of group 1 | ...])
+and gate/up are stacked as [L, D, 2, I]. The layer scan becomes a Python
+loop over layers.
+
+attn_impl contract (as in the JAX package):
+    attn_impl(q, k, v, caches: tuple[Tensor, ...], l: int) -> ctx [B, T, Hq*Dh]
+with q [B,T,Hq,Dh], k/v [B,T,Hkv,Dh] pre-rope; the impl owns rope and
+writes its caches in place.
+
+Row-count-independent numerics: the hidden state runs through the layers
+as [M, dim] rows, M = B*T padded to a multiple of ROW_BUCKET, with the pad
+rows zero. A GEMM library picks its algorithm from the shape, and PyTorch
+splits a row reduction (the RMSNorm mean) by the number of rows, and both
+round differently for different shapes. The draft step (B rows) and the
+verify step (B*(gamma+1) rows) must produce bit-identical rows for the
+full-budget acceptance of exactly 1.0, so both run every row-wise operation
+at the same padded shape. On an H100 (cuBLAS of CUDA 12.8) the w_down
+product gives a row other bits at M=8 than inside M=56, and without the
+padding the speculative stream leaves the AR stream; the padding costs
+about 1 ms of an AR step at llama-3.2-1b widths, B=8 (chip_smoke.py
+gemm_rows).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from magicdec_tpu_torch.checkpoint.store import tensor_from_numpy
+from magicdec_tpu_torch.device import resolve_device
+from magicdec_tpu_torch.models.config import ModelArgs
+from magicdec_tpu_torch.ops.norms import rms_norm
+
+Params = dict[str, Any]
+AttnImpl = Callable
+
+ROW_BUCKET = 64
+
+
+def init_params(config: ModelArgs, dtype=torch.float32, scale: float = 0.02,
+                seed: int = 0, device=None) -> Params:
+    """Random-normal params from a seeded torch.Generator on `device` (for
+    tests and runs without checkpoints)."""
+    device = resolve_device(device)
+    c = config
+    L, D, I = c.n_layer, c.dim, c.intermediate_size
+    Dh, Hq, Hkv = c.head_dim, c.n_head, c.n_kv_head
+    qkv_out = (Hq + 2 * Hkv) * Dh
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return (torch.randn(shape, generator=gen, device=device,
+                            dtype=torch.float32) * scale).to(dtype)
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dtype, device=device)
+
+    params: Params = {
+        "tok_embeddings": rnd(c.vocab_size, D),
+        "layers": {
+            "attn_norm": ones(L, D),
+            "wqkv": rnd(L, D, qkv_out),
+            "wo": rnd(L, Hq * Dh, D),
+            "ffn_norm": ones(L, D),
+            "w_gate_up": rnd(L, D, 2, I),
+            "w_down": rnd(L, I, D),
+        },
+        "norm": ones(D),
+        "output": None if c.tie_word_embeddings else rnd(D, c.vocab_size),
+    }
+    if c.qkv_bias:
+        params["layers"]["bqkv"] = rnd(L, qkv_out)
+    return params
+
+
+def params_from_numpy(tree, device=None) -> Params:
+    """The JAX params pytree as numpy arrays (same keys and layout, `output`
+    None when tied; bfloat16 leaves as ml_dtypes arrays) -> the port's params
+    on `device`."""
+    device = resolve_device(device)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(np.asarray(tree)).to(device)
+
+
+def _pad_rows(x2: torch.Tensor) -> torch.Tensor:
+    """[M, K] -> [M padded to ROW_BUCKET, K], pad rows zero."""
+    pad = -x2.shape[0] % ROW_BUCKET
+    return F.pad(x2, (0, 0, 0, pad)) if pad else x2
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x [..., K] @ w [K, N] at a row count padded to ROW_BUCKET, with a
+    float32 result from operands in their storage dtype (bf16 products
+    accumulated and returned in f32, as the JAX package's
+    preferred_element_type=float32; the logits are never rounded to bf16)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    xp = _pad_rows(x2)
+    if xp.dtype == torch.float32:
+        y = xp @ w
+    elif xp.is_cuda:
+        y = torch.mm(xp, w, out_dtype=torch.float32)
+    else:   # the CPU build has no kernel for mm's out_dtype variant
+        y = xp.float() @ w.float()
+    return y[:x2.shape[0]].reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _split_qkv(qkv: torch.Tensor, config: ModelArgs):
+    """Split KV-head-major fused qkv [B, T, Hkv*(G+2)*Dh] into q/k/v views.
+
+    Global q-head index = kv_head * G + g, matching HF's head order.
+    """
+    B, T = qkv.shape[:2]
+    Dh, Hq, Hkv = config.head_dim, config.n_head, config.n_kv_head
+    G = Hq // Hkv
+    grouped = qkv.reshape(B, T, Hkv, (G + 2) * Dh)
+    q = grouped[..., :G * Dh].reshape(B, T, Hq, Dh)
+    k = grouped[..., G * Dh:(G + 1) * Dh]
+    v = grouped[..., (G + 1) * Dh:]
+    return q, k, v
+
+
+def _block(x: torch.Tensor, params: Params, config: ModelArgs,
+           attn_impl: AttnImpl, caches: tuple, l: int, B: int,
+           T: int) -> torch.Tensor:
+    """One decoder block at layer l: pre-norm attention + pre-norm SwiGLU.
+    x: [Mp, dim] padded rows, the first B*T of them the tokens."""
+    lp = params["layers"]
+    h = rms_norm(x, lp["attn_norm"][l], config.norm_eps)
+    qkv = h @ lp["wqkv"][l]
+    if "bqkv" in lp:
+        qkv = qkv + lp["bqkv"][l]
+    q, k, v = _split_qkv(qkv[:B * T].reshape(B, T, -1), config)
+    ctx = attn_impl(q, k, v, caches, l)
+    x = x + _pad_rows(ctx.reshape(B * T, -1)) @ lp["wo"][l]
+
+    h = rms_norm(x, lp["ffn_norm"][l], config.norm_eps)
+    w_gu = lp["w_gate_up"][l]
+    gate_up = (h @ w_gu.reshape(w_gu.shape[0], -1)).reshape(
+        x.shape[0], 2, w_gu.shape[-1])
+    act = F.silu(gate_up[:, 0]) * gate_up[:, 1]
+    return x + act @ lp["w_down"][l]
+
+
+def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
+               attn_impl: AttnImpl, caches: tuple, B: int,
+               T: int) -> torch.Tensor:
+    """The decoder stack over padded rows x [Mp, dim]; caches are the full
+    stacked [L, ...] tensors, which attn_impl writes in place at layer l."""
+    for l in range(config.n_layer):
+        x = _block(x, params, config, attn_impl, caches, l, B, T)
+    return x
+
+
+def unembed(params: Params, config: ModelArgs, x: torch.Tensor) -> torch.Tensor:
+    """Final norm + lm_head; logits in float32."""
+    x = rms_norm(x, params["norm"], config.norm_eps)
+    w_out = (params["tok_embeddings"].t() if config.tie_word_embeddings
+             else params["output"])
+    return _matmul_f32(x, w_out)
+
+
+def forward(params: Params, config: ModelArgs, tokens: torch.Tensor,
+            attn_impl: AttnImpl, caches: tuple,
+            last_only: bool = False) -> torch.Tensor:
+    """tokens [B, T] -> logits float32 [B, T, V] ([B, 1, V] with last_only);
+    the caches are written in place."""
+    B, T = tokens.shape
+    x = _pad_rows(F.embedding(tokens.reshape(-1).long(),
+                              params["tok_embeddings"]))
+    x = run_layers(params, config, x, attn_impl, caches, B, T)
+    if last_only:
+        x = _pad_rows(x[:B * T].reshape(B, T, -1)[:, -1])
+        T = 1
+    return unembed(params, config, x)[:B * T].reshape(B, T, -1)

@@ -1,0 +1,217 @@
+"""Flash attention over the stacked packed KV cache: the decode and prefill
+kernels of the port, each with its plain PyTorch version and a launch count.
+
+`flash_decode_stacked` replaces magicdec_tpu/ops/pallas/flash_decode.py
+flash_decode_stacked (pallas_call at :488) and `flash_prefill` replaces
+flash_prefill there (pallas_call at :646). Both are hand-written CUDA C++
+for sm_90a (csrc/flash_decode.cu, csrc/flash_prefill.cu, built by
+ops/_build.py), templated on float32 and bfloat16. What bounds each on the
+H100 and what its design does about it is noted at the top of its source.
+
+The wrappers take the JAX package's layouts: q [B, T, Hq, D] (rotated),
+k/v caches [L, B, S, Hkv*D], `layer` an int, valid_upto [B, T] int32 —
+query (b, t) attends to slots < valid_upto[b, t] — and s_cap bounding the
+attended slots (callers guarantee valid_upto <= s_cap). On tensors on the
+CPU a wrapper runs the plain version (`attention_plain`, the dense oracle on
+the layer slice); on CUDA tensors it launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from magicdec_tpu_torch.ops import _build
+from magicdec_tpu_torch.ops.attention import masked_attention
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_HEAD_DIM = 64
+
+
+def attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, layer: int,
+                    valid_upto: torch.Tensor,
+                    s_cap: int | None = None) -> torch.Tensor:
+    """The plain version of both kernels: dense masked attention over layer
+    `layer`'s first min(s_cap, S) slots. Returns [B, T, Hq, D] in the cache
+    dtype (q is cast to it first, as the TPU kernels do)."""
+    _, B, S, HD = k_cache.shape
+    D = q.shape[-1]
+    ext = S if s_cap is None else min(s_cap, S)
+    k = k_cache[layer, :, :ext].reshape(B, ext, HD // D, D)
+    v = v_cache[layer, :, :ext].reshape(B, ext, HD // D, D)
+    return masked_attention(q.to(k_cache.dtype), k, v, valid_upto)
+
+
+def plain_f32_and_limit(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, layer: int,
+                        valid_upto: torch.Tensor, s_cap: int | None = None):
+    """What a kernel's output is held against: the plain version computed in
+    float32 from the same inputs, and the per-element limit on
+    |kernel - plain| that the kernels' arithmetic allows.
+
+    float32 caches: 2e-5 + 2e-5*|ref|, the JAX kernel tests' tolerance (an
+    online softmax over tiles against one softmax).
+    bfloat16 caches: both kernels round P to bf16 before P@V (each p off by
+    at most 2^-8 of itself, so the output by at most 2^-8 * sum(p|v|)/l) and
+    round the output to bf16 (at most 2^-8 of it); f32 accumulation adds
+    ~1e-6 of sum(p|v|)/l. The limit is that rounding bound plus 10%, plus
+    1e-5: 1.1 * 2^-8 * (|ref| + ref_abs) + 1e-5, where ref_abs =
+    sum(p|v|)/l is the plain version with |v|. It scales with what is
+    compared, so a kernel that drops or mis-masks a tile fails it even where
+    the softmax is flat and outputs are small.
+    Returns (ref f32, limit f32), both [B, T, Hq, D]."""
+    args = (q.float(), k_cache.float())
+    ref = attention_plain(*args, v_cache.float(), layer, valid_upto, s_cap)
+    if k_cache.dtype == torch.float32:
+        return ref, 2e-5 + 2e-5 * ref.abs()
+    ref_abs = attention_plain(*args, v_cache.float().abs(), layer, valid_upto,
+                              s_cap)
+    return ref, 1.1 * 2.0 ** -8 * (ref.abs() + ref_abs) + 1e-5
+
+
+def _check(q, k_cache, v_cache, layer, valid_upto):
+    """Validate the kernels' operands; returns the (cast) q."""
+    if not (q.is_cuda and k_cache.is_cuda and v_cache.is_cuda
+            and valid_upto.is_cuda):
+        raise ValueError("flash kernels need every operand on the same CUDA "
+                         "device (or every operand on the CPU)")
+    if len({q.device, k_cache.device, v_cache.device,
+            valid_upto.device}) != 1:
+        raise ValueError("flash kernel operands lie on different devices")
+    if k_cache.dtype not in _DTYPE_CODES or v_cache.dtype != k_cache.dtype:
+        raise ValueError(f"cache dtype {k_cache.dtype}/{v_cache.dtype}: the "
+                         "kernels take float32 or bfloat16")
+    if valid_upto.dtype != torch.int32:
+        raise ValueError("valid_upto must be int32")
+    if q.dim() != 4 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
+        raise ValueError(f"shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    B, T, Hq, D = q.shape
+    L, Bc, S, HD = k_cache.shape
+    if D != KERNEL_HEAD_DIM:
+        raise ValueError(f"head_dim {D}: the kernels are built for "
+                         f"{KERNEL_HEAD_DIM}")
+    if Bc != B or HD % D or Hq % (HD // D):
+        raise ValueError(f"q {tuple(q.shape)} does not match the cache "
+                         f"{tuple(k_cache.shape)}")
+    if tuple(valid_upto.shape) != (B, T):
+        raise ValueError(f"valid_upto {tuple(valid_upto.shape)} != {(B, T)}")
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} outside [0, {L})")
+    q = q.to(k_cache.dtype)
+    for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache),
+                    ("valid_upto", valid_upto)):
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+    return q
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+def _raise_on(rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(f"{what} failed with cudaError_t {rc}")
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def _lib_decode() -> ctypes.CDLL:
+    lib = _build.load("flash_decode")
+    fn = lib.mdt_flash_decode_stacked
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                       _I, _P]
+        fn.restype = _I
+        lib.mdt_split_slots.restype = _I
+    return lib
+
+
+def _lib_prefill() -> ctypes.CDLL:
+    lib = _build.load("flash_prefill")
+    fn = lib.mdt_flash_prefill
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        fn.restype = _I
+    return lib
+
+
+def flash_decode_stacked(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, layer: int,
+                         valid_upto: torch.Tensor,
+                         s_cap: int | None = None) -> torch.Tensor:
+    """Decode / verify / draft attention (T*G <= 64 rows per KV head) over
+    one layer of the stacked cache. Returns [B, T, Hq, D] in the cache dtype.
+
+    Replaces the TPU kernel flash_decode_stacked (pallas_call at
+    magicdec_tpu/ops/pallas/flash_decode.py:488). Bound by bytes on the
+    H100 (each valid K/V slot read once); the kernel splits KV over CTAs in
+    fixed 512-slot splits so B=8 fills the SMs, reads nothing past a row's
+    bound, and merges the splits in order so rows are bit-exact across T and
+    cache capacity (csrc/flash_decode.cu)."""
+    if _on_cpu(q, k_cache, v_cache, valid_upto):
+        return attention_plain(q, k_cache, v_cache, layer, valid_upto, s_cap)
+    q = _check(q, k_cache, v_cache, layer, valid_upto)
+    B, T, Hq, D = q.shape
+    _, _, S, HD = k_cache.shape
+    Hkv = HD // D
+    if T * (Hq // Hkv) > 64:
+        raise ValueError(f"T*G = {T * (Hq // Hkv)} > 64: use flash_prefill")
+    ext = S if s_cap is None else min(s_cap, S)
+    lib = _lib_decode()
+    nsplit = -(-ext // lib.mdt_split_slots())   # the kernel's fixed split size
+    M = T * (Hq // Hkv)
+    out = torch.empty_like(q)
+    part_acc = torch.empty((B, Hkv, nsplit, M, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, Hkv, nsplit, M, 2), dtype=torch.float32,
+                          device=q.device)
+    rc = lib.mdt_flash_decode_stacked(
+        _DTYPE_CODES[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), valid_upto.data_ptr(), out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), layer, B, T, Hq, Hkv, S, ext,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash_decode_stacked launch")
+    flash_decode_stacked.launches += 1
+    return out
+
+
+flash_decode_stacked.launches = 0
+
+
+def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
+                  v_cache: torch.Tensor, layer: int,
+                  valid_upto: torch.Tensor,
+                  s_cap: int | None = None) -> torch.Tensor:
+    """Chunked-prefill attention over one layer of the stacked cache.
+    Returns [B, T, Hq, D] in the cache dtype.
+
+    Replaces the TPU kernel flash_prefill (pallas_call at
+    magicdec_tpu/ops/pallas/flash_decode.py:646). Bound by FLOPs on the
+    H100 for late chunks; the kernel walks only the tiles below each query
+    tile's causal frontier and s_cap, masks only the diagonal tiles, and runs
+    bf16 on tensor cores (csrc/flash_prefill.cu)."""
+    if _on_cpu(q, k_cache, v_cache, valid_upto):
+        return attention_plain(q, k_cache, v_cache, layer, valid_upto, s_cap)
+    q = _check(q, k_cache, v_cache, layer, valid_upto)
+    B, T, Hq, D = q.shape
+    _, _, S, HD = k_cache.shape
+    ext = S if s_cap is None else min(s_cap, S)
+    out = torch.empty_like(q)
+    rc = _lib_prefill().mdt_flash_prefill(
+        _DTYPE_CODES[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), valid_upto.data_ptr(), out.data_ptr(), layer, B, T,
+        Hq, HD // D, S, ext, torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash_prefill launch")
+    flash_prefill.launches += 1
+    return out
+
+
+flash_prefill.launches = 0

@@ -1,0 +1,78 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points never quietly fall back to the CPU."""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+import torch
+
+import magicdec_tpu_torch
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        magicdec_tpu_torch.__path__, "magicdec_tpu_torch."))
+
+
+def test_port_imports_without_jax_or_the_jax_package():
+    mods = _port_modules()
+    assert "magicdec_tpu_torch.engine.spec" in mods
+    assert "magicdec_tpu_torch.ops.flash_decode" in mods
+    code = textwrap.dedent(f"""
+        import importlib, sys
+        sys.modules["jax"] = None
+        sys.modules["magicdec_tpu"] = None
+        sys.path.insert(0, {str(REPO)!r})
+        for name in {mods!r} + ["chip_smoke"]:
+            importlib.import_module(name)
+        bad = [m for m in sys.modules
+               if (m == "jax" or m.startswith(("jax.", "jaxlib", "magicdec_tpu.")))
+               and sys.modules[m] is not None]
+        assert not bad, bad
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "ok"
+
+
+def test_entry_points_raise_without_a_gpu(monkeypatch):
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+
+    cfg = ModelArgs.from_name("test-tiny")
+    params = llama.init_params(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Engine(cfg, params, batch_size=1, max_len=128)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llama.init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        llama.params_from_numpy({"w": params["norm"].numpy()})
+    # an explicit CPU request is honoured
+    assert Engine(cfg, params, batch_size=1, max_len=128,
+                  device="cpu").device.type == "cpu"
+
+
+def _run_smoke(cwd):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_fails_without_gpu_or_checkout(tmp_path):
+    res = _run_smoke(REPO)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
