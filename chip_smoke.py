@@ -12,30 +12,48 @@ exits non-zero):
                 bit-exact row independence (T=1 rows vs the same rows in T=7)
                 and capacity independence (caches of S=1088, 1152 (the
                 main path's draft cache) and 4224 holding the same prefix)
-  3. prefill    flash_prefill vs its plain version, T=128 chunks at several
+  3. intervals  flash_decode_intervals vs its plain version on the
+                StreamingLLM draft cache (S=1088), T in {1, 2}, bf16 and
+                f32, flat and peaked, sink + gap + window rows with separate
+                sink K rows; the limit must reject a missed window tile and
+                a missed sink; and T=1/T=2 rows with intervals reducing to
+                [0, hi) must give the bits of flash_decode_stacked's T=7
+                rows (flat caches of 1088 and 4224 slots)
+  4. prefill    flash_prefill vs its plain version, T=128 chunks at several
                 s_cap buckets, bf16 and f32, flat and peaked softmax.
-                Both phases hold each output against the plain version in f32
-                with the per-element limit of fd.plain_f32_and_limit, and
-                check that the limit rejects an output that misses each long
-                row's last 64-slot tile.
-  4. reference  a small f32 model: logits of the card's path (kernels, cuBLAS)
+                Phases 2-4 hold each output against the plain version in f32
+                with the per-element limit of fd.plain_f32_and_limit (the
+                same bound for the intervals form), and check that the limit
+                rejects an output that misses each long row's last 64-slot
+                tile.
+  5. reference  a small f32 model: logits of the card's path (kernels, cuBLAS)
                 vs the CPU plain path
-  5. gemm rows  each row-wise product of a decode step at llama-3.2-1b
+  6. gemm rows  each row-wise product of a decode step at llama-3.2-1b
                 widths: do M=B rows get the bits of the same rows inside
                 M=B*(gamma+1), unpadded and padded to 64 rows, and the ms of
                 each (the padding's cost)
-  6. main path  llama-3.2-1b at full width (random bf16 weights from a seeded
+  7. main path  llama-3.2-1b at full width (random bf16 weights from a seeded
                 torch.Generator), B=8, P=4096, 64 new tokens, gamma=6:
-                generate_autoregressive, generate_selfspec (SnapKV, budget
-                1024), generate_selfspec at full budget (budget = P). Both
-                speculative streams must equal the AR stream, full budget
-                must accept exactly 1.0, and the kernels' launch counts must
-                be those the path implies.
-  7. times      each kernel at the main path's shapes: kernel, plain version,
+                generate_autoregressive, generate_selfspec with SnapKV
+                (budget 1024 and full budget = P) and with StreamingLLM (sink
+                16, budget 1024, whose 1088-slot draft window compacts, and
+                full budget P + 64 + gamma + 4). Every speculative stream
+                must equal the AR stream, both full budgets must accept
+                exactly 1.0, and each run's kernel launch counts (zeroed
+                before it) must be those its path implies.
+  8. longspec   two-model SD with llama-3.2-1b as the target: a self-draft
+                (the same weights, full KV) must accept exactly 1.0, and a
+                2-layer draft of the same widths with its own weights must
+                be lossless in each draft mode (full, snapkv 1024,
+                streaming 1024); launch counts as the path implies.
+  9. times      each kernel at the main path's shapes: kernel, plain version,
                 bound (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s bf16) and
                 scaled_dot_product_attention as a yardstick (the port never
-                calls it)
-  8. profile    device-busy share of AR decode steps (torch.profiler)
+                calls it), each on the device (32 calls replayed from a CUDA
+                graph); the kernel also launched from Python (eager_ms, the
+                host's launch pace included); the StreamingLLM sink twist
+                against a whole-layer copy
+ 10. profile    device-busy share of AR decode steps (torch.profiler)
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels, and the last line {"ok": true, "device": {...}}.
 
@@ -57,8 +75,12 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 
-B, P, NEW, GAMMA, BUDGET, WINDOW = 8, 4096, 64, 6, 1024, 32
+B, P, NEW, GAMMA, BUDGET, WINDOW, SINK = 8, 4096, 64, 6, 1024, 32, 16
 MAX_LEN = P + NEW + 2 * GAMMA + 16          # Engine rounds this up to 4224
+STREAM_HEADROOM = 64                        # the Engine's draft_headroom
+DRAFT_SLOTS = BUDGET + STREAM_HEADROOM      # the StreamingLLM draft cache
+STREAM_FULL = P + NEW + GAMMA + 4           # a budget that evicts nothing
+DRAFT_LAYERS = 2                            # the longspec phase's small draft
 # query scales of the kernel checks: logits of std 0.5 (a flat softmax over
 # thousands of slots, outputs ~0.02) and of std 3 (a peaked one, outputs ~1)
 Q_SCALES = {"flat": 1.0, "peaked": 6.0}
@@ -93,12 +115,17 @@ def main() -> int:
     from magicdec_tpu_torch.ops import _build
     line(phase="build", seconds=_build.build(), sources=list(_build.SOURCES))
 
-    decode = check_decode(torch, dev)
-    prefill = check_prefill(torch, dev)
+    errs = {"flash_decode_stacked": check_decode(torch, dev),
+            "flash_decode_intervals": check_intervals(torch, dev),
+            "flash_prefill": check_prefill(torch, dev)}
     check_reference(torch, dev)
     gemm_rows(torch, dev)
-    launches = main_path(torch, dev)
-    kernels = time_kernels(torch, dev, decode, prefill, launches)
+    params, prompt = main_inputs(torch, dev)
+    launches, ar = main_path(torch, dev, params, prompt)
+    launches = _add(launches, longspec(torch, dev, params, prompt, ar))
+    del params
+    torch.cuda.empty_cache()
+    kernels = time_kernels(torch, dev, errs, launches)
     step_profile(torch, dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -113,7 +140,7 @@ def main() -> int:
 
 
 # ---------------------------------------------------------------------------
-# phases 2-3: kernels against their plain versions
+# phases 2-4: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def _cache_inputs(torch, dev, dtype, S, T, seed, q_scale=1.0, L=2, Hkv=8,
@@ -125,41 +152,38 @@ def _cache_inputs(torch, dev, dtype, S, T, seed, q_scale=1.0, L=2, Hkv=8,
     return q.to(dtype), k.to(dtype), v.to(dtype)
 
 
-def _hold(torch, fd, out, q, k, v, layer, valid, s_cap=None):
-    """out against the plain version in f32: (max abs err, max err / limit,
-    within the limit everywhere)."""
-    ref, limit = fd.plain_f32_and_limit(q, k, v, layer, valid, s_cap)
+def _hold(out, ref, limit):
+    """out against the plain version in f32 (ref) under the per-element
+    limit: (max abs err, max err / limit, within the limit everywhere)."""
     diff = (out.float() - ref).abs()
     return (float(diff.max()), float((diff / limit).max()),
             bool((diff <= limit).all()))
 
 
-def _fault_rejected(torch, fd, q, k, v, layer, valid, s_cap=None) -> bool:
-    """Whether the check rejects the output of a faulty kernel that skips
-    the last (diagonal) 64-slot tile of every row longer than
-    FAULT_MIN_LEN: the plain version over the slots below that tile,
-    rounded to the cache dtype."""
-    cut = torch.where(valid > FAULT_MIN_LEN, (valid - 1) // 64 * 64, valid)
-    faulty = fd.attention_plain(q.float(), k.float(), v.float(), layer,
-                                cut.to(torch.int32), s_cap).to(k.dtype)
-    return not _hold(torch, fd, faulty, q, k, v, layer, valid, s_cap)[2]
+def _check_out(torch, what, out, ref, limit, errs, ratios):
+    """Fail unless out is finite and within the limit; record its errors."""
+    if not torch.isfinite(out.float()).all():
+        fail(f"{what}: non-finite output")
+    errs[what], ratios[what], ok = _hold(out, ref, limit)
+    if not ok:
+        fail(f"{what}: max abs err {errs[what]} exceeds the limit "
+             f"({ratios[what]} times it)")
 
 
 def _check_case(torch, fd, what, out, q, k, v, layer, valid, s_cap, scale,
                 errs, ratios, faults):
     """Hold one kernel output against its plain version; for bf16 with rows
-    longer than FAULT_MIN_LEN also check that the limit catches a missed
+    longer than FAULT_MIN_LEN also check that the limit rejects the output
+    of a faulty kernel that skips each such row's last (diagonal) 64-slot
     tile (it must on peaked inputs, where outputs are O(1); on flat ones it
     is reported)."""
-    if not torch.isfinite(out.float()).all():
-        fail(f"{what}: non-finite output")
-    errs[what], ratios[what], ok = _hold(torch, fd, out, q, k, v, layer,
-                                         valid, s_cap)
-    if not ok:
-        fail(f"{what}: max abs err {errs[what]} exceeds the limit "
-             f"({ratios[what]} times it)")
+    ref, limit = fd.plain_f32_and_limit(q, k, v, layer, valid, s_cap)
+    _check_out(torch, what, out, ref, limit, errs, ratios)
     if k.dtype == torch.bfloat16 and bool((valid > FAULT_MIN_LEN).any()):
-        faults[what] = _fault_rejected(torch, fd, q, k, v, layer, valid, s_cap)
+        cut = torch.where(valid > FAULT_MIN_LEN, (valid - 1) // 64 * 64, valid)
+        faulty = fd.attention_plain(q.float(), k.float(), v.float(), layer,
+                                    cut.to(torch.int32), s_cap).to(k.dtype)
+        faults[what] = not _hold(faulty, ref, limit)[2]
         if scale == "peaked" and not faults[what]:
             fail(f"{what}: the limit does not reject a missed diagonal tile")
 
@@ -213,6 +237,93 @@ def check_decode(torch, dev):
     return main_err
 
 
+def _stream_rows(torch, dev, lens_after, T, sink):
+    """Bounds [B, T] of StreamingLLM draft rows: the sequences' lengths after
+    the step, a window of at most BUDGET - sink slots behind each, the sink,
+    each row causal up to its own slot."""
+    lens = torch.tensor(lens_after, dtype=torch.int32, device=dev)
+    hi = lens[:, None] - T + 1 + torch.arange(T, dtype=torch.int32,
+                                              device=dev)[None, :]
+    lo = torch.clamp(lens - (BUDGET - sink), min=sink)[:, None].expand_as(hi)
+    return torch.clamp(hi, max=sink), lo.contiguous(), hi
+
+
+def check_intervals(torch, dev):
+    from magicdec_tpu_torch.ops import flash_decode as fd
+    from magicdec_tpu_torch.ops.attention import decode_valid_upto
+
+    S = DRAFT_SLOTS
+    # row sets: the streaming draft (sink 16, windows of up to 1008 slots
+    # behind lengths that sit between compactions or below the budget), and
+    # a 128-slot sink (two full tiles) with gaps of up to 9 whole tiles
+    row_sets = {"stream": (SINK, [1061, 500, 1088, 1087, 1050, 100, 900, 1030]),
+                "wide_gap": (128, [1088, 1040, 900, 1088, 700, 1000, 1088, 300])}
+    errs, ratios, faults = {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for T in (1, 2):
+            for scale, qs in Q_SCALES.items():
+                q, k, v = _cache_inputs(torch, dev, dtype, S, T, seed=30 + T,
+                                        q_scale=qs)
+                for rows, (sink, lens) in row_sets.items():
+                    a, lo, hi = _stream_rows(torch, dev, lens, T, sink)
+                    if rows == "wide_gap":
+                        lo = torch.clamp(hi - 384, min=sink)
+                    kl, vl = k[1], v[1]
+                    # the sink K rows the draft reads apart (here other rows)
+                    k_sink = k[0, :, :sink].contiguous()
+                    out = fd.flash_decode_intervals(q, kl, vl, a, lo, hi,
+                                                    k_sink=k_sink)
+                    what = f"{name}_T{T}_{scale}_{rows}"
+                    ref, limit = fd.intervals_plain_f32_and_limit(
+                        q, kl, vl, a, lo, hi, k_sink)
+                    _check_out(torch, what, out, ref, limit, errs, ratios)
+                    if dtype != torch.bfloat16:
+                        continue
+                    # planted faults: a kernel that misses the window's last
+                    # (diagonal) tile of rows with long windows, or the sink
+                    long_ = (hi - lo) > 256
+                    cut = torch.where(long_, torch.maximum(lo, (hi - 1) // 64 * 64),
+                                      hi)
+                    planted = {"missed_window_tile": (a, cut),
+                               "missed_sink": (torch.zeros_like(a), hi)}
+                    for fault, (fa, fhi) in planted.items():
+                        bad = fd.intervals_plain(q.float(), kl.float(), vl.float(),
+                                                 fa, lo, fhi, k_sink.float()
+                                                 ).to(dtype)
+                        rejected = not _hold(bad, ref, limit)[2]
+                        faults[f"{what}_{fault}"] = rejected
+                        # required on peaked inputs; a 16-slot sink among
+                        # ~1000 slots may weigh less than the rounding bound
+                        required = scale == "peaked" and (
+                            fault == "missed_window_tile" or sink == 128)
+                        if required and not rejected:
+                            fail(f"intervals {what}: the limit does not reject "
+                                 f"the planted fault {fault}")
+        # bit-exact: intervals reducing to [0, hi) against the stacked kernel
+        q, k, v = _cache_inputs(torch, dev, dtype, 4224, 7, seed=12)
+        lens = torch.tensor([1000, 1081, 0, 511, 512, 7, 1024, 64],
+                            dtype=torch.int32, device=dev)
+        valid = decode_valid_upto(lens, 7)
+        full = fd.flash_decode_stacked(q, k, v, 1, valid)
+        for cap in (S, 4224):
+            kc, vc = k[1, :, :cap].contiguous(), v[1, :, :cap].contiguous()
+            for t0, T in ((0, 2), (2, 1), (5, 2)):
+                hi = valid[:, t0:t0 + T].contiguous()
+                out = fd.flash_decode_intervals(
+                    q[:, t0:t0 + T].contiguous(), kc, vc,
+                    torch.clamp(hi, max=SINK), torch.full_like(hi, SINK), hi,
+                    k_sink=kc[:, :SINK].contiguous())
+                if not torch.equal(out, full[:, t0:t0 + T]):
+                    fail(f"intervals {name}: rows {t0}..{t0 + T - 1} on a "
+                         f"{cap}-slot cache differ from flash_decode_stacked")
+    main_err = max(e for k_, e in errs.items() if k_.startswith("bfloat16"))
+    line(phase="intervals_vs_plain", S=S, max_abs_err=errs,
+         max_err_over_limit=ratios, planted_fault_rejected=faults,
+         bitexact_with_stacked=True)
+    return main_err
+
+
 def check_prefill(torch, dev):
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops.attention import decode_valid_upto
@@ -242,7 +353,7 @@ def check_prefill(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the card's path against the CPU plain path on a small model
+# phase 5: the card's path against the CPU plain path on a small model
 # ---------------------------------------------------------------------------
 
 def check_reference(torch, dev):
@@ -281,12 +392,24 @@ def check_reference(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 5-6: row-count numerics, the main path at llama-3.2-1b full width
+# phases 6-8: row-count numerics, the main path at llama-3.2-1b full width,
+# two-model SD
 # ---------------------------------------------------------------------------
 
+KERNELS = ("flash_decode_stacked", "flash_decode_intervals", "flash_prefill")
+
+
 def _counts(fd):
-    return {"flash_decode_stacked": fd.flash_decode_stacked.launches,
-            "flash_prefill": fd.flash_prefill.launches}
+    return {name: getattr(fd, name).launches for name in KERNELS}
+
+
+def _set_counts(fd, counts):
+    for name in KERNELS:
+        getattr(fd, name).launches = counts[name]
+
+
+def _add(a, b):
+    return {k: a[k] + b[k] for k in a}
 
 
 def gemm_rows(torch, dev, L=16):
@@ -344,114 +467,222 @@ def gemm_rows(torch, dev, L=16):
         fail(f"padded rows differ across row counts in {bad}")
 
 
-def main_path(torch, dev):
+def main_inputs(torch, dev):
+    """llama-3.2-1b's random bf16 weights (seed 0) and the prompts."""
     import numpy as np
 
-    from magicdec_tpu_torch.engine.backend import Engine
-    from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
-                                                generate_selfspec)
     from magicdec_tpu_torch.models import llama
     from magicdec_tpu_torch.models.config import ModelArgs
-    from magicdec_tpu_torch.ops import flash_decode as fd
 
     cfg = ModelArgs.from_name("llama-3.2-1b")
     t0 = time.perf_counter()
     params = llama.init_params(cfg, torch.bfloat16, scale=0.3, seed=0,
                                device=dev)
-    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, P))
     torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    chunks = P // 128
-    L = cfg.n_layer
+    line(phase="init", model="llama-3.2-1b", seconds=time.perf_counter() - t0)
+    return params, np.random.default_rng(7).integers(0, cfg.vocab_size, (B, P))
 
-    fd.flash_decode_stacked.launches = 0
-    fd.flash_prefill.launches = 0
-    runs = {}
+
+def _drive(torch, fd, name, fn, expect):
+    """Zero every kernel's launch count, run fn, read the counts and hold
+    them to expect(result); returns (result, counts, seconds)."""
+    _set_counts(fd, dict.fromkeys(KERNELS, 0))
+    t = time.perf_counter()
+    result = fn()
+    seconds = time.perf_counter() - t
+    used = _counts(fd)
+    want = expect(result)
+    if used != want:
+        fail(f"{name}: kernel launches {used}, the path implies {want}")
+    torch.cuda.empty_cache()
+    return result, used, seconds
+
+
+def _check_stream(torch, name, out, counts, ar, vocab):
+    """Invariant 1: the emitted tokens are the AR stream."""
+    out = out.cpu()
+    if out.min() < 0 or out.max() >= vocab:
+        fail(f"{name}: token ids out of range")
+    for b in range(B):
+        n = min(int(counts[b]), NEW)
+        if n <= 0 or not torch.equal(out[b, :n], ar[b, :n]):
+            fail(f"{name}: stream of sequence {b} differs from the AR "
+                 f"stream (invariant 1)")
+
+
+def main_path(torch, dev, params, prompt):
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
+                                                generate_selfspec)
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.ops import flash_decode as fd
+
+    cfg = ModelArgs.from_name("llama-3.2-1b")
+    L, prefill = cfg.n_layer, cfg.n_layer * (P // 128)
+    runs, total = {}, dict.fromkeys(KERNELS, 0)
+
+    def expect(spec):
+        def launches(result):
+            r = result[-1].rounds
+            decode = {None: L * (NEW - 1), "snapkv": L * (GAMMA + 1) * r,
+                      "streaming": L * r}[spec]
+            draft = L * GAMMA * r if spec == "streaming" else 0
+            return {"flash_prefill": prefill, "flash_decode_stacked": decode,
+                    "flash_decode_intervals": draft}
+        return launches
 
     def run(name, spec, budget):
-        before = _counts(fd)
-        eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,
-                     draft_budget=budget, window_size=WINDOW)
-        t = time.perf_counter()
-        if spec is None:
-            out, stats = generate_autoregressive(eng, prompt, NEW)
-            counts = torch.full((B,), NEW, dtype=torch.int32)
-        else:
-            out, counts, stats = generate_selfspec(eng, prompt, GAMMA, NEW)
-        total_s = time.perf_counter() - t
-        after = _counts(fd)
-        del eng
-        torch.cuda.empty_cache()
-        used = {k: after[k] - before[k] for k in after}
-        decode_expect = (L * (NEW - 1) if spec is None
-                         else L * (GAMMA + 1) * stats.rounds)
-        expect = {"flash_prefill": L * chunks,
-                  "flash_decode_stacked": decode_expect}
-        if used != expect:
-            fail(f"{name}: kernel launches {used}, the path implies {expect}")
-        out = out.cpu()
-        if out.min() < 0 or out.max() >= cfg.vocab_size:
-            fail(f"{name}: token ids out of range")
-        runs[name] = dict(out=out, counts=counts.cpu(), stats=stats,
-                          total_s=total_s, launches=used)
+        def go():
+            eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,
+                         draft_budget=budget, window_size=WINDOW,
+                         sink_size=SINK, draft_headroom=STREAM_HEADROOM)
+            if spec is None:
+                out, stats = generate_autoregressive(eng, prompt, NEW)
+                return out, torch.full((B,), NEW, dtype=torch.int32), stats
+            return generate_selfspec(eng, prompt, GAMMA, NEW)
+        (out, counts, stats), used, seconds = _drive(torch, fd, name, go,
+                                                     expect(spec))
+        runs[name] = dict(out=out.cpu(), counts=counts.cpu(), stats=stats,
+                          total_s=seconds, launches=used)
+        total.update(_add(total, used))
 
     run("ar", None, 0)
     run("snapkv", "snapkv", BUDGET)
     run("snapkv_full", "snapkv", P)
-    launches = _counts(fd)
+    run("streaming", "streaming", BUDGET)
+    run("streaming_full", "streaming", STREAM_FULL)
 
     ar = runs["ar"]["out"]
-    for name in ("snapkv", "snapkv_full"):
-        out, counts = runs[name]["out"], runs[name]["counts"]
-        for b in range(B):
-            n = min(int(counts[b]), NEW)
-            if n <= 0 or not torch.equal(out[b, :n], ar[b, :n]):
-                fail(f"{name}: stream of sequence {b} differs from the AR "
-                     f"stream (invariant 1)")
-    acc_full = runs["snapkv_full"]["stats"].acceptance_rate
-    if acc_full != 1.0:
-        fail(f"full-budget acceptance {acc_full} != 1.0 (invariant 2)")
+    for name in ("snapkv", "snapkv_full", "streaming", "streaming_full"):
+        _check_stream(torch, name, runs[name]["out"], runs[name]["counts"], ar,
+                      cfg.vocab_size)
+    for name in ("snapkv_full", "streaming_full"):
+        acc = runs[name]["stats"].acceptance_rate
+        if acc != 1.0:
+            fail(f"{name}: full-budget acceptance {acc} != 1.0 (invariant 2)")
+    if runs["streaming"]["stats"].compactions == 0:
+        fail("streaming: the draft window never compacted")
 
     def rate(r):
         s = r["stats"]
         return s.generated_tokens / s.wall_time_s
 
+    spec_runs = [k for k in runs if k != "ar"]
     line(phase="main_path", model="llama-3.2-1b", dtype="bfloat16", B=B, P=P,
-         new_tokens=NEW, gamma=GAMMA, budget=BUDGET, init_s=init_s,
-         ar_tok_s=rate(runs["ar"]), snapkv_tok_s=rate(runs["snapkv"]),
-         snapkv_full_tok_s=rate(runs["snapkv_full"]),
-         snapkv_acceptance=runs["snapkv"]["stats"].acceptance_rate,
-         snapkv_full_acceptance=acc_full,
-         snapkv_rounds=runs["snapkv"]["stats"].rounds,
-         snapkv_full_rounds=runs["snapkv_full"]["stats"].rounds,
+         new_tokens=NEW, gamma=GAMMA, budget=BUDGET, sink=SINK,
+         streaming_draft_slots=DRAFT_SLOTS, streaming_full_budget=STREAM_FULL,
+         tok_s={k: rate(r) for k, r in runs.items()},
+         acceptance={k: runs[k]["stats"].acceptance_rate for k in spec_runs},
+         rounds={k: runs[k]["stats"].rounds for k in spec_runs},
+         streaming_compactions={k: runs[k]["stats"].compactions
+                                for k in ("streaming", "streaming_full")},
          run_s={k: r["total_s"] for k, r in runs.items()},
          decode_s={k: r["stats"].wall_time_s for k, r in runs.items()},
          launches={k: r["launches"] for k, r in runs.items()},
          invariant1=True, invariant2=True)
-    return launches
+    return total, ar
+
+
+def longspec(torch, dev, params, prompt, ar):
+    """Two-model SD: llama-3.2-1b target; a self-draft over its full KV, and
+    a DRAFT_LAYERS-layer draft of the same widths with its own weights in
+    each draft mode."""
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.longspec import LongSpecEngine
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.ops import flash_decode as fd
+
+    cfg = ModelArgs.from_name("llama-3.2-1b")
+    small = cfg.replace(n_layer=DRAFT_LAYERS)
+    sparams = llama.init_params(small, torch.bfloat16, scale=0.3, seed=1,
+                                device=dev)
+    cases = {"self_full": (cfg, params, None, 0),
+             "small_full": (small, sparams, None, 0),
+             "small_snapkv": (small, sparams, "snapkv", BUDGET),
+             "small_streaming": (small, sparams, "streaming", BUDGET)}
+    L, chunks = cfg.n_layer, P // 128
+    res, total = {}, dict.fromkeys(KERNELS, 0)
+    for name, (dcfg, dparams, spec, budget) in cases.items():
+        Ld = dcfg.n_layer
+
+        def go():
+            target = Engine(cfg, params, batch_size=B, max_len=MAX_LEN)
+            draft = Engine(dcfg, dparams, batch_size=B, max_len=MAX_LEN,
+                           spec=spec, draft_budget=budget, window_size=WINDOW,
+                           sink_size=SINK, draft_headroom=STREAM_HEADROOM)
+            return LongSpecEngine(target, draft).generate(prompt, GAMMA, NEW)
+
+        def expect(result):
+            r = result[-1].rounds
+            draft = Ld * GAMMA * r
+            return {"flash_prefill": (L + Ld) * chunks,
+                    "flash_decode_stacked": L * r + (0 if spec == "streaming"
+                                                     else draft),
+                    "flash_decode_intervals": draft if spec == "streaming"
+                    else 0}
+
+        (out, counts, stats), used, seconds = _drive(torch, fd, name, go,
+                                                     expect)
+        _check_stream(torch, f"longspec {name}", out, counts, ar,
+                      cfg.vocab_size)
+        res[name] = dict(acceptance=stats.acceptance_rate, rounds=stats.rounds,
+                         tok_s=stats.generated_tokens / stats.wall_time_s,
+                         run_s=seconds, launches=used)
+        total = _add(total, used)
+    if res["self_full"]["acceptance"] != 1.0:
+        fail(f"longspec self-draft acceptance {res['self_full']['acceptance']}"
+             f" != 1.0")
+    line(phase="longspec", target="llama-3.2-1b", draft_layers=DRAFT_LAYERS,
+         budget=BUDGET, gamma=GAMMA, runs=res, lossless=True,
+         self_draft_acceptance=1.0)
+    return total
 
 
 # ---------------------------------------------------------------------------
-# phase 7: times at the main path's shapes
+# phase 9: times at the main path's shapes
 # ---------------------------------------------------------------------------
 
-def _time_ms(torch, fn, n_layers, reps=3, iters=32):
+def _time_ms(torch, fn, n_layers, reps=3, iters=32, graph=False):
     """Mean ms per call over `iters` calls cycling through the layers (the
-    caller's layers do not fit the 50 MB L2 together); best of `reps`."""
-    for i in range(n_layers):
-        fn(i)
+    caller's layers do not fit the 50 MB L2 together); best of `reps`.
+    graph=False: CUDA events around calls launched from Python, so a call
+    whose launches take the host longer than its work takes the device is
+    timed at the host's pace. graph=True: the calls are captured in one CUDA
+    graph and replayed, which times the device alone."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):       # warm-up: builds, kernel attributes
+        for i in range(n_layers):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            for i in range(iters):
+                fn(i % n_layers)
+        run = g.replay
+    else:
+        def run():
+            for i in range(iters):
+                fn(i % n_layers)
     best = float("inf")
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        for i in range(iters):
-            fn(i % n_layers)
+        run()
         end.record()
         torch.cuda.synchronize()
         best = min(best, start.elapsed_time(end) / iters)
     return best
+
+
+def _device_and_eager_ms(torch, fn, n_layers):
+    """(device ms per call from a replayed CUDA graph, eager ms per call)."""
+    return (_time_ms(torch, fn, n_layers, graph=True),
+            _time_ms(torch, fn, n_layers))
 
 
 def _sdpa(torch, q, k_cache, v_cache, layer, valid, ext):
@@ -467,7 +698,7 @@ def _sdpa(torch, q, k_cache, v_cache, layer, valid, ext):
                                           attn_mask=mask, enable_gqa=True)
 
 
-def time_kernels(torch, dev, decode_err, prefill_err, launches):
+def time_kernels(torch, dev, errs, launches):
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops.attention import decode_valid_upto
 
@@ -502,20 +733,91 @@ def time_kernels(torch, dev, decode_err, prefill_err, launches):
         span = int(valid.max())
         bytes_ = (B * span * Hkv * D * 2 + 2 * q.numel()) * item + valid.numel() * 4
         flops = 4 * int(valid.sum()) * Hq * D
-        t_k = _time_ms(torch, lambda l: fd.flash_decode_stacked(q, kc, vc, l, valid), L)
-        t_p = _time_ms(torch, lambda l: fd.attention_plain(q, kc, vc, l, valid), L)
-        t_l = _time_ms(torch, lambda l: _sdpa(torch, q, kc, vc, l, valid, S_c), L)
+        t_k, t_e = _device_and_eager_ms(
+            torch, lambda l: fd.flash_decode_stacked(q, kc, vc, l, valid), L)
+        t_p = _time_ms(torch, lambda l: fd.attention_plain(q, kc, vc, l, valid),
+                       L, graph=True)
+        t_l = _time_ms(torch, lambda l: _sdpa(torch, q, kc, vc, l, valid, S_c),
+                       L, graph=True)
         b_ms, b_by = bound(bytes_, flops)
-        extra[name] = dict(T=T, cached=length, S=S_c, ms=t_k, plain_ms=t_p,
-                           library_ms=t_l, bound_ms=b_ms, bound_by=b_by)
+        extra[name] = dict(T=T, cached=length, S=S_c, ms=t_k, eager_ms=t_e,
+                           plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                           bound_by=b_by)
     ar = extra["ar"]
     rows.append({"name": "flash_decode_stacked", "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/flash_decode.cu",
                  "replaces": "magicdec_tpu/ops/pallas/flash_decode.py:488",
                  "launches": launches["flash_decode_stacked"],
-                 "max_abs_err": decode_err, "ms": ar["ms"],
+                 "max_abs_err": errs["flash_decode_stacked"], "ms": ar["ms"],
                  "plain_ms": ar["plain_ms"], "bound_ms": ar["bound_ms"],
                  "bound_by": ar["bound_by"], "library_ms": ar["library_ms"]})
+
+    # intervals: the StreamingLLM draft steps (T=1, and T=2 re-feeding the
+    # last accepted token) on the 1088-slot draft cache with the window full
+    # (lengths 1060, between compactions: 16 sink + 1008 window slots)
+    kf = k[:, :, :DRAFT_SLOTS].contiguous()
+    vf = v[:, :, :DRAFT_SLOTS].contiguous()
+    sinks = [kf[(l + 1) % L, :, :SINK].contiguous() for l in range(L)]
+    k_read = [torch.cat([sinks[l], kf[l, :, SINK:]], dim=1) for l in range(L)]
+    slot = torch.arange(DRAFT_SLOTS, device=dev)
+    draft_shapes = {}
+    for T in (1, 2):
+        q = torch.randn((B, T, Hq, D), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+        a, lo, hi = _stream_rows(torch, dev, [1060] * B, T, SINK)
+        mask = ((slot < a[..., None]) | ((slot >= lo[..., None])
+                                          & (slot < hi[..., None])))[:, None]
+        # slots read once per sequence: [0, max a) u [min lo, max hi)
+        read = int((a.amax(1) + hi.amax(1) - lo.amin(1)).sum())
+        bytes_ = ((read * Hkv * D * 2 + 2 * q.numel()) * item
+                  + 3 * a.numel() * 4)
+        flops = 4 * int((a + hi - lo).sum()) * Hq * D
+
+        def sdpa(l):
+            import torch.nn.functional as F
+            kk = k_read[l].view(B, DRAFT_SLOTS, Hkv, D).transpose(1, 2)
+            vv = vf[l].view(B, DRAFT_SLOTS, Hkv, D).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk, vv, attn_mask=mask, enable_gqa=True)
+
+        t_k, t_e = _device_and_eager_ms(torch, lambda l: fd.flash_decode_intervals(
+            q, kf[l], vf[l], a, lo, hi, k_sink=sinks[l]), L)
+        t_p = _time_ms(torch, lambda l: fd.intervals_plain(
+            q, kf[l], vf[l], a, lo, hi, sinks[l]), L, graph=True)
+        t_l = _time_ms(torch, sdpa, L, graph=True)
+        b_ms, b_by = bound(bytes_, flops)
+        draft_shapes[f"T{T}"] = dict(attended=int((a + hi - lo)[0, -1]),
+                                     S=DRAFT_SLOTS, ms=t_k, eager_ms=t_e,
+                                     plain_ms=t_p, library_ms=t_l,
+                                     bound_ms=b_ms, bound_by=b_by)
+    # the sink twist of streaming_draft_attn, per layer and draft step:
+    # rotating the sink rows apart (what the port does) against copying the
+    # layer with the rotated rows written in (the JAX package's k_read)
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+    cos, sin = rope_cos_sin(ModelArgs.from_name("llama-3.2-1b"),
+                            torch.full((B, 1), 33, device=dev))
+
+    def twist(l):
+        return apply_rope(kf[l, :, :SINK].reshape(B, SINK, Hkv, D), cos, sin)
+
+    def twisted_copy(l):
+        k_l = kf[l].clone()
+        k_l[:, :SINK] = twist(l).reshape(B, SINK, Hkv * D)
+        return k_l
+
+    for what, f in (("sink_twist", twist), ("layer_copy_twist", twisted_copy)):
+        draft_shapes[f"{what}_ms"], draft_shapes[f"{what}_eager_ms"] = (
+            _device_and_eager_ms(torch, f, L))
+    del kf, vf, sinks, k_read
+    t1 = draft_shapes["T1"]
+    rows.append({"name": "flash_decode_intervals", "route": "cuda",
+                 "source": "magicdec_tpu_torch/csrc/flash_decode.cu",
+                 "replaces": "magicdec_tpu/ops/pallas/flash_decode.py:370",
+                 "launches": launches["flash_decode_intervals"],
+                 "max_abs_err": errs["flash_decode_intervals"], "ms": t1["ms"],
+                 "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
+                 "bound_by": t1["bound_by"], "library_ms": t1["library_ms"]})
 
     # prefill: the last 128-token chunk of P=4096 (s_cap 4096), the chunk
     # with the most work; every earlier chunk is a shorter walk
@@ -526,22 +828,23 @@ def time_kernels(torch, dev, decode_err, prefill_err, launches):
     span = int(valid.max())
     bytes_ = (B * span * Hkv * D * 2 + 2 * q.numel()) * item + valid.numel() * 4
     flops = 4 * int(valid.sum()) * Hq * D
-    t_k = _time_ms(torch, lambda l: fd.flash_prefill(q, k, v, l, valid, s_cap=P), L)
-    t_p = _time_ms(torch, lambda l: fd.attention_plain(q, k, v, l, valid, s_cap=P), L)
-    t_l = _time_ms(torch, lambda l: _sdpa(torch, q, k, v, l, valid, P), L)
+    t_k, t_e = _device_and_eager_ms(
+        torch, lambda l: fd.flash_prefill(q, k, v, l, valid, s_cap=P), L)
+    t_p = _time_ms(torch, lambda l: fd.attention_plain(q, k, v, l, valid,
+                                                       s_cap=P), L, graph=True)
+    t_l = _time_ms(torch, lambda l: _sdpa(torch, q, k, v, l, valid, P), L,
+                   graph=True)
     b_ms, b_by = bound(bytes_, flops)
     rows.append({"name": "flash_prefill", "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/flash_prefill.cu",
                  "replaces": "magicdec_tpu/ops/pallas/flash_decode.py:646",
                  "launches": launches["flash_prefill"],
-                 "max_abs_err": prefill_err, "ms": t_k, "plain_ms": t_p,
+                 "max_abs_err": errs["flash_prefill"], "ms": t_k, "plain_ms": t_p,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l})
-    # the timing launches are not the main path's
-    fd.flash_decode_stacked.launches = saved["flash_decode_stacked"]
-    fd.flash_prefill.launches = saved["flash_prefill"]
-    line(phase="times", decode_shapes=extra,
-         prefill_last_chunk=dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
-                                 bound_ms=b_ms, bound_by=b_by))
+    _set_counts(fd, saved)      # the timing launches are not the main path's
+    line(phase="times", decode_shapes=extra, intervals_shapes=draft_shapes,
+         prefill_last_chunk=dict(ms=t_k, eager_ms=t_e, plain_ms=t_p,
+                                 library_ms=t_l, bound_ms=b_ms, bound_by=b_by))
     return rows
 
 
@@ -596,8 +899,7 @@ def step_profile(torch, dev, steps=8):
         key = e.name[:50]
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-    fd.flash_decode_stacked.launches = saved["flash_decode_stacked"]
-    fd.flash_prefill.launches = saved["flash_prefill"]
+    _set_counts(fd, saved)
     line(phase="step_profile", steps=steps,
          wall_ms_per_step=plain_wall_ms / steps,
          profiled_wall_ms_per_step=wall_ms / steps,

@@ -6,6 +6,13 @@ then aliases them in place), the port writes into the preallocated tensors
 directly: appends are index writes into the cache, and rollback only rewinds
 the lengths, so slots past a length keep stale but finite data that the
 attention masks out.
+
+The StreamingLLM draft cache keeps sink + window slots with `draft_headroom`
+spare slots and compacts (gathers the live window down to the sink) once
+some sequence's length passes a trigger, as the JAX package does. Where the
+JAX package decides to compact on the device (lax.cond), the port's round
+loop reads the decision together with the flag it already reads once per
+round (compaction_needed), so compaction adds no host read.
 """
 
 from __future__ import annotations
@@ -135,3 +142,68 @@ def append_at_layer_uniform(cache: torch.Tensor, new: torch.Tensor,
     B, T = new.shape[:2]
     assert 0 <= start and start + T <= cache.shape[2], (start, T)
     cache[l, :, start:start + T] = new.reshape(B, T, -1).to(cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# StreamingLLM sink+window bookkeeping
+# ---------------------------------------------------------------------------
+
+def window_start(lengths: torch.Tensor, budget: int, sink: int) -> torch.Tensor:
+    """First live window slot of each sequence: max(sink, lengths - (budget -
+    sink)), so at most `budget` slots (sink + window) are ever attended."""
+    return torch.clamp(lengths - (budget - sink), min=sink)
+
+
+def streaming_positions(lengths: torch.Tensor, size: int, budget: int,
+                        sink: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Remapped rope positions and validity for a sink+window draft cache.
+
+    Slot s of sequence b (with lengths[b] physical entries) is a sink slot
+    (s < sink: position s, valid), a window slot (start <= s < lengths:
+    position sink + s - start) or invalid (evicted but not yet compacted, or
+    empty); start = window_start(lengths, budget, sink).
+    Returns (positions [B, size] int32, valid [B, size] bool)."""
+    slot = torch.arange(size, dtype=torch.int32, device=lengths.device)[None, :]
+    lens = lengths.to(torch.int32)[:, None]
+    start = window_start(lens, budget, sink)
+    in_sink = slot < torch.clamp(lens, max=sink)
+    in_window = (slot >= start) & (slot < lens)
+    positions = torch.where(slot < sink, slot, sink + slot - start)
+    valid = in_sink | in_window
+    return torch.where(valid, positions, 0).to(torch.int32), valid
+
+
+def compaction_needed(draft: DraftKVCache, slack_trigger: int) -> torch.Tensor:
+    """0-d bool on the draft's device: some sequence's length is past the
+    trigger, so streaming_compact would gather."""
+    return (draft.lengths > slack_trigger).any()
+
+
+def streaming_compact(draft: DraftKVCache, budget: int, sink: int,
+                      slack_trigger: int, need: bool | None = None) -> None:
+    """Amortised window compaction: gather sink + live window to the front
+    when some sequence's length exceeds `slack_trigger`.
+
+    Slot s takes slot s if s < sink, else start + s - sink; the gather goes
+    into new tensors (source and destination ranges overlap, so an in-place
+    parallel copy would race). lengths become min(lengths, budget) and
+    `evicted` grows by what was dropped, so slot s >= sink keeps holding
+    true position evicted + s. `need`: the caller's host copy of
+    compaction_needed (the round loop reads it with its own flag); None
+    reads it here."""
+    if need is None:
+        need = bool(compaction_needed(draft, slack_trigger))
+    if not need:
+        return
+    size = draft.size
+    dev = draft.lengths.device
+    slot = torch.arange(size, dtype=torch.int32, device=dev)[None, :]
+    lens = draft.lengths.to(torch.int32)[:, None]
+    start = window_start(lens, budget, sink)
+    src = torch.where(slot < sink, slot, start + slot - sink).clamp(0, size - 1)
+    b_idx = torch.arange(src.shape[0], device=dev)[:, None]
+    draft.k = draft.k[:, b_idx, src.long()]
+    draft.v = draft.v[:, b_idx, src.long()]
+    new_len = torch.clamp(draft.lengths, max=budget)
+    draft.evicted = (draft.evicted + draft.lengths - new_len).to(torch.int32)
+    draft.lengths = new_len.to(torch.int32)

@@ -1,7 +1,10 @@
-// Shared tile step of the two attention kernels (flash_decode.cu,
-// flash_prefill.cu): ragged-causal GQA attention of up to 2*MR query rows
-// of one KV head against 64-slot tiles of the packed stacked cache
-// [L, B, S, Hkv*D], with an f32 online softmax.
+// Shared tile step of the attention kernels (flash_decode.cu,
+// flash_prefill.cu): GQA attention of up to 2*MR query rows of one KV head
+// against 64-slot tiles of the packed cache [L, B, S, Hkv*D], with an f32
+// online softmax. Query row r attends to the slots of [0, a_r) u [lo_r, hi_r)
+// (the TPU kernels' one mask form): ragged-causal decode and prefill are the
+// case a = lo = 0, the StreamingLLM sink + window draft a = sink end,
+// lo = window start, hi = causal end.
 //
 // Numerics the engine's invariants depend on:
 //  * Every query row is computed by its own fixed sequence of operations
@@ -11,8 +14,11 @@
 //    T=gamma+1 verify, bit for bit.
 //  * Tiles start at fixed multiples of TILE slots and never depend on the
 //    cache capacity S, B, T or the SM count.
-//  * Masked slots get probability exactly 0; tiles past every row's bound
-//    are neither loaded nor computed (an identity for the online softmax).
+//  * Masked slots get probability exactly 0, so a tile masked for every
+//    row leaves (m, l, acc) as they were (alpha = exp(0) = 1, p = 0): tiles
+//    past every row's bound and tiles inside every row's gap [a, lo) are
+//    neither loaded nor computed, an exact identity. The two mask forms thus
+//    give the same bits wherever their valid sets agree.
 //  * P is rounded to the cache dtype before the P@V product and l sums the
 //    unrounded P, as the TPU kernels do.
 #pragma once
@@ -53,7 +59,7 @@ __device__ __forceinline__ void load_vec16(const T* __restrict__ src, float* dst
 }
 
 // Shared memory of one CTA holding R = 2*MR query rows, carved from one
-// dynamic allocation (all f32 but `hi`).
+// dynamic allocation (all f32 but the row bounds).
 template <int D>
 struct Smem {
   float* q;      // [R][D]       query rows (rows >= M are zero)
@@ -63,14 +69,15 @@ struct Smem {
   float* m;      // [R]          running row max
   float* l;      // [R]          running row sum
   float* alpha;  // [R]          this tile's rescale factor
-  int* hi;       // [R]          row bound: slots < hi are attended
-  int* hi_min;   // [1]          min / max of hi over the CTA's rows
-  int* hi_max;   // [1]
+  int* a;        // [R]          row bounds: slots of [0, a) u [lo, hi)
+  int* lo;       // [R]            are attended
+  int* hi;       // [R]
+  int* bnd;      // [6]          min / max over the CTA's rows of a, lo, hi
 
   static constexpr size_t bytes(int R) {
     return sizeof(float) * ((size_t)R * D + TILE * (D + 1) + TILE * D +
                             (size_t)R * TILE + 3 * (size_t)R) +
-           sizeof(int) * (R + 2);
+           sizeof(int) * (3 * (size_t)R + 6);
   }
   __device__ explicit Smem(int R) {
     extern __shared__ float4 smem_raw[];
@@ -82,36 +89,52 @@ struct Smem {
     m = f;        f += R;
     l = f;        f += R;
     alpha = f;    f += R;
-    hi = reinterpret_cast<int*>(f);
-    hi_min = hi + R;
-    hi_max = hi + R + 1;
+    a = reinterpret_cast<int*>(f);
+    lo = a + R;
+    hi = lo + R;
+    bnd = hi + R;
   }
 };
 
-// After q/hi/m/l are filled for rows < M: the CTA's min and max row bound.
+enum { A_MIN, A_MAX, LO_MIN, LO_MAX, HI_MIN, HI_MAX };
+
+// Whether query row r attends to slot col.
+template <int D>
+__device__ __forceinline__ bool attended(const Smem<D>& sm, int r, int col) {
+  return col < sm.a[r] || (col >= sm.lo[r] && col < sm.hi[r]);
+}
+
+// After q/a/lo/hi/m/l are filled for rows < M: the CTA's min and max of
+// each row bound.
 template <int D>
 __device__ __forceinline__ void row_bounds(const Smem<D>& sm, int M) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    int lo = 0x7fffffff, hi = 0;
-    for (int r = 0; r < M; ++r) {
-      lo = min(lo, sm.hi[r]);
-      hi = max(hi, sm.hi[r]);
+    const int* rows[3] = {sm.a, sm.lo, sm.hi};
+    for (int i = 0; i < 3; ++i) {
+      int mn = 0x7fffffff, mx = 0;
+      for (int r = 0; r < M; ++r) {
+        mn = min(mn, rows[i][r]);
+        mx = max(mx, rows[i][r]);
+      }
+      sm.bnd[2 * i] = mn;
+      sm.bnd[2 * i + 1] = mx;
     }
-    *sm.hi_min = lo;
-    *sm.hi_max = hi;
   }
   __syncthreads();
 }
 
 // One 64-slot tile of the online softmax for rows [0, M).
 //   kb, vb: this (layer, b) slot 0 at this head's columns; row_stride = Hkv*D
+//   ks:     K of slots < n_sink, read in place of kb's (the same layout;
+//           null when n_sink = 0)
 //   n_load: slots of the tile that are loaded (the rest are zero, masked)
 //   full:   every slot of the tile is valid for every row (no mask needed)
 //   acc:    this thread's rows' accumulators, row = threadIdx.x/TILE + NGRP*i
 template <typename T, int D, int MR>
 __device__ __forceinline__ void tile_step(const T* __restrict__ kb,
                                           const T* __restrict__ vb,
+                                          const T* __restrict__ ks, int n_sink,
                                           int64_t row_stride, int tile_start,
                                           int n_load, bool full, int M,
                                           float scale, const Smem<D>& sm,
@@ -126,8 +149,9 @@ __device__ __forceinline__ void tile_step(const T* __restrict__ kb,
     const int slot = idx / VPR, c = (idx % VPR) * VEC;
     float kv[VEC], vv[VEC];
     if (slot < n_load) {
-      const int64_t off = (int64_t)(tile_start + slot) * row_stride + c;
-      load_vec16(kb + off, kv);
+      const int col = tile_start + slot;
+      const int64_t off = (int64_t)col * row_stride + c;
+      load_vec16(col < n_sink ? ks + off : kb + off, kv);
       load_vec16(vb + off, vv);
     } else {
 #pragma unroll
@@ -156,7 +180,7 @@ __device__ __forceinline__ void tile_step(const T* __restrict__ kb,
 #pragma unroll
     for (int i = 0; i < MR; ++i) {
       const int r = rg + NGRP * i;
-      if (r < M) sm.p[r * TILE + j] = (full || col < sm.hi[r]) ? s[i] * scale : NEG_INF;
+      if (r < M) sm.p[r * TILE + j] = (full || attended(sm, r, col)) ? s[i] * scale : NEG_INF;
     }
   }
   __syncthreads();
@@ -170,8 +194,8 @@ __device__ __forceinline__ void tile_step(const T* __restrict__ kb,
     for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     const float m_old = sm.m[r];
     const float m_new = fmaxf(m_old, mx);
-    const bool v0 = full || tile_start + lane < sm.hi[r];
-    const bool v1 = full || tile_start + lane + 32 < sm.hi[r];
+    const bool v0 = full || attended(sm, r, tile_start + lane);
+    const bool v1 = full || attended(sm, r, tile_start + lane + 32);
     const float p0 = v0 ? expf(x0 - m_new) : 0.f;
     const float p1 = v1 ? expf(x1 - m_new) : 0.f;
     float sum = p0 + p1;
@@ -208,19 +232,28 @@ __device__ __forceinline__ void tile_step(const T* __restrict__ kb,
   __syncthreads();
 }
 
-// Walk the tiles of [start, end) that lie below the CTA's largest row bound.
+// Walk the tiles of [start, end) below the CTA's largest row bound, less
+// the tiles inside every row's gap [a, lo). The triage reads the CTA-wide
+// bounds only, so it is the same for every thread (no divergence around the
+// barriers) and conservative: a tile it keeps may still be masked for a row.
 template <typename T, int D, int MR>
 __device__ __forceinline__ void attend_range(const T* __restrict__ kb,
                                              const T* __restrict__ vb,
+                                             const T* __restrict__ ks, int n_sink,
                                              int64_t row_stride, int start,
                                              int end, int M, float scale,
                                              const Smem<D>& sm, float (&acc)[MR]) {
-  const int limit = min(end, *sm.hi_max);
-  const int hi_min = *sm.hi_min;
+  const int a_min = sm.bnd[A_MIN], a_max = sm.bnd[A_MAX];
+  const int lo_min = sm.bnd[LO_MIN], lo_max = sm.bnd[LO_MAX];
+  const int hi_min = sm.bnd[HI_MIN], hi_max = sm.bnd[HI_MAX];
+  const int limit = min(end, max(a_max, hi_max));
   for (int t0 = start; t0 < limit; t0 += TILE) {
+    const int t1 = t0 + TILE;
+    if (t0 >= a_max && (t1 <= lo_min || t0 >= hi_max)) continue;  // all gap
     const int n_load = min(TILE, limit - t0);
-    const bool full = t0 + TILE <= hi_min;
-    tile_step<T, D, MR>(kb, vb, row_stride, t0, n_load, full, M, scale, sm, acc);
+    const bool full = t1 <= a_min || (lo_max <= t0 && t1 <= hi_min);
+    tile_step<T, D, MR>(kb, vb, ks, n_sink, row_stride, t0, n_load, full, M,
+                        scale, sm, acc);
   }
 }
 

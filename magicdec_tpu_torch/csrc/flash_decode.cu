@@ -1,18 +1,28 @@
-// flash_decode_stacked for Hopper (sm_90a): ragged-causal GQA decode
-// attention of a small query block (T*G <= 64 rows per KV head) against one
-// layer of the stacked packed cache [L, B, S, Hkv*D].
+// Flash decode for Hopper (sm_90a): GQA decode attention of a small query
+// block (T*G <= 64 rows per KV head) against one layer of the packed cache
+// [L, B, S, Hkv*D], query row r attending to slots [0, a_r) u [lo_r, hi_r).
 //
-// Replaces magicdec_tpu/ops/pallas/flash_decode.py flash_decode_stacked
-// (pallas_call at :488). Bound on the H100: bytes. Each call streams the
-// K and V of every valid slot once (B * len * Hkv*D * 2 * itemsize) and
-// does ~2*T*G*D FLOPs per slot and head, far below the card's ~295 FLOP/byte
-// ridge. Design against that bound:
+// One split kernel serves two TPU kernels of magicdec_tpu/ops/pallas/
+// flash_decode.py: flash_decode_stacked (pallas_call at :488; ragged-causal,
+// a = lo = 0, read straight out of the stacked cache) and
+// flash_decode_intervals (pallas_call at :370; flat [B, S, Hkv*D] cache =
+// L = 1, the StreamingLLM sink + window mask). Sharing it is what makes a
+// sink + window draft at full budget give the verify's bits. The TPU
+// kernels' block-diagonal query embedding (an MXU workaround) is gone: each
+// CTA takes one KV head's columns. The intervals form may also read the K
+// of slots < n_sink from a separate [B, n_sink, Hkv*D] tensor (the draft's
+// rope-twisted sink rows), so no per-step copy of the cache layer is made.
+// Bound on the H100: bytes. Each call streams the K and V of every valid
+// slot once (B * len * Hkv*D * 2 * itemsize) and does ~2*T*G*D FLOPs per
+// slot and head, far below the card's ~295 FLOP/byte ridge. Design against
+// that bound:
 //  * Split-KV: one CTA per (KV split, KV head, b), so B=8 x Hkv=8 fills the
 //    132 SMs; a second kernel merges the splits. Each CTA reads its head's
 //    columns of its slot range exactly once (16-byte vector loads), and all
 //    G*T query rows of the head share that read.
-//  * The layer is a pointer offset, not a copy; no slot at or past a row
-//    bound (valid_upto) is read, so rolled-back tails cost nothing.
+//  * The layer is a pointer offset, not a copy; no slot at or past the
+//    CTA's largest row bound is read, so rolled-back tails cost nothing, and
+//    tiles inside every row's gap [a, lo) are skipped.
 // Numerics (the full-budget acceptance == 1.0 invariant):
 //  * Splits sit at fixed multiples of SPLIT slots and tiles at multiples of
 //    TILE, independent of S, B, T and the SM count, so a draft cache of
@@ -28,10 +38,14 @@ namespace mdt {
 constexpr int SPLIT = 512;  // slots per KV split: a global constant
 
 // grid (nsplit, Hkv, B). Partials: acc [B, Hkv, nsplit, M, D], ml [.., M, 2].
+// a_rows / lo_rows [B, T] may be null (= 0); ksink [B, n_sink, Hkv*D] may be
+// null when n_sink = 0.
 template <typename T, int D, int MR>
 __global__ void __launch_bounds__(NT)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
-                    const T* __restrict__ v_layer, const int* __restrict__ valid,
+                    const T* __restrict__ v_layer, const int* __restrict__ a_rows,
+                    const int* __restrict__ lo_rows, const int* __restrict__ hi_rows,
+                    const T* __restrict__ ksink, int n_sink,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int T_, int Hq, int Hkv, int S, int s_extent, float scale) {
   constexpr int R = 2 * MR;
@@ -50,7 +64,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
     sm.q[idx] = x;
   }
   for (int r = threadIdx.x; r < M; r += NT) {
-    sm.hi[r] = min(valid[b * T_ + r / G], s_extent);
+    const int i = b * T_ + r / G;
+    sm.a[r] = a_rows ? min(a_rows[i], s_extent) : 0;
+    sm.lo[r] = lo_rows ? lo_rows[i] : 0;
+    sm.hi[r] = min(hi_rows[i], s_extent);
     sm.m[r] = NEG_INF;
     sm.l[r] = 0.f;
   }
@@ -62,9 +79,10 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
   const int64_t row_stride = (int64_t)Hkv * D;
   const T* kb = k_layer + (int64_t)b * S * row_stride + h * D;
   const T* vb = v_layer + (int64_t)b * S * row_stride + h * D;
+  const T* ks = ksink ? ksink + (int64_t)b * n_sink * row_stride + h * D : nullptr;
   const int start = sp * SPLIT;
-  attend_range<T, D, MR>(kb, vb, row_stride, start, min(start + SPLIT, s_extent),
-                         M, scale, sm, acc);
+  attend_range<T, D, MR>(kb, vb, ks, n_sink, row_stride, start,
+                         min(start + SPLIT, s_extent), M, scale, sm, acc);
 
   const int64_t base = (((int64_t)b * Hkv + h) * nsplit + sp) * M;
   const int d = threadIdx.x % D, rg = threadIdx.x / D;
@@ -108,8 +126,17 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
   out[(((int64_t)b * T_ + t) * Hq + h * G + g) * D + d] = from_f32<T>(any ? a / l : 0.f);
 }
 
+// The bounds and the sink rows of one call.
+struct Rows {
+  const int* a;
+  const int* lo;
+  const int* hi;
+  const void* ksink;
+  int n_sink;
+};
+
 template <typename T, int MR>
-int launch_decode(const void* q, const void* k, const void* v, const int* valid,
+int launch_decode(const void* q, const void* k, const void* v, Rows rows,
                   void* out, float* part_acc, float* part_ml, int layer, int B,
                   int T_, int Hq, int Hkv, int S, int s_extent, cudaStream_t stream) {
   constexpr int D = 64;
@@ -127,8 +154,9 @@ int launch_decode(const void* q, const void* k, const void* v, const int* valid,
   const float scale = 1.0f / sqrtf((float)D);
   decode_split_kernel<T, D, MR><<<dim3(nsplit, Hkv, B), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k) + layer_off,
-      static_cast<const T*>(v) + layer_off, valid, part_acc, part_ml, T_, Hq, Hkv,
-      S, s_extent, scale);
+      static_cast<const T*>(v) + layer_off, rows.a, rows.lo, rows.hi,
+      static_cast<const T*>(rows.ksink), rows.n_sink, part_acc, part_ml, T_, Hq,
+      Hkv, S, s_extent, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int M = T_ * (Hq / Hkv);
@@ -138,12 +166,12 @@ int launch_decode(const void* q, const void* k, const void* v, const int* valid,
 }
 
 template <typename T>
-int dispatch_rows(const void* q, const void* k, const void* v, const int* valid,
+int dispatch_rows(const void* q, const void* k, const void* v, Rows rows,
                   void* out, float* part_acc, float* part_ml, int layer, int B,
                   int T_, int Hq, int Hkv, int S, int s_extent, cudaStream_t stream) {
   const int rows_per_group = (T_ * (Hq / Hkv) + NGRP - 1) / NGRP;
 #define MDT_LAUNCH(MR)                                                            \
-  return launch_decode<T, MR>(q, k, v, valid, out, part_acc, part_ml, layer, B,   \
+  return launch_decode<T, MR>(q, k, v, rows, out, part_acc, part_ml, layer, B,    \
                               T_, Hq, Hkv, S, s_extent, stream)
   if (rows_per_group <= 2) MDT_LAUNCH(2);
   if (rows_per_group <= 4) MDT_LAUNCH(4);
@@ -157,22 +185,26 @@ int dispatch_rows(const void* q, const void* k, const void* v, const int* valid,
 }  // namespace mdt
 
 // C interface (ctypes). dtype: 0 = float32, 1 = bfloat16. Shapes: q and out
-// [B, T, Hq, 64]; k, v [L, B, S, Hkv*64]; valid [B, T] int32; part_acc
-// [B, Hkv, nsplit, T*Hq/Hkv, 64] and part_ml [.., 2] f32 scratch with
-// nsplit = ceil(s_extent / 512). Returns the CUDA error code (0 = success).
+// [B, T, Hq, 64]; k, v [L, B, S, Hkv*64]; a, lo, hi [B, T] int32 (a and lo
+// may be null: 0); ksink [B, n_sink, Hkv*64] or null with n_sink = 0;
+// part_acc [B, Hkv, nsplit, T*Hq/Hkv, 64] and part_ml [.., 2] f32 scratch
+// with nsplit = ceil(s_extent / 512). Returns the CUDA error code (0 =
+// success).
 extern "C" int mdt_split_slots() { return mdt::SPLIT; }
 
-extern "C" int mdt_flash_decode_stacked(int dtype, const void* q, const void* k,
-                                        const void* v, const int* valid, void* out,
-                                        float* part_acc, float* part_ml, int layer,
-                                        int B, int T, int Hq, int Hkv, int S,
-                                        int s_extent, void* stream) {
+extern "C" int mdt_flash_decode(int dtype, const void* q, const void* k,
+                                const void* v, const int* a, const int* lo,
+                                const int* hi, const void* ksink, int n_sink,
+                                void* out, float* part_acc, float* part_ml,
+                                int layer, int B, int T, int Hq, int Hkv, int S,
+                                int s_extent, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const mdt::Rows rows{a, lo, hi, ksink, n_sink};
   if (dtype == 0)
-    return mdt::dispatch_rows<float>(q, k, v, valid, out, part_acc, part_ml, layer,
+    return mdt::dispatch_rows<float>(q, k, v, rows, out, part_acc, part_ml, layer,
                                      B, T, Hq, Hkv, S, s_extent, st);
   if (dtype == 1)
-    return mdt::dispatch_rows<__nv_bfloat16>(q, k, v, valid, out, part_acc, part_ml,
+    return mdt::dispatch_rows<__nv_bfloat16>(q, k, v, rows, out, part_acc, part_ml,
                                              layer, B, T, Hq, Hkv, S, s_extent, st);
   return (int)cudaErrorInvalidValue;
 }

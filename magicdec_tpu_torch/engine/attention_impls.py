@@ -7,7 +7,8 @@ every layer), computes the rope tables and row bounds once, and returns an
 stacked [L, B, S, Hkv*D] tensors, written in place at layer l, and reads go
 through the port's kernels (ops/flash_decode.py) straight out of the stacked
 cache. Small query blocks (T*G <= 64) take the decode kernel, prefill chunks
-the prefill kernel; on the CPU both run their plain version.
+the prefill kernel, and the StreamingLLM draft the two-interval decode
+kernel; on the CPU each runs its plain version.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from magicdec_tpu_torch import cache as cache_lib
 from magicdec_tpu_torch.models.config import ModelArgs
 from magicdec_tpu_torch.ops import snapkv as snapkv_ops
 from magicdec_tpu_torch.ops.attention import decode_valid_upto
-from magicdec_tpu_torch.ops.flash_decode import (flash_decode_stacked,
+from magicdec_tpu_torch.ops.flash_decode import (flash_decode_intervals,
+                                                 flash_decode_stacked,
                                                  flash_prefill)
 from magicdec_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 
@@ -156,6 +158,53 @@ def snapkv_draft_attn(config: ModelArgs, target_positions_base: torch.Tensor,
         slots.write(dk, k, l)
         slots.write(dv, v, l)
         return _flat(_attend_stacked(config, q, dk, dv, l, valid))
+
+    return impl
+
+
+def streaming_draft_attn(config: ModelArgs, draft_lengths_before: torch.Tensor,
+                         evicted: torch.Tensor, budget: int, sink: int, T: int,
+                         write_mask=None):
+    """Draft decode against a StreamingLLM sink+window cache; caches =
+    (dk, dv) of [L, B, size >= budget + slack, Hkv*D].
+
+    K is stored rotated at its true position (evicted + slot; sink slots at
+    their slot), bit-identical to what the target cache holds, and queries
+    rotate at their true position too. Rope attention depends only on
+    relative positions, and the StreamingLLM remap (sink at 0..sink-1, the
+    live window contiguous after it) shifts queries and window keys by the
+    same delta = sink - start - evicted, so only the sink keys need a twist:
+    they are read rotated by -delta. With nothing evicted delta = 0, the
+    twist is the identity and the draft reads what the target reads.
+
+    Each layer rotates its sink rows [B, sink, Hkv*D] apart and the
+    two-interval kernel reads slots < sink from them, so the cache layer is
+    never copied. Query (b, t) attends to [0, min(sink, q_slot + 1)) u
+    [start, q_slot + 1), q_slot = draft_lengths_before + t: the sink and
+    the live window, causal up to its own slot.
+    """
+    B = draft_lengths_before.shape[0]
+    Hkv, D = config.n_kv_head, config.head_dim
+    q_slot = _positions(draft_lengths_before, T)                     # [B, T]
+    rot = _Rotary(config, evicted.to(torch.int32)[:, None] + q_slot)
+    slots = _Slots(draft_lengths_before, T, write_mask)
+    start = cache_lib.window_start(draft_lengths_before.to(torch.int32) + T,
+                                   budget, sink)                     # [B]
+    delta = sink - start - evicted.to(torch.int32)                   # <= 0
+    cos, sin = rope_cos_sin(config, -delta[:, None])                 # [B, 1, D]
+    hi = q_slot + 1
+    sink_end = torch.clamp(hi, max=sink)
+    lo = start[:, None].expand(B, T).contiguous()
+
+    def impl(q, k, v, caches, l):
+        dk, dv = caches
+        q, k = rot(q), rot(k)
+        slots.write(dk, k, l)
+        slots.write(dv, v, l)
+        k_sink = apply_rope(dk[l, :, :sink].reshape(B, sink, Hkv, D), cos, sin)
+        ctx = flash_decode_intervals(q, dk[l], dv[l], sink_end, lo, hi,
+                                     k_sink=k_sink.reshape(B, sink, Hkv * D))
+        return _flat(ctx)
 
     return impl
 

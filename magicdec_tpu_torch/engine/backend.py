@@ -1,18 +1,21 @@
 """Engine: the runtime layer owning KV state and the step functions (port of
-the baseline and SnapKV parts of magicdec_tpu/engine/backend.py).
+the baseline, SnapKV and StreamingLLM parts of
+magicdec_tpu/engine/backend.py).
 
 The caches are preallocated tensors that every step writes in place;
 raggedness lives in length vectors, so rollback is length arithmetic.
 
 Public surface:
-  encode(input_ids)        chunked prefill (+ SnapKV draft build)
+  encode(input_ids)        chunked prefill (+ SnapKV/StreamingLLM draft build)
   inference(tokens)        target decode/verify without draft writes
   speculate(tokens)        one draft step (the gamma loop is in engine/spec.py)
   verify(tokens)           target verify, dual-writing the draft cache (SnapKV)
   rollback/set_lengths     length arithmetic on the cache state
+  compact_draft()          StreamingLLM window compaction (between rounds)
+  drop_cache()             free the target cache (a standalone draft's)
   clear_kv()               reset lengths (buffers are reused)
 
-Speculation modes: spec=None (baseline) and "snapkv".
+Speculation modes: spec=None (baseline), "snapkv" and "streaming".
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Optional
 
 import torch
 
+from magicdec_tpu_torch import cache as cache_lib
 from magicdec_tpu_torch.cache import DraftKVCache, KVCache
 from magicdec_tpu_torch.device import resolve_device
 from magicdec_tpu_torch.engine import attention_impls as impls
@@ -30,8 +34,7 @@ from magicdec_tpu_torch.models.config import ModelArgs
 
 # speculation modes of the JAX package that the port does not have yet, and
 # the ROADMAP.md item that ports each
-_NOT_PORTED = {"streaming": "Queue A6 (StreamingLLM self-spec)",
-               "quest": "Queue A10 (Quest)",
+_NOT_PORTED = {"quest": "Queue A10 (Quest)",
                "retro": "Queue A11 (RetroInfer and SqueezedAttention)",
                "squeeze": "Queue A11 (RetroInfer and SqueezedAttention)"}
 
@@ -83,6 +86,27 @@ def prefill_last_chunk_snapkv_step(params, config: ModelArgs, cache: KVCache,
 
 
 @torch.inference_mode()
+def build_streaming_draft_step(cache: KVCache, draft: DraftKVCache,
+                               budget: int, sink: int) -> None:
+    """Fill the StreamingLLM draft cache from the target cache: the sink
+    slots and the last budget - sink prefix slots, gathered verbatim (the
+    draft shares the target's weights and stores K rotated at its true
+    position, see attention_impls.streaming_draft_attn)."""
+    B = cache.lengths.shape[0]
+    dev = cache.lengths.device
+    lens = cache.lengths.to(torch.int32)
+    keep = torch.clamp(lens, max=budget)                              # [B]
+    slot = torch.arange(draft.size, dtype=torch.int32, device=dev)[None, :]
+    win_src = lens[:, None] - (keep[:, None] - slot)
+    src = torch.where(slot < sink, slot, win_src).clamp(0, cache.max_len - 1)
+    b_idx = torch.arange(B, device=dev)[:, None]
+    draft.k = cache.k[:, b_idx, src.long()].to(draft.k.dtype)
+    draft.v = cache.v[:, b_idx, src.long()].to(draft.v.dtype)
+    draft.lengths = keep
+    draft.evicted = torch.clamp(lens - keep, min=0).to(torch.int32)
+
+
+@torch.inference_mode()
 def target_decode_step(params, config: ModelArgs, cache: KVCache,
                        tokens) -> torch.Tensor:
     """Decode/verify without draft writes (the baseline)."""
@@ -118,20 +142,41 @@ def draft_decode_snapkv_step(params, config: ModelArgs, draft: DraftKVCache,
     return argmax_tokens(logits)
 
 
+@torch.inference_mode()
+def draft_decode_streaming_step(params, config: ModelArgs,
+                                draft: DraftKVCache, tokens, budget: int,
+                                sink: int) -> torch.Tensor:
+    """One StreamingLLM draft step (true-position K store, sink twist)."""
+    T = tokens.shape[1]
+    impl = impls.streaming_draft_attn(config, draft.lengths, draft.evicted,
+                                      budget, sink, T)
+    logits = llama.forward(params, config, tokens, impl, (draft.k, draft.v))
+    draft.lengths = draft.lengths + T
+    return argmax_tokens(logits)
+
+
 # ---------------------------------------------------------------------------
 # Engine
 # ---------------------------------------------------------------------------
 
 class Engine:
+    """Owns the target cache and, with spec set, the draft cache.
+
+    SnapKV sizes its draft cache at encode (budget plus the slots the target
+    has left, so no draft append is dropped); StreamingLLM keeps
+    draft_budget + draft_headroom slots and compacts once a length passes
+    size - draft_headroom // 2."""
+
     def __init__(self, config: ModelArgs, params, *, batch_size: int,
                  max_len: int, spec: Optional[str] = None,
                  draft_budget: int = 0, window_size: int = 32,
+                 sink_size: int = 16, draft_headroom: int = 64,
                  prefill_chunk: int = 128,
                  kv_dtype=None, device=None):
         if spec in _NOT_PORTED:
             raise NotImplementedError(
                 f"spec={spec!r} is not ported yet: ROADMAP.md {_NOT_PORTED[spec]}")
-        if spec not in (None, "snapkv"):
+        if spec not in (None, "snapkv", "streaming"):
             raise ValueError(f"unknown spec mode {spec!r}")
         if spec and draft_budget <= 0:
             raise ValueError("speculation needs draft_budget > 0")
@@ -147,14 +192,34 @@ class Engine:
         self.spec = spec
         self.draft_budget = draft_budget
         self.window_size = window_size
+        self.sink_size = sink_size
+        self.draft_headroom = draft_headroom
         self.prefill_chunk = prefill_chunk
         self.kv_dtype = kv_dtype or w.dtype
-        c = config
-        self.cache = KVCache.create(c.n_layer, batch_size, self.max_len,
+        self._create_cache()
+        # SnapKV: sized by encode; StreamingLLM: budget + headroom slots
+        self.draft: Optional[DraftKVCache] = None
+        if spec == "streaming":
+            self._new_draft(draft_budget + draft_headroom)
+        self._draft_round_start_lengths = None
+
+    def _create_cache(self):
+        c = self.config
+        self.cache = KVCache.create(c.n_layer, self.batch_size, self.max_len,
                                     c.n_kv_head, c.head_dim, self.kv_dtype,
                                     self.device)
-        self.draft: Optional[DraftKVCache] = None    # sized by encode
-        self._draft_round_start_lengths = None
+
+    def _new_draft(self, size: int):
+        c = self.config
+        self.draft = DraftKVCache.create(c.n_layer, self.batch_size, size,
+                                         c.n_kv_head, c.head_dim,
+                                         self.kv_dtype, self.device)
+
+    def drop_cache(self):
+        """Free the target cache (recreated by the next encode): a
+        compressed standalone draft needs only its budget cache after
+        prefill."""
+        self.cache = None
 
     def _size_draft(self, prefix_len: int):
         """The SnapKV draft cache for a prefix of prefix_len tokens: the
@@ -163,10 +228,7 @@ class Engine:
         keeps (a dropped draft append would make draft and verify differ)."""
         size = self.draft_budget + self.max_len - prefix_len
         if self.draft is None or self.draft.size != size:
-            c = self.config
-            self.draft = DraftKVCache.create(
-                c.n_layer, self.batch_size, size, c.n_kv_head, c.head_dim,
-                self.kv_dtype, self.device)
+            self._new_draft(size)
 
     def _tokens(self, t) -> torch.Tensor:
         return torch.as_tensor(t, dtype=torch.int32, device=self.device)
@@ -175,7 +237,10 @@ class Engine:
 
     def encode(self, input_ids) -> torch.Tensor:
         """Chunked prefill; returns the first generated token [B, 1]. The last
-        chunk builds the SnapKV draft cache."""
+        chunk builds the SnapKV draft cache; StreamingLLM gathers its draft
+        cache from the target cache afterwards."""
+        if self.cache is None:
+            self._create_cache()
         input_ids = self._tokens(input_ids)
         B, P = input_ids.shape
         if B != self.batch_size:
@@ -201,6 +266,9 @@ class Engine:
                 next_tok = prefill_chunk_step(self.params, self.config,
                                               self.cache, tok, cap=cap,
                                               start=i * chunk)
+        if self.spec == "streaming":
+            build_streaming_draft_step(self.cache, self.draft,
+                                       self.draft_budget, self.sink_size)
         if self.draft is not None:
             self._draft_round_start_lengths = self.draft.lengths
         return next_tok
@@ -218,8 +286,13 @@ class Engine:
         return self.inference(tokens)
 
     def speculate(self, tokens) -> torch.Tensor:
-        """One SnapKV draft step: the first speculated token sits at absolute
-        position target length + tokens already speculated this round."""
+        """One draft step. SnapKV: the first speculated token sits at
+        absolute position target length + tokens already speculated this
+        round. StreamingLLM: positions follow from the draft cache."""
+        if self.spec == "streaming":
+            return draft_decode_streaming_step(
+                self.params, self.config, self.draft, self._tokens(tokens),
+                self.draft_budget, self.sink_size)
         offset = self.draft.lengths - self._draft_round_start_lengths
         return draft_decode_snapkv_step(self.params, self.config, self.draft,
                                         self._tokens(tokens),
@@ -243,10 +316,24 @@ class Engine:
         if draft is not None:
             self.draft.lengths = self._tokens(draft)
 
+    def compaction_trigger(self) -> int:
+        """StreamingLLM compacts once some draft length passes this."""
+        return self.draft.size - self.draft_headroom // 2
+
+    def compact_draft(self, need: bool | None = None):
+        """StreamingLLM window compaction (between rounds). `need`: the
+        host copy of cache.compaction_needed if the caller read it; None
+        reads it here."""
+        if self.spec == "streaming":
+            cache_lib.streaming_compact(self.draft, self.draft_budget,
+                                        self.sink_size,
+                                        self.compaction_trigger(), need)
+
     def clear_kv(self):
         zero = torch.zeros(self.batch_size, dtype=torch.int32,
                            device=self.device)
-        self.cache.set_lengths(zero)
+        if self.cache is not None:
+            self.cache.set_lengths(zero)
         if self.draft is not None:
             self.draft.lengths = zero.clone()
             self.draft.evicted = zero.clone()

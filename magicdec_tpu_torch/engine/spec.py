@@ -1,12 +1,13 @@
-"""Speculative decoding control loops (port of the baseline and SnapKV parts
-of magicdec_tpu/engine/spec.py).
+"""Speculative decoding control loops (port of the baseline, SnapKV and
+StreamingLLM parts of magicdec_tpu/engine/spec.py).
 
-A round is gamma draft steps on the budget cache, one dual-write verify of
-gamma+1 tokens, vectorized cumprod acceptance, a length-only rollback, the
-output scatter and the bonus pick, all on the device. Where the JAX package
-runs the rounds inside one lax.while_loop, the port runs a Python loop over
-rounds with one host read per round (of the flag that ends the loop), as
-the JAX package's fused=False driver does.
+A round is gamma draft steps on the budget cache, one verify of gamma+1
+tokens (SnapKV's also writes the draft cache), vectorized cumprod
+acceptance, a length-only rollback, the output scatter and the bonus pick,
+all on the device. Where the JAX package runs the rounds inside one
+lax.while_loop, the port runs a Python loop over rounds with one host read
+per round (of the flag that ends the loop, and for StreamingLLM of whether
+to compact first), as the JAX package's fused=False loop does.
 
 Acceptance semantics (as in the JAX package):
   * a drafted token equal to the target argmax and not EOS is accepted;
@@ -24,6 +25,7 @@ from dataclasses import dataclass
 
 import torch
 
+from magicdec_tpu_torch import cache as cache_lib
 from magicdec_tpu_torch.cache import DraftKVCache, KVCache
 from magicdec_tpu_torch.engine import attention_impls as impls
 from magicdec_tpu_torch.engine.backend import Engine
@@ -101,6 +103,57 @@ def snapkv_round(params, config, cache: KVCache, draft: DraftKVCache,
                                    accept_nums=accept)
 
 
+@torch.inference_mode()
+def streaming_round(params, config, cache: KVCache, draft: DraftKVCache,
+                    buffer0, last_acc_tok, stale, output, gen_counts, eot,
+                    gamma: int, budget: int, sink: int):
+    """One StreamingLLM self-speculation round. Caches and output are written
+    in place; returns (bonus [B, 1], last_acc [B, 1], stale [B], gen_counts,
+    info).
+
+    At entry draft.lengths is the slot of last_acc_tok (the newest accepted
+    token), which is re-fed with the round's input, so the first draft step
+    always has T=2. stale [B] bool: last_acc_tok's slot was never written
+    (only after a fully accepted round: the last drafted token is not
+    appended by the draft loop). The re-feed writes that slot only then: K/V
+    computed at a prefill chunk's shape differ in low bits from K/V computed
+    at a decode step's, and overwriting a prefill-written slot would break
+    the full-budget bit-exactness."""
+    lenT0, lenD0 = cache.lengths, draft.lengths
+
+    def step(lens, tokens, write_mask=None):
+        T = tokens.shape[1]
+        impl = impls.streaming_draft_attn(config, lens, draft.evicted, budget,
+                                          sink, T, write_mask)
+        logits = llama.forward(params, config, tokens, impl,
+                               (draft.k, draft.v), last_only=True)
+        return lens + T, argmax_tokens(logits)
+
+    mask0 = torch.stack([stale, torch.ones_like(stale)], dim=1)
+    lens, nxt = step(lenD0, torch.cat([last_acc_tok, buffer0], dim=1), mask0)
+    drafted = [nxt]
+    for _ in range(gamma - 1):
+        lens, nxt = step(lens, nxt)
+        drafted.append(nxt)
+    buffer = torch.cat([buffer0] + drafted, dim=1)          # [B, gamma+1]
+
+    # verify: target only (a StreamingLLM verify never writes the draft)
+    impl = impls.target_attn(config, lenT0, gamma + 1)
+    logits = llama.forward(params, config, buffer, impl, (cache.k, cache.v))
+    target_tokens = argmax_tokens(logits)
+
+    accept, bonus, gen_counts, terminal, accepted = _accept_and_update(
+        buffer, target_tokens, eot, gamma, output, gen_counts)
+    cache.lengths = lenT0 + accept
+    # last_acc sat at lenD0 and buffer[j] at lenD0 + 1 + j: the newest
+    # accepted token buffer[accept - 1] is at lenD0 + accept
+    draft.lengths = lenD0 + accept
+    last_acc = torch.gather(buffer, 1, (accept[:, None] - 1).long())
+    stale = accept == gamma + 1
+    return bonus, last_acc, stale, gen_counts, dict(
+        terminal=terminal, accepted_drafts=accepted, accept_nums=accept)
+
+
 @dataclass
 class SpecStats:
     rounds: int = 0
@@ -108,6 +161,7 @@ class SpecStats:
     total_accepted_drafts: int = 0
     generated_tokens: int = 0
     wall_time_s: float = 0.0
+    compactions: int = 0        # StreamingLLM draft-window gathers
 
     @property
     def acceptance_rate(self) -> float:
@@ -173,14 +227,17 @@ def generate_autoregressive(engine: Engine, input_ids, max_new_tokens: int,
 def generate_selfspec(engine: Engine, input_ids, gamma: int,
                       max_new_tokens: int, eot_ids=()
                       ) -> tuple[torch.Tensor, torch.Tensor, SpecStats]:
-    """SnapKV self-speculation driver. Returns (output [B, cap], gen_counts
-    [B], stats) with cap = max_new_tokens + gamma + 2. Rounds run while no
-    sequence hit EOS, some sequence has fewer than max_new_tokens tokens and
-    the target cache has room for gamma + 1 more: the JAX fused loop's
-    condition, read on the host once per round."""
-    if engine.spec != "snapkv":
-        raise ValueError(f"generate_selfspec needs spec='snapkv', "
-                         f"not {engine.spec!r}")
+    """Self-speculative generation (SnapKV or StreamingLLM). Returns (output
+    [B, cap], gen_counts [B], stats) with cap = max_new_tokens + gamma + 2.
+    Rounds run while no sequence hit EOS, some sequence has fewer than
+    max_new_tokens tokens and the target cache has room for gamma + 1 more:
+    the JAX fused loop's condition, read on the host once per round. For
+    StreamingLLM that read also says whether to compact the draft window
+    before the round."""
+    if engine.spec not in ("snapkv", "streaming"):
+        raise ValueError(f"generate_selfspec needs spec='snapkv' or "
+                         f"'streaming', not {engine.spec!r}")
+    streaming = engine.spec == "streaming"
     dev = engine.device
     input_ids = torch.as_tensor(input_ids, dtype=torch.int32, device=dev)
     B = input_ids.shape[0]
@@ -190,6 +247,11 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
     gen_counts = torch.zeros(B, dtype=torch.int32, device=dev)
 
     buffer0 = engine.encode(input_ids)
+    if streaming:
+        # invariant: draft.lengths is the slot of the newest accepted token
+        last_acc = input_ids[:, -1:]
+        stale = torch.zeros(B, dtype=torch.bool, device=dev)
+        engine.draft.lengths = engine.draft.lengths - 1
     stats = SpecStats()
     accepted = torch.zeros((), dtype=torch.int64, device=dev)
     terminal = torch.zeros((), dtype=torch.bool, device=dev)
@@ -199,11 +261,23 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
     while True:
         go = (~terminal & (gen_counts.min() < max_new_tokens)
               & (engine.cache.lengths.max() + gamma + 1 <= max_len))
+        if streaming:
+            trigger = engine.compaction_trigger()
+            go, need = torch.stack(
+                [go, cache_lib.compaction_needed(engine.draft, trigger)]).tolist()
         if not bool(go):
             break
-        buffer0, gen_counts, info = snapkv_round(
-            engine.params, engine.config, engine.cache, engine.draft, buffer0,
-            output, gen_counts, eot, gamma)
+        if streaming:
+            engine.compact_draft(need)
+            stats.compactions += need
+            buffer0, last_acc, stale, gen_counts, info = streaming_round(
+                engine.params, engine.config, engine.cache, engine.draft,
+                buffer0, last_acc, stale, output, gen_counts, eot, gamma,
+                engine.draft_budget, engine.sink_size)
+        else:
+            buffer0, gen_counts, info = snapkv_round(
+                engine.params, engine.config, engine.cache, engine.draft,
+                buffer0, output, gen_counts, eot, gamma)
         stats.rounds += 1
         accepted = accepted + info["accepted_drafts"]
         terminal = terminal | info["terminal"]

@@ -1,19 +1,24 @@
-"""Flash attention over the stacked packed KV cache: the decode and prefill
-kernels of the port, each with its plain PyTorch version and a launch count.
+"""Flash attention over the packed KV cache: the decode and prefill kernels
+of the port, each with its plain PyTorch version and a launch count.
 
 `flash_decode_stacked` replaces magicdec_tpu/ops/pallas/flash_decode.py
-flash_decode_stacked (pallas_call at :488) and `flash_prefill` replaces
-flash_prefill there (pallas_call at :646). Both are hand-written CUDA C++
-for sm_90a (csrc/flash_decode.cu, csrc/flash_prefill.cu, built by
-ops/_build.py), templated on float32 and bfloat16. What bounds each on the
-H100 and what its design does about it is noted at the top of its source.
+flash_decode_stacked (pallas_call at :488), `flash_decode_intervals` (and
+the flat `flash_decode` over it) replaces flash_decode_intervals there
+(pallas_call at :370), and `flash_prefill` replaces flash_prefill (pallas_call
+at :646). All are hand-written CUDA C++ for sm_90a (csrc/flash_decode.cu,
+csrc/flash_prefill.cu, built by ops/_build.py), templated on float32 and
+bfloat16; the two decode wrappers launch one split kernel, so a sink + window
+draft and a ragged-causal verify give the same bits on the same valid slots.
+What bounds each on the H100 and what its design does about it is noted at
+the top of its source.
 
 The wrappers take the JAX package's layouts: q [B, T, Hq, D] (rotated),
-k/v caches [L, B, S, Hkv*D], `layer` an int, valid_upto [B, T] int32 —
-query (b, t) attends to slots < valid_upto[b, t] — and s_cap bounding the
-attended slots (callers guarantee valid_upto <= s_cap). On tensors on the
-CPU a wrapper runs the plain version (`attention_plain`, the dense oracle on
-the layer slice); on CUDA tensors it launches its kernel or raises.
+stacked k/v caches [L, B, S, Hkv*D] with `layer` an int (flat caches
+[B, S, Hkv*D] for the intervals form), valid_upto [B, T] int32 — query
+(b, t) attends to slots < valid_upto[b, t] — and s_cap bounding the attended
+slots (callers guarantee valid_upto <= s_cap). On tensors on the CPU a
+wrapper runs the plain version (the dense oracle on the layer slice); on
+CUDA tensors it launches its kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ import ctypes
 import torch
 
 from magicdec_tpu_torch.ops import _build
-from magicdec_tpu_torch.ops.attention import masked_attention
+from magicdec_tpu_torch.ops.attention import (masked_attention,
+                                              masked_attention_general)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIM = 64
@@ -44,6 +50,38 @@ def attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     return masked_attention(q.to(k_cache.dtype), k, v, valid_upto)
 
 
+def intervals_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                    v_cache: torch.Tensor, sink_end: torch.Tensor,
+                    lo: torch.Tensor, hi: torch.Tensor,
+                    k_sink: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain version of flash_decode_intervals: dense attention over the
+    flat cache [B, S, Hkv*D] with the two-interval mask, query (b, t)
+    attending to slots [0, sink_end) u [lo, hi); with k_sink [B, n, Hkv*D]
+    the K of slots < n is k_sink's. Returns [B, T, Hq, D] in the cache
+    dtype."""
+    B, S, HD = k_cache.shape
+    D = q.shape[-1]
+    if k_sink is not None:
+        k_cache = torch.cat([k_sink.to(k_cache.dtype),
+                             k_cache[:, k_sink.shape[1]:]], dim=1)
+    slot = torch.arange(S, device=k_cache.device)
+    mask = ((slot < sink_end[..., None])
+            | ((slot >= lo[..., None]) & (slot < hi[..., None])))
+    return masked_attention_general(q.to(k_cache.dtype),
+                                    k_cache.reshape(B, S, HD // D, D),
+                                    v_cache.reshape(B, S, HD // D, D), mask)
+
+
+def _ref_and_limit(plain, q, k, v):
+    """plain(q, k, v) in float32 and the per-element limit on |kernel -
+    plain| that the kernels' arithmetic allows (see plain_f32_and_limit)."""
+    ref = plain(q.float(), k.float(), v.float())
+    if k.dtype == torch.float32:
+        return ref, 2e-5 + 2e-5 * ref.abs()
+    ref_abs = plain(q.float(), k.float(), v.float().abs())
+    return ref, 1.1 * 2.0 ** -8 * (ref.abs() + ref_abs) + 1e-5
+
+
 def plain_f32_and_limit(q: torch.Tensor, k_cache: torch.Tensor,
                         v_cache: torch.Tensor, layer: int,
                         valid_upto: torch.Tensor, s_cap: int | None = None):
@@ -62,13 +100,23 @@ def plain_f32_and_limit(q: torch.Tensor, k_cache: torch.Tensor,
     compared, so a kernel that drops or mis-masks a tile fails it even where
     the softmax is flat and outputs are small.
     Returns (ref f32, limit f32), both [B, T, Hq, D]."""
-    args = (q.float(), k_cache.float())
-    ref = attention_plain(*args, v_cache.float(), layer, valid_upto, s_cap)
-    if k_cache.dtype == torch.float32:
-        return ref, 2e-5 + 2e-5 * ref.abs()
-    ref_abs = attention_plain(*args, v_cache.float().abs(), layer, valid_upto,
-                              s_cap)
-    return ref, 1.1 * 2.0 ** -8 * (ref.abs() + ref_abs) + 1e-5
+    return _ref_and_limit(
+        lambda q_, k_, v_: attention_plain(q_, k_, v_, layer, valid_upto,
+                                           s_cap), q, k_cache, v_cache)
+
+
+def intervals_plain_f32_and_limit(q: torch.Tensor, k_cache: torch.Tensor,
+                                  v_cache: torch.Tensor,
+                                  sink_end: torch.Tensor, lo: torch.Tensor,
+                                  hi: torch.Tensor,
+                                  k_sink: torch.Tensor | None = None):
+    """plain_f32_and_limit for flash_decode_intervals (flat cache, two
+    intervals, optional sink K rows): the same limit, since the kernel is
+    the same split kernel."""
+    ks = None if k_sink is None else k_sink.float()
+    return _ref_and_limit(
+        lambda q_, k_, v_: intervals_plain(q_, k_, v_, sink_end, lo, hi, ks),
+        q, k_cache, v_cache)
 
 
 def _check(q, k_cache, v_cache, layer, valid_upto):
@@ -125,10 +173,10 @@ _I = ctypes.c_int
 
 def _lib_decode() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
-    fn = lib.mdt_flash_decode_stacked
+    fn = lib.mdt_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _P]
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
+                       _I, _I, _I, _I, _I, _P]
         fn.restype = _I
         lib.mdt_split_slots.restype = _I
     return lib
@@ -141,6 +189,34 @@ def _lib_prefill() -> ctypes.CDLL:
         fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
     return lib
+
+
+def _decode_launch(q, k_cache, v_cache, layer, hi, ext, a=None, lo=None,
+                   k_sink=None) -> torch.Tensor:
+    """Launch the split decode kernel on checked operands (stacked caches);
+    returns [B, T, Hq, D] in the cache dtype."""
+    B, T, Hq, D = q.shape
+    _, _, S, HD = k_cache.shape
+    Hkv = HD // D
+    if T * (Hq // Hkv) > 64:
+        raise ValueError(f"T*G = {T * (Hq // Hkv)} > 64: use flash_prefill")
+    lib = _lib_decode()
+    nsplit = -(-ext // lib.mdt_split_slots())   # the kernel's fixed split size
+    M = T * (Hq // Hkv)
+    out = torch.empty_like(q)
+    part_acc = torch.empty((B, Hkv, nsplit, M, D), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, Hkv, nsplit, M, 2), dtype=torch.float32,
+                          device=q.device)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    rc = lib.mdt_flash_decode(
+        _DTYPE_CODES[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
+        v_cache.data_ptr(), ptr(a), ptr(lo), hi.data_ptr(), ptr(k_sink),
+        0 if k_sink is None else k_sink.shape[1], out.data_ptr(),
+        part_acc.data_ptr(), part_ml.data_ptr(), layer, B, T, Hq, Hkv, S, ext,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    _raise_on(rc, "flash decode launch")
+    return out
 
 
 def flash_decode_stacked(q: torch.Tensor, k_cache: torch.Tensor,
@@ -159,31 +235,70 @@ def flash_decode_stacked(q: torch.Tensor, k_cache: torch.Tensor,
     if _on_cpu(q, k_cache, v_cache, valid_upto):
         return attention_plain(q, k_cache, v_cache, layer, valid_upto, s_cap)
     q = _check(q, k_cache, v_cache, layer, valid_upto)
-    B, T, Hq, D = q.shape
-    _, _, S, HD = k_cache.shape
-    Hkv = HD // D
-    if T * (Hq // Hkv) > 64:
-        raise ValueError(f"T*G = {T * (Hq // Hkv)} > 64: use flash_prefill")
-    ext = S if s_cap is None else min(s_cap, S)
-    lib = _lib_decode()
-    nsplit = -(-ext // lib.mdt_split_slots())   # the kernel's fixed split size
-    M = T * (Hq // Hkv)
-    out = torch.empty_like(q)
-    part_acc = torch.empty((B, Hkv, nsplit, M, D), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, Hkv, nsplit, M, 2), dtype=torch.float32,
-                          device=q.device)
-    rc = lib.mdt_flash_decode_stacked(
-        _DTYPE_CODES[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), valid_upto.data_ptr(), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), layer, B, T, Hq, Hkv, S, ext,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    _raise_on(rc, "flash_decode_stacked launch")
+    S = k_cache.shape[2]
+    out = _decode_launch(q, k_cache, v_cache, layer, valid_upto,
+                         S if s_cap is None else min(s_cap, S))
     flash_decode_stacked.launches += 1
     return out
 
 
 flash_decode_stacked.launches = 0
+
+
+def flash_decode_intervals(q: torch.Tensor, k_cache: torch.Tensor,
+                           v_cache: torch.Tensor, sink_end: torch.Tensor,
+                           lo: torch.Tensor, hi: torch.Tensor,
+                           k_sink: torch.Tensor | None = None) -> torch.Tensor:
+    """Two-interval decode attention over a flat cache: q [B, T, Hq, D]
+    (T*G <= 64), k/v [B, S, Hkv*D], sink_end/lo/hi [B, T] int32 — query
+    (b, t) attends to slots [0, sink_end) u [lo, hi). k_sink [B, n, Hkv*D]
+    (optional): the K of slots < n is read from it in place of k_cache's
+    (the StreamingLLM draft's rope-twisted sink rows, so the cache layer is
+    never copied). Returns [B, T, Hq, D] in the cache dtype.
+
+    Replaces the TPU kernel flash_decode_intervals (pallas_call at
+    magicdec_tpu/ops/pallas/flash_decode.py:370) without its return_lse
+    option. It launches flash_decode_stacked's split kernel with the two
+    intervals, so it keeps that kernel's bound (bytes), splits, tiles and
+    merge order; tiles inside every row's gap are skipped."""
+    if _on_cpu(q, k_cache, v_cache, sink_end, lo, hi):
+        return intervals_plain(q, k_cache, v_cache, sink_end, lo, hi, k_sink)
+    if k_cache.dim() != 3:
+        raise ValueError(f"flat cache [B, S, Hkv*D] expected, got "
+                         f"{tuple(k_cache.shape)}")
+    kc, vc = k_cache.unsqueeze(0), v_cache.unsqueeze(0)
+    q = _check(q, kc, vc, 0, hi)
+    for name, t in (("sink_end", sink_end), ("lo", lo)):
+        if (t.dtype != torch.int32 or t.shape != hi.shape
+                or t.device != hi.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 tensor of "
+                             f"shape {tuple(hi.shape)} on {hi.device}")
+    if k_sink is not None:
+        B, S, HD = k_cache.shape
+        if (k_sink.dim() != 3 or k_sink.shape[0] != B or k_sink.shape[2] != HD
+                or k_sink.shape[1] > S or k_sink.dtype != k_cache.dtype
+                or k_sink.device != k_cache.device
+                or not k_sink.is_contiguous() or k_sink.data_ptr() % 16):
+            raise ValueError(f"k_sink {tuple(k_sink.shape)} {k_sink.dtype}: "
+                             f"contiguous [B, n <= S, Hkv*D] in the cache "
+                             f"dtype, 16-byte aligned, on the cache's device")
+    out = _decode_launch(q, kc, vc, 0, hi, k_cache.shape[1], a=sink_end,
+                         lo=lo, k_sink=k_sink)
+    flash_decode_intervals.launches += 1
+    return out
+
+
+flash_decode_intervals.launches = 0
+
+
+def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
+                 v_cache: torch.Tensor, valid_upto: torch.Tensor
+                 ) -> torch.Tensor:
+    """Ragged-causal flash decode over a flat cache [B, S, Hkv*D]: query
+    (b, t) attends to slots < valid_upto[b, t] (flash_decode_intervals with
+    empty sink and window start 0, as the JAX package's flash_decode)."""
+    zero = torch.zeros_like(valid_upto)
+    return flash_decode_intervals(q, k_cache, v_cache, zero, zero, valid_upto)
 
 
 def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
