@@ -19,41 +19,61 @@ exits non-zero):
                 a missed sink; and T=1/T=2 rows with intervals reducing to
                 [0, hi) must give the bits of flash_decode_stacked's T=7
                 rows (flat caches of 1088 and 4224 slots)
-  4. prefill    flash_prefill vs its plain version, T=128 chunks at several
+  4. masked     flash_decode_stacked_masked vs its plain version on the
+                Quest draft's round buffer (NS=896 top columns + a 192-slot
+                tail: R=1088), T in {1, 2}, bf16 and f32, flat and peaked,
+                random 70% top bits, ragged tails; the limit must reject the
+                kernel run with an all-ones colmask (a kernel that ignores
+                the bits), and with an all-ones colmask and a = lo = 0 the
+                masked kernel must give flash_decode_stacked's bits
+  5. gather     page_gather bit-exact against its plain version (7 of the 33
+                pages of a 4224-slot layer, repeated and out-of-order pages),
+                bf16 and f32, into new tensors and into a round buffer's top
+                region
+  6. prefill    flash_prefill vs its plain version, T=128 chunks at several
                 s_cap buckets, bf16 and f32, flat and peaked softmax.
-                Phases 2-4 hold each output against the plain version in f32
-                with the per-element limit of fd.plain_f32_and_limit (the
-                same bound for the intervals form), and check that the limit
-                rejects an output that misses each long row's last 64-slot
-                tile.
-  5. reference  a small f32 model: logits of the card's path (kernels, cuBLAS)
-                vs the CPU plain path
-  6. gemm rows  each row-wise product of a decode step at llama-3.2-1b
+                Phases 2-4 and 6 hold each output against the plain version
+                in f32 with the per-element limit of fd.plain_f32_and_limit
+                (the same bound for the intervals and masked forms), and
+                check that the limit rejects an output that misses each long
+                row's last 64-slot tile.
+  7. reference  a small f32 model: logits of the card's path (kernels, cuBLAS)
+                vs the CPU plain path; and Quest on it (B=2, P=512, 32 new
+                tokens, gamma 3, budget P + 128 = full coverage): lossless
+                and accepting >= 0.9
+  8. gemm rows  each row-wise product of a decode step at llama-3.2-1b
                 widths: do M=B rows get the bits of the same rows inside
                 M=B*(gamma+1), unpadded and padded to 64 rows, and the ms of
                 each (the padding's cost)
-  7. main path  llama-3.2-1b at full width (random bf16 weights from a seeded
+  9. main path  llama-3.2-1b at full width (random bf16 weights from a seeded
                 torch.Generator), B=8, P=4096, 64 new tokens, gamma=6:
                 generate_autoregressive, generate_selfspec with SnapKV
-                (budget 1024 and full budget = P) and with StreamingLLM (sink
+                (budget 1024 and full budget = P), with StreamingLLM (sink
                 16, budget 1024, whose 1088-slot draft window compacts, and
-                full budget P + 64 + gamma + 4). Every speculative stream
-                must equal the AR stream, both full budgets must accept
-                exactly 1.0, and each run's kernel launch counts (zeroed
-                before it) must be those its path implies.
-  8. longspec   two-model SD with llama-3.2-1b as the target: a self-draft
+                full budget P + 64 + gamma + 4) and with Quest (budget 1024:
+                7 pages + a 128-row tail, and full coverage P + 128; each
+                compacts its tail once). Every speculative stream must equal
+                the AR stream, SnapKV's and StreamingLLM's full budgets must
+                accept exactly 1.0 (Quest's full coverage is printed: its
+                draft reads the pages in another order than the verify), and
+                each run's kernel launch counts (zeroed before it) must be
+                those its path implies.
+ 10. longspec   two-model SD with llama-3.2-1b as the target: a self-draft
                 (the same weights, full KV) must accept exactly 1.0, and a
                 2-layer draft of the same widths with its own weights must
                 be lossless in each draft mode (full, snapkv 1024,
                 streaming 1024); launch counts as the path implies.
-  9. times      each kernel at the main path's shapes: kernel, plain version,
+ 11. times      each kernel at the main path's shapes: kernel, plain version,
                 bound (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s bf16) and
-                scaled_dot_product_attention as a yardstick (the port never
-                calls it), each on the device (32 calls replayed from a CUDA
-                graph); the kernel also launched from Python (eager_ms, the
-                host's launch pace included); the StreamingLLM sink twist
-                against a whole-layer copy
- 10. profile    device-busy share of AR decode steps (torch.profiler)
+                one PyTorch call on the same work as a yardstick (the port
+                never calls it: scaled_dot_product_attention for attention,
+                index_select for the gather), each on the device (32 calls
+                replayed from a CUDA graph); the kernel also launched from
+                Python (eager_ms, the host's launch pace included); the
+                StreamingLLM sink twist against a whole-layer copy
+ 12. profile    device-busy share, launches, top kernels and top host ops
+                of an AR step and of a SnapKV and a Quest round at budget
+                1024 (torch.profiler)
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels, and the last line {"ok": true, "device": {...}}.
 
@@ -81,6 +101,11 @@ STREAM_HEADROOM = 64                        # the Engine's draft_headroom
 DRAFT_SLOTS = BUDGET + STREAM_HEADROOM      # the StreamingLLM draft cache
 STREAM_FULL = P + NEW + GAMMA + 4           # a budget that evicts nothing
 DRAFT_LAYERS = 2                            # the longspec phase's small draft
+QUEST_PAGE, QUEST_TAIL = 128, 128           # Engine's quest_page, latest_k
+QUEST_NS = (BUDGET // QUEST_PAGE - QUEST_TAIL // QUEST_PAGE) * QUEST_PAGE
+QUEST_WCAP = -(-(QUEST_TAIL + 8 * (GAMMA + 2)) // 8) * 8  # the tail region
+QUEST_R = QUEST_NS + QUEST_WCAP             # the round buffer: 896 + 192
+QUEST_FULL = P + QUEST_PAGE                 # full coverage: every page
 # query scales of the kernel checks: logits of std 0.5 (a flat softmax over
 # thousands of slots, outputs ~0.02) and of std 3 (a peaked one, outputs ~1)
 Q_SCALES = {"flat": 1.0, "peaked": 6.0}
@@ -117,8 +142,11 @@ def main() -> int:
 
     errs = {"flash_decode_stacked": check_decode(torch, dev),
             "flash_decode_intervals": check_intervals(torch, dev),
+            "flash_decode_stacked_masked": check_masked(torch, dev),
+            "page_gather": check_page_gather(torch, dev),
             "flash_prefill": check_prefill(torch, dev)}
     check_reference(torch, dev)
+    quest_small_f32(torch, dev)
     gemm_rows(torch, dev)
     params, prompt = main_inputs(torch, dev)
     launches, ar = main_path(torch, dev, params, prompt)
@@ -140,7 +168,7 @@ def main() -> int:
 
 
 # ---------------------------------------------------------------------------
-# phases 2-4: kernels against their plain versions
+# phases 2-6: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def _cache_inputs(torch, dev, dtype, S, T, seed, q_scale=1.0, L=2, Hkv=8,
@@ -324,6 +352,102 @@ def check_intervals(torch, dev):
     return main_err
 
 
+def _quest_rows(torch, dev, T, seed, top_share=0.7, L=2):
+    """A Quest draft's colmask [L, B, 1, QUEST_R] (top bits set with
+    probability top_share, tail bits 1) and bounds [B, T]: row t attends the
+    top region's bits and tail columns [NS, NS + tail + t + 1), ragged
+    tails up to the full tail region."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cm = (torch.rand((L, B, 1, QUEST_R), generator=g, device=dev)
+          < top_share).to(torch.int32)
+    cm[..., QUEST_NS:] = 1
+    tail = torch.tensor([128, 184, 3, 150, QUEST_WCAP - T, 129, 60, 170],
+                        dtype=torch.int32, device=dev)
+    hi = QUEST_NS + tail[:, None] + torch.arange(1, T + 1, dtype=torch.int32,
+                                                 device=dev)
+    return cm, torch.full_like(hi, QUEST_NS), hi
+
+
+def check_masked(torch, dev):
+    from magicdec_tpu_torch.ops import flash_decode as fd
+    from magicdec_tpu_torch.ops.attention import decode_valid_upto
+
+    errs, ratios, faults = {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for T in (1, 2):
+            cm, ns, hi = _quest_rows(torch, dev, T, seed=40 + T)
+            ones = torch.ones_like(cm)
+            for scale, qs in Q_SCALES.items():
+                q, k, v = _cache_inputs(torch, dev, dtype, QUEST_R, T,
+                                        seed=50 + T, q_scale=qs)
+                for layer in (0, 1):
+                    what = f"{name}_T{T}_{scale}_l{layer}"
+                    ref, limit = fd.stacked_masked_plain_f32_and_limit(
+                        q, k, v, layer, cm, ns, ns, hi)
+                    out = fd.flash_decode_stacked_masked(q, k, v, layer, cm,
+                                                         ns, ns, hi)
+                    _check_out(torch, what, out, ref, limit, errs, ratios)
+                    # planted fault: the kernel blind to the bits
+                    blind = fd.flash_decode_stacked_masked(q, k, v, layer,
+                                                           ones, ns, ns, hi)
+                    faults[what] = not _hold(blind, ref, limit)[2]
+                    if not faults[what]:
+                        fail(f"masked {what}: the limit does not reject the "
+                             f"kernel run with an all-ones colmask")
+        # one kernel: all-ones bits and a = lo = 0 give the stacked bits
+        q, k, v = _cache_inputs(torch, dev, dtype, QUEST_R, 7, seed=13)
+        valid = decode_valid_upto(torch.tensor(
+            [1000, 1081, 0, 511, 512, 7, 1024, 64], dtype=torch.int32,
+            device=dev), 7)
+        zero = torch.zeros_like(valid)
+        ones = torch.ones((2, B, 1, QUEST_R), dtype=torch.int32, device=dev)
+        for layer in (0, 1):
+            if not torch.equal(
+                    fd.flash_decode_stacked_masked(q, k, v, layer, ones, zero,
+                                                   zero, valid),
+                    fd.flash_decode_stacked(q, k, v, layer, valid)):
+                fail(f"masked {name}: all-ones bits with a = lo = 0 differ "
+                     f"from flash_decode_stacked")
+    main_err = max(e for k_, e in errs.items() if k_.startswith("bfloat16"))
+    line(phase="masked_vs_plain", R=QUEST_R, NS=QUEST_NS, max_abs_err=errs,
+         max_err_over_limit=ratios, all_ones_colmask_rejected=faults,
+         bitexact_with_stacked=True)
+    return main_err
+
+
+def check_page_gather(torch, dev):
+    from magicdec_tpu_torch.ops.page_gather import page_gather, page_gather_plain
+
+    S, n = 4224, QUEST_NS // QUEST_PAGE
+    g = torch.Generator(device=dev).manual_seed(60)
+    pages = torch.randint(0, S // QUEST_PAGE, (B, n), generator=g, device=dev,
+                          dtype=torch.int32)
+    pages[0] = torch.arange(n, 0, -1, device=dev)      # out of order
+    pages[1] = 5                                       # one page repeated
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        _, k, v = _cache_inputs(torch, dev, dtype, S, 1, seed=61)
+        bufs = torch.zeros((2, 2, B, QUEST_R, k.shape[-1]), dtype=dtype,
+                           device=dev)
+        for layer in (0, 1):
+            want = page_gather_plain(k, v, layer, pages, QUEST_PAGE)
+            got = page_gather(k, v, layer, pages, QUEST_PAGE)
+            tops = [buf[layer, :, :QUEST_NS].view(B, n, QUEST_PAGE, -1)
+                    for buf in bufs]
+            page_gather(k, v, layer, pages, QUEST_PAGE, out=tops)
+            ok = (all(torch.equal(a, b) for a, b in zip(got, want))
+                  and all(torch.equal(a, b) for a, b in zip(tops, want))
+                  and not bool(bufs[:, layer, :, QUEST_NS:].any()))
+            if not ok:
+                fail(f"page_gather {name} layer {layer}: not bit-exact")
+            res[f"{name}_l{layer}"] = True
+    line(phase="page_gather_vs_plain", pages=[B, n], page=QUEST_PAGE, S=S,
+         bitexact=res)
+    return 0.0
+
+
 def check_prefill(torch, dev):
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops.attention import decode_valid_upto
@@ -353,7 +477,8 @@ def check_prefill(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the card's path against the CPU plain path on a small model
+# phase 7: the card's path against the CPU plain path on a small model, and
+# Quest on that model
 # ---------------------------------------------------------------------------
 
 def check_reference(torch, dev):
@@ -391,21 +516,84 @@ def check_reference(torch, dev):
          decode_logits_err=errs[1], tol=1e-3)
 
 
+def quest_small_f32(torch, dev):
+    """Quest at full coverage on the small f32 model of check_reference, at
+    the JAX package's test settings (tests/test_quest.py: B=2, P=512, 32 new
+    tokens, gamma 3, budget P + 128): the draft reads every page, in another
+    order than the verify, so acceptance is near 1.0, not exactly 1.0."""
+    import numpy as np
+
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
+                                                generate_selfspec)
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+
+    cfg = ModelArgs.from_name("llama-3.2-1b").replace(
+        n_layer=2, dim=256, n_head=4, n_kv_head=2, intermediate_size=512,
+        vocab_size=1024)
+    params = llama.init_params(cfg, torch.float32, scale=0.3, seed=1,
+                               device=dev)
+    Bs, Ps, new, gamma = 2, 512, 32, 3
+    prompt = np.random.default_rng(3).integers(0, cfg.vocab_size, (Bs, Ps))
+    kw = dict(batch_size=Bs, max_len=Ps + new + gamma + 16)
+    ar, _ = generate_autoregressive(Engine(cfg, params, **kw), prompt, new)
+    L = cfg.n_layer
+
+    def go():
+        eng = Engine(cfg, params, spec="quest", draft_budget=Ps + QUEST_PAGE,
+                     latest_k=QUEST_TAIL, **kw)
+        return generate_selfspec(eng, prompt, gamma, new)
+
+    def expect(result):
+        r = result[-1].rounds
+        return dict(_zero(), flash_prefill=L * Ps // 128,
+                    flash_decode_stacked=L * r, page_gather=L * r,
+                    flash_decode_stacked_masked=L * gamma * r)
+
+    (out, counts, stats), used, _ = _drive(torch, "quest_small_f32", go,
+                                           expect)
+    out, ar = out.cpu(), ar.cpu()
+    for b in range(Bs):
+        n = min(int(counts[b]), new)
+        if not torch.equal(out[b, :n], ar[b, :n]):
+            fail(f"quest_small_f32: sequence {b} differs from the AR stream")
+    if stats.acceptance_rate < 0.9:
+        fail(f"quest_small_f32: full-coverage acceptance "
+             f"{stats.acceptance_rate} < 0.9")
+    line(phase="quest_small_f32", B=Bs, P=Ps, new_tokens=new, gamma=gamma,
+         budget=Ps + QUEST_PAGE, acceptance=stats.acceptance_rate,
+         rounds=stats.rounds, launches=used, lossless=True)
+
+
 # ---------------------------------------------------------------------------
-# phases 6-8: row-count numerics, the main path at llama-3.2-1b full width,
+# phases 8-10: row-count numerics, the main path at llama-3.2-1b full width,
 # two-model SD
 # ---------------------------------------------------------------------------
 
-KERNELS = ("flash_decode_stacked", "flash_decode_intervals", "flash_prefill")
+KERNELS = ("flash_decode_stacked", "flash_decode_intervals",
+           "flash_decode_stacked_masked", "page_gather", "flash_prefill")
 
 
-def _counts(fd):
-    return {name: getattr(fd, name).launches for name in KERNELS}
+def _wrappers():
+    """Each kernel's wrapper, which counts its launches."""
+    from magicdec_tpu_torch.ops import flash_decode as fd
+    from magicdec_tpu_torch.ops import page_gather as pg
+    return {name: getattr(pg if name == "page_gather" else fd, name)
+            for name in KERNELS}
 
 
-def _set_counts(fd, counts):
-    for name in KERNELS:
-        getattr(fd, name).launches = counts[name]
+def _counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _set_counts(counts):
+    for name, fn in _wrappers().items():
+        fn.launches = counts[name]
+
+
+def _zero():
+    return dict.fromkeys(KERNELS, 0)
 
 
 def _add(a, b):
@@ -483,14 +671,14 @@ def main_inputs(torch, dev):
     return params, np.random.default_rng(7).integers(0, cfg.vocab_size, (B, P))
 
 
-def _drive(torch, fd, name, fn, expect):
+def _drive(torch, name, fn, expect):
     """Zero every kernel's launch count, run fn, read the counts and hold
     them to expect(result); returns (result, counts, seconds)."""
-    _set_counts(fd, dict.fromkeys(KERNELS, 0))
+    _set_counts(_zero())
     t = time.perf_counter()
     result = fn()
     seconds = time.perf_counter() - t
-    used = _counts(fd)
+    used = _counts()
     want = expect(result)
     if used != want:
         fail(f"{name}: kernel launches {used}, the path implies {want}")
@@ -515,32 +703,35 @@ def main_path(torch, dev, params, prompt):
     from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
                                                 generate_selfspec)
     from magicdec_tpu_torch.models.config import ModelArgs
-    from magicdec_tpu_torch.ops import flash_decode as fd
 
     cfg = ModelArgs.from_name("llama-3.2-1b")
     L, prefill = cfg.n_layer, cfg.n_layer * (P // 128)
-    runs, total = {}, dict.fromkeys(KERNELS, 0)
+    runs, total = {}, _zero()
 
     def expect(spec):
         def launches(result):
             r = result[-1].rounds
             decode = {None: L * (NEW - 1), "snapkv": L * (GAMMA + 1) * r,
-                      "streaming": L * r}[spec]
-            draft = L * GAMMA * r if spec == "streaming" else 0
-            return {"flash_prefill": prefill, "flash_decode_stacked": decode,
-                    "flash_decode_intervals": draft}
+                      "streaming": L * r, "quest": L * r}[spec]
+            draft = L * GAMMA * r
+            return dict(_zero(), flash_prefill=prefill,
+                        flash_decode_stacked=decode,
+                        flash_decode_intervals=draft * (spec == "streaming"),
+                        flash_decode_stacked_masked=draft * (spec == "quest"),
+                        page_gather=L * r * (spec == "quest"))
         return launches
 
     def run(name, spec, budget):
         def go():
             eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,
                          draft_budget=budget, window_size=WINDOW,
-                         sink_size=SINK, draft_headroom=STREAM_HEADROOM)
+                         sink_size=SINK, draft_headroom=STREAM_HEADROOM,
+                         latest_k=QUEST_TAIL, quest_page=QUEST_PAGE)
             if spec is None:
                 out, stats = generate_autoregressive(eng, prompt, NEW)
                 return out, torch.full((B,), NEW, dtype=torch.int32), stats
             return generate_selfspec(eng, prompt, GAMMA, NEW)
-        (out, counts, stats), used, seconds = _drive(torch, fd, name, go,
+        (out, counts, stats), used, seconds = _drive(torch, name, go,
                                                      expect(spec))
         runs[name] = dict(out=out.cpu(), counts=counts.cpu(), stats=stats,
                           total_s=seconds, launches=used)
@@ -551,31 +742,34 @@ def main_path(torch, dev, params, prompt):
     run("snapkv_full", "snapkv", P)
     run("streaming", "streaming", BUDGET)
     run("streaming_full", "streaming", STREAM_FULL)
+    run("quest", "quest", BUDGET)
+    run("quest_full", "quest", QUEST_FULL)
 
     ar = runs["ar"]["out"]
-    for name in ("snapkv", "snapkv_full", "streaming", "streaming_full"):
+    spec_runs = [k for k in runs if k != "ar"]
+    for name in spec_runs:
         _check_stream(torch, name, runs[name]["out"], runs[name]["counts"], ar,
                       cfg.vocab_size)
     for name in ("snapkv_full", "streaming_full"):
         acc = runs[name]["stats"].acceptance_rate
         if acc != 1.0:
             fail(f"{name}: full-budget acceptance {acc} != 1.0 (invariant 2)")
-    if runs["streaming"]["stats"].compactions == 0:
-        fail("streaming: the draft window never compacted")
+    for name in ("streaming", "quest", "quest_full"):
+        if runs[name]["stats"].compactions == 0:
+            fail(f"{name}: the draft window never compacted")
 
     def rate(r):
         s = r["stats"]
         return s.generated_tokens / s.wall_time_s
 
-    spec_runs = [k for k in runs if k != "ar"]
     line(phase="main_path", model="llama-3.2-1b", dtype="bfloat16", B=B, P=P,
          new_tokens=NEW, gamma=GAMMA, budget=BUDGET, sink=SINK,
          streaming_draft_slots=DRAFT_SLOTS, streaming_full_budget=STREAM_FULL,
+         quest_round_buffer=QUEST_R, quest_full_budget=QUEST_FULL,
          tok_s={k: rate(r) for k, r in runs.items()},
          acceptance={k: runs[k]["stats"].acceptance_rate for k in spec_runs},
          rounds={k: runs[k]["stats"].rounds for k in spec_runs},
-         streaming_compactions={k: runs[k]["stats"].compactions
-                                for k in ("streaming", "streaming_full")},
+         compactions={k: runs[k]["stats"].compactions for k in spec_runs},
          run_s={k: r["total_s"] for k, r in runs.items()},
          decode_s={k: r["stats"].wall_time_s for k, r in runs.items()},
          launches={k: r["launches"] for k, r in runs.items()},
@@ -591,7 +785,6 @@ def longspec(torch, dev, params, prompt, ar):
     from magicdec_tpu_torch.engine.longspec import LongSpecEngine
     from magicdec_tpu_torch.models import llama
     from magicdec_tpu_torch.models.config import ModelArgs
-    from magicdec_tpu_torch.ops import flash_decode as fd
 
     cfg = ModelArgs.from_name("llama-3.2-1b")
     small = cfg.replace(n_layer=DRAFT_LAYERS)
@@ -602,7 +795,7 @@ def longspec(torch, dev, params, prompt, ar):
              "small_snapkv": (small, sparams, "snapkv", BUDGET),
              "small_streaming": (small, sparams, "streaming", BUDGET)}
     L, chunks = cfg.n_layer, P // 128
-    res, total = {}, dict.fromkeys(KERNELS, 0)
+    res, total = {}, _zero()
     for name, (dcfg, dparams, spec, budget) in cases.items():
         Ld = dcfg.n_layer
 
@@ -616,14 +809,13 @@ def longspec(torch, dev, params, prompt, ar):
         def expect(result):
             r = result[-1].rounds
             draft = Ld * GAMMA * r
-            return {"flash_prefill": (L + Ld) * chunks,
-                    "flash_decode_stacked": L * r + (0 if spec == "streaming"
-                                                     else draft),
-                    "flash_decode_intervals": draft if spec == "streaming"
-                    else 0}
+            return dict(_zero(), flash_prefill=(L + Ld) * chunks,
+                        flash_decode_stacked=L * r + (
+                            0 if spec == "streaming" else draft),
+                        flash_decode_intervals=(draft if spec == "streaming"
+                                                else 0))
 
-        (out, counts, stats), used, seconds = _drive(torch, fd, name, go,
-                                                     expect)
+        (out, counts, stats), used, seconds = _drive(torch, name, go, expect)
         _check_stream(torch, f"longspec {name}", out, counts, ar,
                       cfg.vocab_size)
         res[name] = dict(acceptance=stats.acceptance_rate, rounds=stats.rounds,
@@ -640,7 +832,7 @@ def longspec(torch, dev, params, prompt, ar):
 
 
 # ---------------------------------------------------------------------------
-# phase 9: times at the main path's shapes
+# phases 11-12: times at the main path's shapes, the step and round profile
 # ---------------------------------------------------------------------------
 
 def _time_ms(torch, fn, n_layers, reps=3, iters=32, graph=False):
@@ -709,7 +901,7 @@ def time_kernels(torch, dev, errs, launches):
                     dtype=torch.bfloat16)
     v = torch.randn((L, B, S, Hkv * D), generator=g, device=dev,
                     dtype=torch.bfloat16)
-    saved = _counts(fd)
+    saved = _counts()
     rows = []
 
     def bound(bytes_, flops):
@@ -841,46 +1033,119 @@ def time_kernels(torch, dev, errs, launches):
                  "launches": launches["flash_prefill"],
                  "max_abs_err": errs["flash_prefill"], "ms": t_k, "plain_ms": t_p,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l})
-    _set_counts(fd, saved)      # the timing launches are not the main path's
+    prefill = dict(ms=t_k, eager_ms=t_e, plain_ms=t_p, library_ms=t_l,
+                   bound_ms=b_ms, bound_by=b_by)
+
+    # masked: the Quest draft step (T=1) on the round buffer of budget 1024
+    # (896 top columns + a 192-slot tail, R=1088) at mid-round tail lengths
+    # (128 + 30 rows). "main": every top bit set, as in the main path (the 7
+    # pages lie below the tail); "bits70": 70% of the top bits set
+    import torch.nn.functional as F
+    from magicdec_tpu_torch.ops.page_gather import page_gather, page_gather_plain
+    bk = k[:, :, :QUEST_R].contiguous()
+    bv = v[:, :, :QUEST_R].contiguous()
+    q = torch.randn((B, 1, Hq, D), generator=g, device=dev, dtype=torch.bfloat16)
+    masked_shapes = {}
+    for what, share in (("main", 1.0), ("bits70", 0.7)):
+        cm, ns, hi = _quest_rows(torch, dev, 1, seed=70, top_share=share, L=L)
+        hi = torch.full_like(hi, QUEST_NS + 159)
+        col = torch.arange(QUEST_R, device=dev)
+        masks = [((col < QUEST_NS) & (cm[l, :, 0] != 0)
+                  | (col >= QUEST_NS) & (col < hi))[:, None, None, :]
+                 for l in range(L)]
+        # the bits of the layer used as a sample: the data-dependent work
+        attended = int(masks[0].sum())
+        bytes_ = ((attended * Hkv * D * 2 + 2 * q.numel()) * item
+                  + B * QUEST_R * 4 + 3 * hi.numel() * 4)
+        flops = 4 * attended * Hq * D
+
+        def sdpa(l):
+            kk = bk[l].view(B, QUEST_R, Hkv, D).transpose(1, 2)
+            vv = bv[l].view(B, QUEST_R, Hkv, D).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q.transpose(1, 2), kk, vv, attn_mask=masks[l], enable_gqa=True)
+
+        t_k, t_e = _device_and_eager_ms(
+            torch, lambda l: fd.flash_decode_stacked_masked(
+                q, bk, bv, l, cm, ns, ns, hi), L)
+        t_p = _time_ms(torch, lambda l: fd.stacked_masked_plain(
+            q, bk, bv, l, cm, ns, ns, hi), L, graph=True)
+        t_l = _time_ms(torch, sdpa, L, graph=True)
+        b_ms, b_by = bound(bytes_, flops)
+        masked_shapes[what] = dict(attended_per_seq=attended / B, ms=t_k,
+                                   eager_ms=t_e, plain_ms=t_p, library_ms=t_l,
+                                   bound_ms=b_ms, bound_by=b_by)
+    m = masked_shapes["main"]
+    rows.append({"name": "flash_decode_stacked_masked", "route": "cuda",
+                 "source": "magicdec_tpu_torch/csrc/flash_decode.cu",
+                 "replaces": "magicdec_tpu/ops/pallas/flash_decode.py:738",
+                 "launches": launches["flash_decode_stacked_masked"],
+                 "max_abs_err": errs["flash_decode_stacked_masked"],
+                 "ms": m["ms"], "plain_ms": m["plain_ms"],
+                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                 "library_ms": m["library_ms"]})
+
+    # page_gather: the round-opening step's gather at budget 1024 (7 of the
+    # 33 pages of a 4224-slot layer, bf16) into the round buffer's top region
+    n = QUEST_NS // QUEST_PAGE
+    cpu_g = torch.Generator().manual_seed(71)
+    pages = torch.stack([torch.randperm(S // QUEST_PAGE, generator=cpu_g)[:n]
+                         for _ in range(B)]).to(dev, torch.int32)
+    tops = [[buf[l, :, :QUEST_NS].view(B, n, QUEST_PAGE, -1) for buf in (bk, bv)]
+            for l in range(L)]
+    rows_idx = (torch.arange(B, device=dev)[:, None] * (S // QUEST_PAGE)
+                + pages.long()).reshape(-1)
+
+    def index_select(l):
+        return [c[l].view(B * (S // QUEST_PAGE), -1).index_select(0, rows_idx)
+                for c in (k, v)]
+
+    bytes_ = 2 * 2 * B * n * QUEST_PAGE * Hkv * D * item + pages.numel() * 4
+    t_k, t_e = _device_and_eager_ms(
+        torch, lambda l: page_gather(k, v, l, pages, QUEST_PAGE, out=tops[l]), L)
+    t_p = _time_ms(torch, lambda l: page_gather_plain(k, v, l, pages,
+                                                      QUEST_PAGE), L, graph=True)
+    t_l = _time_ms(torch, index_select, L, graph=True)
+    b_ms, b_by = bound(bytes_, 0)
+    gather = dict(pages=[B, n], ms=t_k, eager_ms=t_e, plain_ms=t_p,
+                  library_ms=t_l, library="2x index_select (K, V)",
+                  bound_ms=b_ms, bound_by=b_by)
+    rows.append({"name": "page_gather", "route": "cuda",
+                 "source": "magicdec_tpu_torch/csrc/page_gather.cu",
+                 "replaces": "magicdec_tpu/ops/pallas/page_gather.py:268",
+                 "launches": launches["page_gather"],
+                 "max_abs_err": errs["page_gather"], "ms": t_k,
+                 "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": t_l})
+    del bk, bv, tops
+    _set_counts(saved)      # the timing launches are not the main path's
     line(phase="times", decode_shapes=extra, intervals_shapes=draft_shapes,
-         prefill_last_chunk=dict(ms=t_k, eager_ms=t_e, plain_ms=t_p,
-                                 library_ms=t_l, bound_ms=b_ms, bound_by=b_by))
+         prefill_last_chunk=prefill, masked_shapes=masked_shapes,
+         page_gather=gather)
     return rows
 
 
-def step_profile(torch, dev, steps=8):
-    """Device-busy share of AR decode steps at the main path's shape: the
-    union of the kernel intervals torch.profiler records over the host wall
-    time of `steps` steps (after prefill); the wall time per step is also
-    taken without the profiler. Launch counts made here are not the main
-    path's."""
-    import numpy as np
+def _profile(torch, fn, n):
+    """Device-busy share of n calls of fn (after 2 warm-up calls): the union
+    of the kernel intervals torch.profiler records over the host wall time,
+    kernels per call, the top kernels by device time and the top host ops
+    by self CPU time (profiled, so inflated alike); the wall time per call
+    is also taken without the profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from magicdec_tpu_torch.engine.backend import Engine
-    from magicdec_tpu_torch.models import llama
-    from magicdec_tpu_torch.models.config import ModelArgs
-    from magicdec_tpu_torch.ops import flash_decode as fd
-
-    saved = _counts(fd)
-    cfg = ModelArgs.from_name("llama-3.2-1b")
-    params = llama.init_params(cfg, torch.bfloat16, scale=0.3, seed=0,
-                               device=dev)
-    eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN)
-    tok = eng.encode(np.random.default_rng(7).integers(0, cfg.vocab_size, (B, P)))
     for _ in range(2):
-        tok = eng.inference(tok)
+        fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(steps):
-        tok = eng.inference(tok)
+    for _ in range(n):
+        fn()
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(steps):
-            tok = eng.inference(tok)
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -898,15 +1163,73 @@ def step_profile(torch, dev, steps=8):
     for e in kernels:
         key = e.name[:50]
         by_name[key] = by_name.get(key, 0.0) + e.time_range.elapsed_us()
-    top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:6])
-    _set_counts(fd, saved)
-    line(phase="step_profile", steps=steps,
-         wall_ms_per_step=plain_wall_ms / steps,
-         profiled_wall_ms_per_step=wall_ms / steps,
-         kernels_per_step=len(kernels) / steps,
-         device_busy_ms_per_step=busy_us / 1e3 / steps,
-         device_busy_share=busy_us / 1e3 / wall_ms,
-         top_kernel_ms_per_step={k: v / 1e3 / steps for k, v in top.items()})
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    host = sorted(((e.key, e.self_cpu_time_total) for e in prof.key_averages()
+                   if e.self_cpu_time_total > 0), key=lambda kv: -kv[1])[:8]
+    return dict(calls=n, wall_ms=plain_wall_ms / n,
+                profiled_wall_ms=wall_ms / n, kernels=len(kernels) / n,
+                device_busy_ms=busy_us / 1e3 / n,
+                device_busy_share=busy_us / 1e3 / wall_ms,
+                top_kernel_ms={k: v / 1e3 / n for k, v in top},
+                top_host_self_ms={k: v / 1e3 / n for k, v in host})
+
+
+def step_profile(torch, dev, steps=8, rounds=2):
+    """Where the time of a decode step and of a speculation round goes, at
+    the main path's shape after prefill: an AR step, and a SnapKV and a
+    Quest round at budget 1024 (each drafting gamma tokens and verifying
+    gamma + 1; with random weights one token is accepted per round).
+    Launch counts made here are not the main path's."""
+    import numpy as np
+
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.quest import QuestState, quest_round
+    from magicdec_tpu_torch.engine.spec import _eot_array, snapkv_round
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+
+    saved = _counts()
+    cfg = ModelArgs.from_name("llama-3.2-1b")
+    params = llama.init_params(cfg, torch.bfloat16, scale=0.3, seed=0,
+                               device=dev)
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, P))
+    res = {}
+    eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN)
+    state = {"tok": eng.encode(prompt)}
+
+    def ar_step():
+        state["tok"] = eng.inference(state["tok"])
+
+    res["ar_step"] = _profile(torch, ar_step, steps)
+    del eng, state
+    torch.cuda.empty_cache()
+    eot = _eot_array((), dev)
+    for spec in ("snapkv", "quest"):
+        eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,
+                     draft_budget=BUDGET, window_size=WINDOW,
+                     latest_k=QUEST_TAIL, quest_page=QUEST_PAGE)
+        state = {"buf": eng.encode(prompt),
+                 "gen": torch.zeros(B, dtype=torch.int32, device=dev)}
+        output = torch.zeros((B, NEW + GAMMA + 3), dtype=torch.int32,
+                             device=dev)
+        st = (QuestState.create(eng.cache, eng.spec_index, BUDGET, QUEST_TAIL,
+                                QUEST_PAGE, GAMMA) if spec == "quest" else None)
+
+        def one_round():
+            if st is None:
+                state["buf"], state["gen"], _ = snapkv_round(
+                    params, cfg, eng.cache, eng.draft, state["buf"], output,
+                    state["gen"], eot, GAMMA)
+            else:
+                state["buf"], state["gen"], _ = quest_round(
+                    params, cfg, eng.cache, st, state["buf"], output,
+                    state["gen"], eot, GAMMA)
+
+        res[f"{spec}_round"] = _profile(torch, one_round, rounds)
+        del eng, st, state
+        torch.cuda.empty_cache()
+    _set_counts(saved)
+    line(phase="step_profile", budget=BUDGET, gamma=GAMMA, **res)
 
 
 if __name__ == "__main__":

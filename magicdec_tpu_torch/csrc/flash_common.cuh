@@ -4,7 +4,9 @@
 // online softmax. Query row r attends to the slots of [0, a_r) u [lo_r, hi_r)
 // (the TPU kernels' one mask form): ragged-causal decode and prefill are the
 // case a = lo = 0, the StreamingLLM sink + window draft a = sink end,
-// lo = window start, hi = causal end.
+// lo = window start, hi = causal end. An optional per-column bit vector of
+// the sequence (the round-buffer drafts' colmask) further masks slot col
+// unless its bit is set; it is shared by all rows of the CTA.
 //
 // Numerics the engine's invariants depend on:
 //  * Every query row is computed by its own fixed sequence of operations
@@ -18,7 +20,8 @@
 //    row leaves (m, l, acc) as they were (alpha = exp(0) = 1, p = 0): tiles
 //    past every row's bound and tiles inside every row's gap [a, lo) are
 //    neither loaded nor computed, an exact identity. The two mask forms thus
-//    give the same bits wherever their valid sets agree.
+//    give the same bits wherever their valid sets agree; the same holds for
+//    tiles whose column bits are all 0.
 //  * P is rounded to the cache dtype before the P@V product and l sums the
 //    unrounded P, as the TPU kernels do.
 #pragma once
@@ -73,11 +76,12 @@ struct Smem {
   int* lo;       // [R]            are attended
   int* hi;       // [R]
   int* bnd;      // [6]          min / max over the CTA's rows of a, lo, hi
+  int* cm;       // [TILE]       this tile's column bits (with a colmask)
 
   static constexpr size_t bytes(int R) {
     return sizeof(float) * ((size_t)R * D + TILE * (D + 1) + TILE * D +
                             (size_t)R * TILE + 3 * (size_t)R) +
-           sizeof(int) * (3 * (size_t)R + 6);
+           sizeof(int) * (3 * (size_t)R + 6 + TILE);
   }
   __device__ explicit Smem(int R) {
     extern __shared__ float4 smem_raw[];
@@ -93,15 +97,19 @@ struct Smem {
     lo = a + R;
     hi = lo + R;
     bnd = hi + R;
+    cm = bnd + 6;
   }
 };
 
 enum { A_MIN, A_MAX, LO_MIN, LO_MAX, HI_MIN, HI_MAX };
 
-// Whether query row r attends to slot col.
+// Whether query row r attends to slot col, column j of the tile; cols: the
+// tile's column bits in sm.cm apply.
 template <int D>
-__device__ __forceinline__ bool attended(const Smem<D>& sm, int r, int col) {
-  return col < sm.a[r] || (col >= sm.lo[r] && col < sm.hi[r]);
+__device__ __forceinline__ bool attended(const Smem<D>& sm, int r, int col,
+                                         int j, bool cols) {
+  return (col < sm.a[r] || (col >= sm.lo[r] && col < sm.hi[r])) &&
+         (!cols || sm.cm[j] != 0);
 }
 
 // After q/a/lo/hi/m/l are filled for rows < M: the CTA's min and max of
@@ -130,14 +138,15 @@ __device__ __forceinline__ void row_bounds(const Smem<D>& sm, int M) {
 //           null when n_sink = 0)
 //   n_load: slots of the tile that are loaded (the rest are zero, masked)
 //   full:   every slot of the tile is valid for every row (no mask needed)
+//   cols:   the tile's column bits (sm.cm) apply
 //   acc:    this thread's rows' accumulators, row = threadIdx.x/TILE + NGRP*i
 template <typename T, int D, int MR>
 __device__ __forceinline__ void tile_step(const T* __restrict__ kb,
                                           const T* __restrict__ vb,
                                           const T* __restrict__ ks, int n_sink,
                                           int64_t row_stride, int tile_start,
-                                          int n_load, bool full, int M,
-                                          float scale, const Smem<D>& sm,
+                                          int n_load, bool full, bool cols,
+                                          int M, float scale, const Smem<D>& sm,
                                           float (&acc)[MR]) {
   static_assert(D == TILE, "thread layout assumes head_dim == TILE");
   constexpr int VEC = 16 / sizeof(T);
@@ -180,7 +189,8 @@ __device__ __forceinline__ void tile_step(const T* __restrict__ kb,
 #pragma unroll
     for (int i = 0; i < MR; ++i) {
       const int r = rg + NGRP * i;
-      if (r < M) sm.p[r * TILE + j] = (full || attended(sm, r, col)) ? s[i] * scale : NEG_INF;
+      if (r < M)
+        sm.p[r * TILE + j] = (full || attended(sm, r, col, j, cols)) ? s[i] * scale : NEG_INF;
     }
   }
   __syncthreads();
@@ -194,8 +204,8 @@ __device__ __forceinline__ void tile_step(const T* __restrict__ kb,
     for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     const float m_old = sm.m[r];
     const float m_new = fmaxf(m_old, mx);
-    const bool v0 = full || attended(sm, r, tile_start + lane);
-    const bool v1 = full || attended(sm, r, tile_start + lane + 32);
+    const bool v0 = full || attended(sm, r, tile_start + lane, lane, cols);
+    const bool v1 = full || attended(sm, r, tile_start + lane + 32, lane + 32, cols);
     const float p0 = v0 ? expf(x0 - m_new) : 0.f;
     const float p1 = v1 ? expf(x1 - m_new) : 0.f;
     float sum = p0 + p1;
@@ -236,10 +246,16 @@ __device__ __forceinline__ void tile_step(const T* __restrict__ kb,
 // the tiles inside every row's gap [a, lo). The triage reads the CTA-wide
 // bounds only, so it is the same for every thread (no divergence around the
 // barriers) and conservative: a tile it keeps may still be masked for a row.
+// colmask (this sequence's column bits, or null): each tile's 64 bits are
+// read into shared memory once; a tile whose bits are all 0 is skipped, and
+// a tile counts as full only if all 64 are set (callers pass a = lo = NS
+// with the top region's bits in the colmask, so the interval test alone
+// would call every top-region tile full and ignore the bits).
 template <typename T, int D, int MR>
 __device__ __forceinline__ void attend_range(const T* __restrict__ kb,
                                              const T* __restrict__ vb,
                                              const T* __restrict__ ks, int n_sink,
+                                             const int* __restrict__ colmask,
                                              int64_t row_stride, int start,
                                              int end, int M, float scale,
                                              const Smem<D>& sm, float (&acc)[MR]) {
@@ -251,9 +267,21 @@ __device__ __forceinline__ void attend_range(const T* __restrict__ kb,
     const int t1 = t0 + TILE;
     if (t0 >= a_max && (t1 <= lo_min || t0 >= hi_max)) continue;  // all gap
     const int n_load = min(TILE, limit - t0);
-    const bool full = t1 <= a_min || (lo_max <= t0 && t1 <= hi_min);
-    tile_step<T, D, MR>(kb, vb, ks, n_sink, row_stride, t0, n_load, full, M,
-                        scale, sm, acc);
+    bool full = t1 <= a_min || (lo_max <= t0 && t1 <= hi_min);
+    if (colmask) {
+      // the previous tile_step ended on a barrier: no thread reads sm.cm now
+      int bit = 0;
+      if (threadIdx.x < TILE) {
+        bit = threadIdx.x < n_load && colmask[t0 + threadIdx.x] != 0;
+        sm.cm[threadIdx.x] = bit;
+      }
+      const int any = __syncthreads_or(bit);
+      const int all = __syncthreads_and(threadIdx.x >= TILE || bit);
+      if (!any) continue;  // every slot masked: an exact identity
+      full = full && all;
+    }
+    tile_step<T, D, MR>(kb, vb, ks, n_sink, row_stride, t0, n_load, full,
+                        colmask != nullptr, M, scale, sm, acc);
   }
 }
 

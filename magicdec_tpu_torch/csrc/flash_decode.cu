@@ -1,12 +1,16 @@
 // Flash decode for Hopper (sm_90a): GQA decode attention of a small query
 // block (T*G <= 64 rows per KV head) against one layer of the packed cache
-// [L, B, S, Hkv*D], query row r attending to slots [0, a_r) u [lo_r, hi_r).
+// [L, B, S, Hkv*D], query row r attending to slots [0, a_r) u [lo_r, hi_r),
+// optionally only where a per-(layer, b, column) bit is set.
 //
-// One split kernel serves two TPU kernels of magicdec_tpu/ops/pallas/
+// One split kernel serves three TPU kernels of magicdec_tpu/ops/pallas/
 // flash_decode.py: flash_decode_stacked (pallas_call at :488; ragged-causal,
-// a = lo = 0, read straight out of the stacked cache) and
+// a = lo = 0, read straight out of the stacked cache),
 // flash_decode_intervals (pallas_call at :370; flat [B, S, Hkv*D] cache =
-// L = 1, the StreamingLLM sink + window mask). Sharing it is what makes a
+// L = 1, the StreamingLLM sink + window mask) and
+// flash_decode_stacked_masked (pallas_call at :738; the Quest round buffer
+// [L, B, NS + Wcap, Hkv*D] with a = lo = NS and the colmask [L, B, 1, R]
+// int32 gating the gathered top region). Sharing it is what makes a
 // sink + window draft at full budget give the verify's bits. The TPU
 // kernels' block-diagonal query embedding (an MXU workaround) is gone: each
 // CTA takes one KV head's columns. The intervals form may also read the K
@@ -22,7 +26,8 @@
 //    G*T query rows of the head share that read.
 //  * The layer is a pointer offset, not a copy; no slot at or past the
 //    CTA's largest row bound is read, so rolled-back tails cost nothing, and
-//    tiles inside every row's gap [a, lo) are skipped.
+//    tiles inside every row's gap [a, lo) are skipped, and so are tiles
+//    whose column bits are all 0 (pad pages of the Quest top region).
 // Numerics (the full-budget acceptance == 1.0 invariant):
 //  * Splits sit at fixed multiples of SPLIT slots and tiles at multiples of
 //    TILE, independent of S, B, T and the SM count, so a draft cache of
@@ -39,13 +44,14 @@ constexpr int SPLIT = 512;  // slots per KV split: a global constant
 
 // grid (nsplit, Hkv, B). Partials: acc [B, Hkv, nsplit, M, D], ml [.., M, 2].
 // a_rows / lo_rows [B, T] may be null (= 0); ksink [B, n_sink, Hkv*D] may be
-// null when n_sink = 0.
+// null when n_sink = 0; cm_layer [B, S] (this layer's colmask) may be null.
 template <typename T, int D, int MR>
 __global__ void __launch_bounds__(NT)
 decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
                     const T* __restrict__ v_layer, const int* __restrict__ a_rows,
                     const int* __restrict__ lo_rows, const int* __restrict__ hi_rows,
                     const T* __restrict__ ksink, int n_sink,
+                    const int* __restrict__ cm_layer,
                     float* __restrict__ part_acc, float* __restrict__ part_ml,
                     int T_, int Hq, int Hkv, int S, int s_extent, float scale) {
   constexpr int R = 2 * MR;
@@ -80,8 +86,9 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
   const T* kb = k_layer + (int64_t)b * S * row_stride + h * D;
   const T* vb = v_layer + (int64_t)b * S * row_stride + h * D;
   const T* ks = ksink ? ksink + (int64_t)b * n_sink * row_stride + h * D : nullptr;
+  const int* cm = cm_layer ? cm_layer + (int64_t)b * S : nullptr;
   const int start = sp * SPLIT;
-  attend_range<T, D, MR>(kb, vb, ks, n_sink, row_stride, start,
+  attend_range<T, D, MR>(kb, vb, ks, n_sink, cm, row_stride, start,
                          min(start + SPLIT, s_extent), M, scale, sm, acc);
 
   const int64_t base = (((int64_t)b * Hkv + h) * nsplit + sp) * M;
@@ -126,13 +133,14 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
   out[(((int64_t)b * T_ + t) * Hq + h * G + g) * D + d] = from_f32<T>(any ? a / l : 0.f);
 }
 
-// The bounds and the sink rows of one call.
+// The bounds, the sink rows and the column bits of one call.
 struct Rows {
   const int* a;
   const int* lo;
   const int* hi;
   const void* ksink;
   int n_sink;
+  const int* colmask;  // [L, B, 1, S] or null
 };
 
 template <typename T, int MR>
@@ -151,12 +159,13 @@ int launch_decode(const void* q, const void* k, const void* v, Rows rows,
   }
   const int nsplit = (s_extent + SPLIT - 1) / SPLIT;
   const int64_t layer_off = (int64_t)layer * B * S * Hkv * D;
+  const int* cm_layer = rows.colmask ? rows.colmask + (int64_t)layer * B * S : nullptr;
   const float scale = 1.0f / sqrtf((float)D);
   decode_split_kernel<T, D, MR><<<dim3(nsplit, Hkv, B), NT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k) + layer_off,
       static_cast<const T*>(v) + layer_off, rows.a, rows.lo, rows.hi,
-      static_cast<const T*>(rows.ksink), rows.n_sink, part_acc, part_ml, T_, Hq,
-      Hkv, S, s_extent, scale);
+      static_cast<const T*>(rows.ksink), rows.n_sink, cm_layer, part_acc, part_ml,
+      T_, Hq, Hkv, S, s_extent, scale);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int M = T_ * (Hq / Hkv);
@@ -187,6 +196,8 @@ int dispatch_rows(const void* q, const void* k, const void* v, Rows rows,
 // C interface (ctypes). dtype: 0 = float32, 1 = bfloat16. Shapes: q and out
 // [B, T, Hq, 64]; k, v [L, B, S, Hkv*64]; a, lo, hi [B, T] int32 (a and lo
 // may be null: 0); ksink [B, n_sink, Hkv*64] or null with n_sink = 0;
+// colmask [L, B, 1, S] int32 (slot col of sequence b attended only where
+// colmask[layer, b, 0, col] != 0) or null;
 // part_acc [B, Hkv, nsplit, T*Hq/Hkv, 64] and part_ml [.., 2] f32 scratch
 // with nsplit = ceil(s_extent / 512). Returns the CUDA error code (0 =
 // success).
@@ -195,11 +206,12 @@ extern "C" int mdt_split_slots() { return mdt::SPLIT; }
 extern "C" int mdt_flash_decode(int dtype, const void* q, const void* k,
                                 const void* v, const int* a, const int* lo,
                                 const int* hi, const void* ksink, int n_sink,
+                                const int* colmask,
                                 void* out, float* part_acc, float* part_ml,
                                 int layer, int B, int T, int Hq, int Hkv, int S,
                                 int s_extent, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const mdt::Rows rows{a, lo, hi, ksink, n_sink};
+  const mdt::Rows rows{a, lo, hi, ksink, n_sink, colmask};
   if (dtype == 0)
     return mdt::dispatch_rows<float>(q, k, v, rows, out, part_acc, part_ml, layer,
                                      B, T, Hq, Hkv, S, s_extent, st);

@@ -61,8 +61,8 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
   const int64_t row_stride = (int64_t)Hkv * D;
   const T* kb = k_layer + (int64_t)b * S * row_stride + h * D;
   const T* vb = v_layer + (int64_t)b * S * row_stride + h * D;
-  attend_range<T, D, PMR>(kb, vb, nullptr, 0, row_stride, 0, s_extent, M, scale, sm,
-                          acc);
+  attend_range<T, D, PMR>(kb, vb, nullptr, 0, nullptr, row_stride, 0, s_extent, M,
+                          scale, sm, acc);
 
   const int d = threadIdx.x % D, rg = threadIdx.x / D;
 #pragma unroll

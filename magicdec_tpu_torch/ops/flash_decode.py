@@ -4,11 +4,13 @@ of the port, each with its plain PyTorch version and a launch count.
 `flash_decode_stacked` replaces magicdec_tpu/ops/pallas/flash_decode.py
 flash_decode_stacked (pallas_call at :488), `flash_decode_intervals` (and
 the flat `flash_decode` over it) replaces flash_decode_intervals there
-(pallas_call at :370), and `flash_prefill` replaces flash_prefill (pallas_call
-at :646). All are hand-written CUDA C++ for sm_90a (csrc/flash_decode.cu,
-csrc/flash_prefill.cu, built by ops/_build.py), templated on float32 and
-bfloat16; the two decode wrappers launch one split kernel, so a sink + window
-draft and a ragged-causal verify give the same bits on the same valid slots.
+(pallas_call at :370), `flash_decode_stacked_masked` replaces
+flash_decode_stacked_masked (pallas_call at :738), and `flash_prefill`
+replaces flash_prefill (pallas_call at :646). All are hand-written CUDA C++
+for sm_90a (csrc/flash_decode.cu, csrc/flash_prefill.cu, built by
+ops/_build.py), templated on float32 and bfloat16; the three decode wrappers
+launch one split kernel, so a sink + window draft and a ragged-causal verify
+give the same bits on the same valid slots.
 What bounds each on the H100 and what its design does about it is noted at
 the top of its source.
 
@@ -72,6 +74,28 @@ def intervals_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                     v_cache.reshape(B, S, HD // D, D), mask)
 
 
+def stacked_masked_plain(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, layer: int,
+                         colmask: torch.Tensor, sink_end: torch.Tensor,
+                         lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """The plain version of flash_decode_stacked_masked: dense attention
+    over layer `layer` of the stacked cache [L, B, R, Hkv*D], query (b, t)
+    attending to slot col iff col lies in [0, sink_end) u [lo, hi) and
+    colmask[layer, b, 0, col] != 0 (what the JAX package computes off the
+    TPU, magicdec_tpu/engine/retro.py _tail_attend). Returns [B, T, Hq, D]
+    in the cache dtype."""
+    _, B, R, HD = k_cache.shape
+    D = q.shape[-1]
+    col = torch.arange(R, device=k_cache.device)
+    mask = (((col < sink_end[..., None])
+             | ((col >= lo[..., None]) & (col < hi[..., None])))
+            & (colmask[layer, :, 0][:, None, :] != 0))
+    return masked_attention_general(q.to(k_cache.dtype),
+                                    k_cache[layer].reshape(B, R, HD // D, D),
+                                    v_cache[layer].reshape(B, R, HD // D, D),
+                                    mask)
+
+
 def _ref_and_limit(plain, q, k, v):
     """plain(q, k, v) in float32 and the per-element limit on |kernel -
     plain| that the kernels' arithmetic allows (see plain_f32_and_limit)."""
@@ -119,6 +143,19 @@ def intervals_plain_f32_and_limit(q: torch.Tensor, k_cache: torch.Tensor,
         q, k_cache, v_cache)
 
 
+def stacked_masked_plain_f32_and_limit(q: torch.Tensor, k_cache: torch.Tensor,
+                                       v_cache: torch.Tensor, layer: int,
+                                       colmask: torch.Tensor,
+                                       sink_end: torch.Tensor,
+                                       lo: torch.Tensor, hi: torch.Tensor):
+    """plain_f32_and_limit for flash_decode_stacked_masked: the same limit,
+    since the kernel is the same split kernel."""
+    return _ref_and_limit(
+        lambda q_, k_, v_: stacked_masked_plain(q_, k_, v_, layer, colmask,
+                                                sink_end, lo, hi),
+        q, k_cache, v_cache)
+
+
 def _check(q, k_cache, v_cache, layer, valid_upto):
     """Validate the kernels' operands; returns the (cast) q."""
     if not (q.is_cuda and k_cache.is_cuda and v_cache.is_cuda
@@ -158,6 +195,15 @@ def _check(q, k_cache, v_cache, layer, valid_upto):
     return q
 
 
+def _check_rows(hi, **rows):
+    """Validate row bounds [B, T] beside hi."""
+    for name, t in rows.items():
+        if (t.dtype != torch.int32 or t.shape != hi.shape
+                or t.device != hi.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous int32 tensor of "
+                             f"shape {tuple(hi.shape)} on {hi.device}")
+
+
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
@@ -175,8 +221,8 @@ def _lib_decode() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     fn = lib.mdt_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _I,
-                       _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
+                       _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
         lib.mdt_split_slots.restype = _I
     return lib
@@ -192,7 +238,7 @@ def _lib_prefill() -> ctypes.CDLL:
 
 
 def _decode_launch(q, k_cache, v_cache, layer, hi, ext, a=None, lo=None,
-                   k_sink=None) -> torch.Tensor:
+                   k_sink=None, colmask=None) -> torch.Tensor:
     """Launch the split decode kernel on checked operands (stacked caches);
     returns [B, T, Hq, D] in the cache dtype."""
     B, T, Hq, D = q.shape
@@ -212,7 +258,7 @@ def _decode_launch(q, k_cache, v_cache, layer, hi, ext, a=None, lo=None,
     rc = lib.mdt_flash_decode(
         _DTYPE_CODES[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), ptr(a), ptr(lo), hi.data_ptr(), ptr(k_sink),
-        0 if k_sink is None else k_sink.shape[1], out.data_ptr(),
+        0 if k_sink is None else k_sink.shape[1], ptr(colmask), out.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), layer, B, T, Hq, Hkv, S, ext,
         torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash decode launch")
@@ -268,11 +314,7 @@ def flash_decode_intervals(q: torch.Tensor, k_cache: torch.Tensor,
                          f"{tuple(k_cache.shape)}")
     kc, vc = k_cache.unsqueeze(0), v_cache.unsqueeze(0)
     q = _check(q, kc, vc, 0, hi)
-    for name, t in (("sink_end", sink_end), ("lo", lo)):
-        if (t.dtype != torch.int32 or t.shape != hi.shape
-                or t.device != hi.device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous int32 tensor of "
-                             f"shape {tuple(hi.shape)} on {hi.device}")
+    _check_rows(hi, sink_end=sink_end, lo=lo)
     if k_sink is not None:
         B, S, HD = k_cache.shape
         if (k_sink.dim() != 3 or k_sink.shape[0] != B or k_sink.shape[2] != HD
@@ -289,6 +331,46 @@ def flash_decode_intervals(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 flash_decode_intervals.launches = 0
+
+
+def flash_decode_stacked_masked(q: torch.Tensor, k_cache: torch.Tensor,
+                                v_cache: torch.Tensor, layer: int,
+                                colmask: torch.Tensor, sink_end: torch.Tensor,
+                                lo: torch.Tensor, hi: torch.Tensor
+                                ) -> torch.Tensor:
+    """Decode attention over one layer of a stacked round buffer [L, B, R,
+    Hkv*D] with two-interval row bounds and per-column bits: query (b, t)
+    (T*G <= 64) attends to slot col iff col lies in [0, sink_end) u [lo, hi)
+    and colmask[layer, b, 0, col] != 0. colmask [L, B, 1, R] int32;
+    sink_end/lo/hi [B, T] int32. The Quest draft passes sink_end = lo = NS
+    (the gathered top region, gated by its bits) and hi = NS + the causal
+    tail bound. Returns [B, T, Hq, D] in the cache dtype.
+
+    Replaces the TPU kernel flash_decode_stacked_masked (pallas_call at
+    magicdec_tpu/ops/pallas/flash_decode.py:738). It launches
+    flash_decode_stacked's split kernel with the bits, so it keeps that
+    kernel's bound (bytes), splits, tiles and merge order; tiles whose 64
+    bits are all 0 are skipped and only tiles whose bits are all set run
+    unmasked (csrc/flash_common.cuh attend_range)."""
+    if _on_cpu(q, k_cache, v_cache, colmask, sink_end, lo, hi):
+        return stacked_masked_plain(q, k_cache, v_cache, layer, colmask,
+                                    sink_end, lo, hi)
+    q = _check(q, k_cache, v_cache, layer, hi)
+    _check_rows(hi, sink_end=sink_end, lo=lo)
+    L, B, R, _ = k_cache.shape
+    if (colmask.dtype != torch.int32 or tuple(colmask.shape) != (L, B, 1, R)
+            or colmask.device != k_cache.device
+            or not colmask.is_contiguous()):
+        raise ValueError(f"colmask {tuple(colmask.shape)} {colmask.dtype}: "
+                         f"contiguous int32 [{L}, {B}, 1, {R}] on the cache's "
+                         f"device")
+    out = _decode_launch(q, k_cache, v_cache, layer, hi, R, a=sink_end, lo=lo,
+                         colmask=colmask)
+    flash_decode_stacked_masked.launches += 1
+    return out
+
+
+flash_decode_stacked_masked.launches = 0
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,

@@ -149,3 +149,79 @@ def test_card_intervals_bitexact_with_stacked_on_a_prefix(cuda, dtype):
                 out = tfd.flash_decode_intervals(qt, kc, vc, a, lo, hi,
                                                  k_sink=k_sink)
                 assert torch.equal(out, full[:, t0:t0 + T]), (cap, t0, T)
+
+
+def _round_buffer(dev, dtype, T, q_scale, NS=896, Wcap=192, seed=4):
+    """The Quest draft's round buffer [2, 3, NS + Wcap, Hkv*64]: a 70%
+    colmask over the top region (one page of all-zero bits, one of all-one
+    bits), tail bits 1, ragged tails; rows attend [0, NS) u [NS, hi)."""
+    R = NS + Wcap
+    q, k, v = _card_inputs(dev, dtype, S=R, T=T, seed=seed, q_scale=q_scale)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cm = (torch.rand((2, 3, 1, R), generator=g, device=dev) < 0.7).to(torch.int32)
+    cm[..., 128:256] = 0
+    cm[..., 256:384] = 1
+    cm[..., NS:] = 1
+    tail = torch.tensor([128, 3, Wcap - T], dtype=torch.int32, device=dev)
+    hi = NS + tail[:, None] + torch.arange(1, T + 1, dtype=torch.int32,
+                                           device=dev)
+    return q, k, v, cm, torch.full_like(hi, NS), hi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 2])
+def test_card_masked_kernel_matches_plain(cuda, dtype, T):
+    """Within the plain version's limit; the kernel run with an all-ones
+    colmask (a kernel that ignores the bits) fails it."""
+    for q_scale in _Q_SCALES:
+        q, k, v, cm, ns, hi = _round_buffer(cuda, dtype, T, q_scale)
+        for layer in range(2):
+            ref, limit = tfd.stacked_masked_plain_f32_and_limit(
+                q, k, v, layer, cm, ns, ns, hi)
+            out = tfd.flash_decode_stacked_masked(q, k, v, layer, cm, ns, ns, hi)
+            diff = (out.float() - ref).abs()
+            assert bool((diff <= limit).all()), float((diff / limit).max())
+            ones = tfd.flash_decode_stacked_masked(
+                q, k, v, layer, torch.ones_like(cm), ns, ns, hi)
+            assert not bool(((ones.float() - ref).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_masked_all_ones_is_the_stacked_kernel(cuda, dtype):
+    """With an all-ones colmask and a = lo = 0 the masked kernel gives the
+    bits of flash_decode_stacked on the same rows (one shared kernel)."""
+    q, k, v = _card_inputs(cuda, dtype, S=1088, T=2)
+    lens = torch.tensor([1000, 511, 3], dtype=torch.int32, device=cuda)
+    valid = decode_valid_upto(lens, 2)
+    zero = torch.zeros_like(valid)
+    ones = torch.ones((2, 3, 1, 1088), dtype=torch.int32, device=cuda)
+    for layer in range(2):
+        assert torch.equal(
+            tfd.flash_decode_stacked_masked(q, k, v, layer, ones, zero, zero,
+                                            valid),
+            tfd.flash_decode_stacked(q, k, v, layer, valid))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_page_gather_bitexact(cuda, dtype):
+    """Repeated and out-of-order pages, into new tensors and into a round
+    buffer's top region."""
+    from magicdec_tpu_torch.ops.page_gather import page_gather, page_gather_plain
+
+    _, k, v = _card_inputs(cuda, dtype, S=1024, T=1)
+    pages = torch.tensor([[7, 0, 3], [2, 2, 5], [1, 0, 6]], dtype=torch.int32,
+                         device=cuda)
+    for layer in range(2):
+        want = page_gather_plain(k, v, layer, pages, 128)
+        got = page_gather(k, v, layer, pages, 128)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        bufs = torch.zeros((2, 2, 3, 384 + 64, k.shape[-1]), dtype=dtype,
+                           device=cuda)
+        tops = [buf[layer, :, :384].view(3, 3, 128, -1) for buf in bufs]
+        page_gather(k, v, layer, pages, 128, out=tops)
+        for top, w in zip(tops, want):
+            assert torch.equal(top, w)
+        assert not bool(bufs[:, layer, :, 384:].any())

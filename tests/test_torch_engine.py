@@ -131,8 +131,8 @@ def test_snapkv_draft_and_verify_api(tparams, prompt, ar_tokens):
 
 
 def test_engine_rejects_modes_not_ported(tparams):
-    with pytest.raises(NotImplementedError, match="A10"):
-        TEngine(TCFG, tparams, spec="quest", draft_budget=32,
+    with pytest.raises(NotImplementedError, match="A11"):
+        TEngine(TCFG, tparams, spec="retro", draft_budget=32,
                 device="cpu", **ENGINE_KW)
     with pytest.raises(ValueError):
         TEngine(TCFG, tparams, spec="snapkv", device="cpu", **ENGINE_KW)

@@ -27,6 +27,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "magicdec_tpu_torch.engine.spec" in mods
     assert "magicdec_tpu_torch.ops.flash_decode" in mods
     assert "magicdec_tpu_torch.engine.longspec" in mods
+    assert "magicdec_tpu_torch.engine.quest" in mods
+    assert "magicdec_tpu_torch.ops.page_gather" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
