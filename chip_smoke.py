@@ -30,50 +30,64 @@ exits non-zero):
                 pages of a 4224-slot layer, repeated and out-of-order pages),
                 bf16 and f32, into new tensors and into a round buffer's top
                 region
-  6. prefill    flash_prefill vs its plain version, T=128 chunks at several
+  6. gather1   page_gather_single bit-exact against its plain version (28 of
+                the 130 clusters of the main path's KV-fused store, pages of
+                2cap = 64 rows, repeated and out-of-order clusters), bf16 and
+                f32, into a new tensor and split into a round buffer's K and
+                V top regions
+  7. scores     centroid_scores vs its plain version in f32 (q bf16 and f32,
+                T in {1, 7}, the main path's 130 centroids as a strided view,
+                flat and peaked softmax) within 1e-5 + 1e-5 |plain|
+  8. prefill    flash_prefill vs its plain version, T=128 chunks at several
                 s_cap buckets, bf16 and f32, flat and peaked softmax.
-                Phases 2-4 and 6 hold each output against the plain version
+                Phases 2-4 and 8 hold each output against the plain version
                 in f32 with the per-element limit of fd.plain_f32_and_limit
                 (the same bound for the intervals and masked forms), and
                 check that the limit rejects an output that misses each long
                 row's last 64-slot tile.
-  7. reference  a small f32 model: logits of the card's path (kernels, cuBLAS)
-                vs the CPU plain path; and Quest on it (B=2, P=512, 32 new
+  9. reference  a small f32 model: logits of the card's path (kernels, cuBLAS)
+                vs the CPU plain path; Quest on it (B=2, P=512, 32 new
                 tokens, gamma 3, budget P + 128 = full coverage): lossless
-                and accepting >= 0.9
-  8. gemm rows  each row-wise product of a decode step at llama-3.2-1b
+                and accepting >= 0.9; RetroInfer on it on the fold path
+                (TAIL_COVERS_MAX lowered to 0: 72 new tokens, latest_k 32,
+                the tail compacts and aged rows join the index): lossless
+  10. gemm rows each row-wise product of a decode step at llama-3.2-1b
                 widths: do M=B rows get the bits of the same rows inside
                 M=B*(gamma+1), unpadded and padded to 64 rows, and the ms of
                 each (the padding's cost)
-  9. main path  llama-3.2-1b at full width (random bf16 weights from a seeded
+  11. main path llama-3.2-1b at full width (random bf16 weights from a seeded
                 torch.Generator), B=8, P=4096, 64 new tokens, gamma=6:
                 generate_autoregressive, generate_selfspec with SnapKV
                 (budget 1024 and full budget = P), with StreamingLLM (sink
                 16, budget 1024, whose 1088-slot draft window compacts, and
-                full budget P + 64 + gamma + 4) and with Quest (budget 1024:
+                full budget P + 64 + gamma + 4), with Quest (budget 1024:
                 7 pages + a 128-row tail, and full coverage P + 128; each
-                compacts its tail once). Every speculative stream must equal
+                compacts its tail once), and with RetroInfer and
+                SqueezedAttention (budget 1024: 28 of 130 clusters of 32
+                rows + a 128-row tail; the index build is timed apart).
+                Every speculative stream must equal
                 the AR stream, SnapKV's and StreamingLLM's full budgets must
                 accept exactly 1.0 (Quest's full coverage is printed: its
                 draft reads the pages in another order than the verify), and
                 each run's kernel launch counts (zeroed before it) must be
                 those its path implies.
- 10. longspec   two-model SD with llama-3.2-1b as the target: a self-draft
+ 12. longspec   two-model SD with llama-3.2-1b as the target: a self-draft
                 (the same weights, full KV) must accept exactly 1.0, and a
                 2-layer draft of the same widths with its own weights must
                 be lossless in each draft mode (full, snapkv 1024,
                 streaming 1024); launch counts as the path implies.
- 11. times      each kernel at the main path's shapes: kernel, plain version,
-                bound (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s bf16) and
-                one PyTorch call on the same work as a yardstick (the port
+ 13. times      each kernel at the main path's shapes: kernel, plain version,
+                bound (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s bf16, or 67
+                TFLOP/s for centroid_scores' f32 work) and one PyTorch call
+                on the same work as a yardstick where there is one (the port
                 never calls it: scaled_dot_product_attention for attention,
-                index_select for the gather), each on the device (32 calls
+                index_select for the gathers), each on the device (32 calls
                 replayed from a CUDA graph); the kernel also launched from
                 Python (eager_ms, the host's launch pace included); the
                 StreamingLLM sink twist against a whole-layer copy
- 12. profile    device-busy share, launches, top kernels and top host ops
-                of an AR step and of a SnapKV and a Quest round at budget
-                1024 (torch.profiler)
+ 14. profile    device-busy share, launches, top kernels and top host ops
+                of an AR step and of a SnapKV, a Quest and a RetroInfer round
+                at budget 1024 (torch.profiler)
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels, and the last line {"ok": true, "device": {...}}.
 
@@ -94,6 +108,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published peaks (NVIDIA data sheet), used for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+F32_FLOPS_PER_S = 67e12                     # outside the tensor cores
 
 B, P, NEW, GAMMA, BUDGET, WINDOW, SINK = 8, 4096, 64, 6, 1024, 32, 16
 MAX_LEN = P + NEW + 2 * GAMMA + 16          # Engine rounds this up to 4224
@@ -106,6 +121,10 @@ QUEST_NS = (BUDGET // QUEST_PAGE - QUEST_TAIL // QUEST_PAGE) * QUEST_PAGE
 QUEST_WCAP = -(-(QUEST_TAIL + 8 * (GAMMA + 2)) // 8) * 8  # the tail region
 QUEST_R = QUEST_NS + QUEST_WCAP             # the round buffer: 896 + 192
 QUEST_FULL = P + QUEST_PAGE                 # full coverage: every page
+RETRO_CAP = 32                              # Engine's retro_cap
+RETRO_C = max(MAX_LEN // 32, 8)             # Engine's clusters: 130
+RETRO_N = (BUDGET - QUEST_TAIL) // RETRO_CAP  # clusters gathered: 28
+RETRO_NS = RETRO_N * RETRO_CAP              # = QUEST_NS, 896 top columns
 # query scales of the kernel checks: logits of std 0.5 (a flat softmax over
 # thousands of slots, outputs ~0.02) and of std 3 (a peaked one, outputs ~1)
 Q_SCALES = {"flat": 1.0, "peaked": 6.0}
@@ -144,9 +163,12 @@ def main() -> int:
             "flash_decode_intervals": check_intervals(torch, dev),
             "flash_decode_stacked_masked": check_masked(torch, dev),
             "page_gather": check_page_gather(torch, dev),
+            "page_gather_single": check_page_gather_single(torch, dev),
+            "centroid_scores": check_centroid_scores(torch, dev),
             "flash_prefill": check_prefill(torch, dev)}
     check_reference(torch, dev)
     quest_small_f32(torch, dev)
+    retro_small_f32(torch, dev)
     gemm_rows(torch, dev)
     params, prompt = main_inputs(torch, dev)
     launches, ar = main_path(torch, dev, params, prompt)
@@ -168,7 +190,7 @@ def main() -> int:
 
 
 # ---------------------------------------------------------------------------
-# phases 2-6: kernels against their plain versions
+# phases 2-8: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
 def _cache_inputs(torch, dev, dtype, S, T, seed, q_scale=1.0, L=2, Hkv=8,
@@ -448,6 +470,74 @@ def check_page_gather(torch, dev):
     return 0.0
 
 
+def check_page_gather_single(torch, dev):
+    from magicdec_tpu_torch.ops.page_gather import (page_gather_single,
+                                                    page_gather_single_plain)
+
+    page = 2 * RETRO_CAP
+    g = torch.Generator(device=dev).manual_seed(62)
+    pages = torch.randint(0, RETRO_C, (B, RETRO_N), generator=g, device=dev,
+                          dtype=torch.int32)
+    pages[0] = torch.arange(RETRO_C - 1, RETRO_C - 1 - RETRO_N, -1,
+                            device=dev)                  # out of order
+    pages[1] = 7                                         # one repeated
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        _, store, _ = _cache_inputs(torch, dev, dtype, RETRO_C * page, 1,
+                                    seed=63)
+        bufs = torch.zeros((2, 2, B, QUEST_R, store.shape[-1]), dtype=dtype,
+                           device=dev)
+        for layer in (0, 1):
+            want = page_gather_single_plain(store, layer, pages, page)
+            got = page_gather_single(store, layer, pages, page)
+            tops = [buf[layer, :, :RETRO_NS].view(B, RETRO_N, RETRO_CAP, -1)
+                    for buf in bufs]
+            page_gather_single(store, layer, pages, page, out=tops)
+            ok = (torch.equal(got, want)
+                  and torch.equal(tops[0], want[:, :, :RETRO_CAP])
+                  and torch.equal(tops[1], want[:, :, RETRO_CAP:])
+                  and not bool(bufs[:, layer, :, RETRO_NS:].any()))
+            if not ok:
+                fail(f"page_gather_single {name} layer {layer}: not bit-exact")
+            res[f"{name}_l{layer}"] = True
+    line(phase="page_gather_single_vs_plain", pages=[B, RETRO_N], page=page,
+         R=RETRO_C * page, bitexact=res)
+    return 0.0
+
+
+def check_centroid_scores(torch, dev):
+    """centroid_scores against its plain version: both in f32 (the kernel
+    converts q on load), sums in other orders and expf, so each score is
+    held within 1e-5 + 1e-5 |plain|; each head's scores must sum to T*G."""
+    from magicdec_tpu_torch.ops.gemm_softmax import (centroid_scores,
+                                                     centroid_scores_plain)
+
+    Hkv, G, D = 8, 4, 64
+    g = torch.Generator(device=dev).manual_seed(64)
+    errs, ratios = {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for T in (1, 7):
+            q = torch.randn((B, T, Hkv * G, D), generator=g,
+                            device=dev).to(dtype)
+            for scale, cs in (("flat", 0.2), ("peaked", 2.0)):
+                cent = torch.randn((B, RETRO_C, Hkv * D), generator=g,
+                                   device=dev) * cs
+                view = cent.view(B, RETRO_C, Hkv, D).transpose(1, 2)
+                ref = centroid_scores_plain(q, view)
+                out = centroid_scores(q, view)
+                what = f"{name}_T{T}_{scale}"
+                limit = 1e-5 + 1e-5 * ref.abs()
+                _check_out(torch, what, out, ref, limit, errs, ratios)
+                if not torch.allclose(out.sum(-1), torch.full_like(
+                        out[..., 0], T * G), rtol=1e-5, atol=1e-4):
+                    fail(f"centroid_scores {what}: a head's mass is not T*G")
+    line(phase="centroid_scores_vs_plain", C=RETRO_C, Hkv=Hkv, G=G,
+         max_abs_err=errs, max_err_over_limit=ratios, tol="1e-5 + 1e-5|ref|")
+    return max(e for k_, e in errs.items() if k_.startswith("bfloat16_T1"))
+
+
 def check_prefill(torch, dev):
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops.attention import decode_valid_upto
@@ -477,18 +567,24 @@ def check_prefill(torch, dev):
 
 
 # ---------------------------------------------------------------------------
-# phase 7: the card's path against the CPU plain path on a small model, and
-# Quest on that model
+# phase 9: the card's path against the CPU plain path on a small model, and
+# Quest and RetroInfer on that model
 # ---------------------------------------------------------------------------
+
+def _small_cfg():
+    """The small f32 model of phase 9: llama-3.2-1b's head_dim of 64 (the
+    kernels' build) at 2 layers, dim 256 and 4/2 heads."""
+    from magicdec_tpu_torch.models.config import ModelArgs
+    return ModelArgs.from_name("llama-3.2-1b").replace(
+        n_layer=2, dim=256, n_head=4, n_kv_head=2, intermediate_size=512,
+        vocab_size=1024)
+
 
 def check_reference(torch, dev):
     from magicdec_tpu_torch.engine import attention_impls as impls
     from magicdec_tpu_torch.models import llama
-    from magicdec_tpu_torch.models.config import ModelArgs
 
-    cfg = ModelArgs.from_name("llama-3.2-1b").replace(
-        n_layer=2, dim=256, n_head=4, n_kv_head=2, intermediate_size=512,
-        vocab_size=1024)
+    cfg = _small_cfg()
     params = llama.init_params(cfg, torch.float32, scale=0.1, seed=1,
                                device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 128),
@@ -527,11 +623,8 @@ def quest_small_f32(torch, dev):
     from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
                                                 generate_selfspec)
     from magicdec_tpu_torch.models import llama
-    from magicdec_tpu_torch.models.config import ModelArgs
 
-    cfg = ModelArgs.from_name("llama-3.2-1b").replace(
-        n_layer=2, dim=256, n_head=4, n_kv_head=2, intermediate_size=512,
-        vocab_size=1024)
+    cfg = _small_cfg()
     params = llama.init_params(cfg, torch.float32, scale=0.3, seed=1,
                                device=dev)
     Bs, Ps, new, gamma = 2, 512, 32, 3
@@ -566,21 +659,85 @@ def quest_small_f32(torch, dev):
          rounds=stats.rounds, launches=used, lossless=True)
 
 
+def retro_small_f32(torch, dev):
+    """RetroInfer on the fold path on the small f32 model of check_reference,
+    at the JAX package's test settings (tests/test_retro.py
+    test_retro_lossless_past_tail_window: B=2, P=512, 72 new tokens, gamma
+    3, budget 256, latest_k 32, retro_cap 16, TAIL_COVERS_MAX lowered to 0):
+    the tail compacts and the rows that age out of it are folded into the
+    cluster index; the stream must equal the AR stream."""
+    import numpy as np
+
+    from magicdec_tpu_torch.engine import retro
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
+                                                generate_selfspec)
+    from magicdec_tpu_torch.models import llama
+
+    cfg = _small_cfg()
+    params = llama.init_params(cfg, torch.float32, scale=0.3, seed=1,
+                               device=dev)
+    Bs, Ps, new, gamma, cap = 2, 512, 72, 3, 16
+    prompt = np.random.default_rng(4).integers(0, cfg.vocab_size, (Bs, Ps))
+    kw = dict(batch_size=Bs, max_len=Ps + new + gamma + 16)
+    ar, _ = generate_autoregressive(Engine(cfg, params, **kw), prompt, new)
+    L = cfg.n_layer
+    engines = []
+
+    def go():
+        eng = Engine(cfg, params, spec="retro", draft_budget=256, latest_k=32,
+                     retro_cap=cap, **kw)
+        engines.append(eng)
+        return generate_selfspec(eng, prompt, gamma, new)
+
+    def expect(result):
+        r = result[-1].rounds
+        return dict(_zero(), flash_prefill=L * Ps // 128,
+                    flash_decode_stacked=L * r, page_gather_single=L * r,
+                    centroid_scores=L * r,
+                    flash_decode_stacked_masked=L * gamma * r)
+
+    saved, retro.TAIL_COVERS_MAX = retro.TAIL_COVERS_MAX, 0
+    try:
+        (out, counts, stats), used, _ = _drive(torch, "retro_small_f32", go,
+                                               expect)
+    finally:
+        retro.TAIL_COVERS_MAX = saved
+    out, ar = out.cpu(), ar.cpu()
+    for b in range(Bs):
+        n = min(int(counts[b]), new)
+        if n <= 32 or not torch.equal(out[b, :n], ar[b, :n]):
+            fail(f"retro_small_f32: sequence {b} differs from the AR stream "
+                 f"or stopped inside the tail window")
+    if stats.compactions == 0:
+        fail("retro_small_f32: the tail never compacted (no fold ran)")
+    folded = int((engines[0].spec_index[1] >= Ps).sum())
+    line(phase="retro_small_f32", B=Bs, P=Ps, new_tokens=new, gamma=gamma,
+         budget=256, latest_k=32, retro_cap=cap,
+         clusters=engines[0].retro_clusters, acceptance=stats.acceptance_rate,
+         rounds=stats.rounds, compactions=stats.compactions,
+         generated_rows_indexed=folded, index_build_s=stats.index_build_s,
+         launches=used, lossless=True)
+
+
 # ---------------------------------------------------------------------------
-# phases 8-10: row-count numerics, the main path at llama-3.2-1b full width,
+# phases 10-12: row-count numerics, the main path at llama-3.2-1b full width,
 # two-model SD
 # ---------------------------------------------------------------------------
 
 KERNELS = ("flash_decode_stacked", "flash_decode_intervals",
-           "flash_decode_stacked_masked", "page_gather", "flash_prefill")
+           "flash_decode_stacked_masked", "page_gather", "flash_prefill",
+           "page_gather_single", "centroid_scores")
 
 
 def _wrappers():
     """Each kernel's wrapper, which counts its launches."""
     from magicdec_tpu_torch.ops import flash_decode as fd
+    from magicdec_tpu_torch.ops import gemm_softmax as gs
     from magicdec_tpu_torch.ops import page_gather as pg
-    return {name: getattr(pg if name == "page_gather" else fd, name)
-            for name in KERNELS}
+    module = {"page_gather": pg, "page_gather_single": pg,
+              "centroid_scores": gs}
+    return {name: getattr(module.get(name, fd), name) for name in KERNELS}
 
 
 def _counts():
@@ -711,14 +868,18 @@ def main_path(torch, dev, params, prompt):
     def expect(spec):
         def launches(result):
             r = result[-1].rounds
-            decode = {None: L * (NEW - 1), "snapkv": L * (GAMMA + 1) * r,
-                      "streaming": L * r, "quest": L * r}[spec]
+            decode = (L * (NEW - 1) if spec is None
+                      else L * (GAMMA + 1) * r if spec == "snapkv" else L * r)
             draft = L * GAMMA * r
+            clustered = spec in ("retro", "squeeze")
             return dict(_zero(), flash_prefill=prefill,
                         flash_decode_stacked=decode,
                         flash_decode_intervals=draft * (spec == "streaming"),
-                        flash_decode_stacked_masked=draft * (spec == "quest"),
-                        page_gather=L * r * (spec == "quest"))
+                        flash_decode_stacked_masked=draft * (
+                            spec == "quest" or clustered),
+                        page_gather=L * r * (spec == "quest"),
+                        page_gather_single=L * r * clustered,
+                        centroid_scores=L * r * (spec == "retro"))
         return launches
 
     def run(name, spec, budget):
@@ -726,7 +887,8 @@ def main_path(torch, dev, params, prompt):
             eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,
                          draft_budget=budget, window_size=WINDOW,
                          sink_size=SINK, draft_headroom=STREAM_HEADROOM,
-                         latest_k=QUEST_TAIL, quest_page=QUEST_PAGE)
+                         latest_k=QUEST_TAIL, quest_page=QUEST_PAGE,
+                         retro_cap=RETRO_CAP)
             if spec is None:
                 out, stats = generate_autoregressive(eng, prompt, NEW)
                 return out, torch.full((B,), NEW, dtype=torch.int32), stats
@@ -744,6 +906,8 @@ def main_path(torch, dev, params, prompt):
     run("streaming_full", "streaming", STREAM_FULL)
     run("quest", "quest", BUDGET)
     run("quest_full", "quest", QUEST_FULL)
+    run("retro", "retro", BUDGET)
+    run("squeeze", "squeeze", BUDGET)
 
     ar = runs["ar"]["out"]
     spec_runs = [k for k in runs if k != "ar"]
@@ -766,6 +930,9 @@ def main_path(torch, dev, params, prompt):
          new_tokens=NEW, gamma=GAMMA, budget=BUDGET, sink=SINK,
          streaming_draft_slots=DRAFT_SLOTS, streaming_full_budget=STREAM_FULL,
          quest_round_buffer=QUEST_R, quest_full_budget=QUEST_FULL,
+         retro_clusters=[RETRO_C, RETRO_CAP], retro_gathered=RETRO_N,
+         index_build_s={k: runs[k]["stats"].index_build_s
+                        for k in ("retro", "squeeze")},
          tok_s={k: rate(r) for k, r in runs.items()},
          acceptance={k: runs[k]["stats"].acceptance_rate for k in spec_runs},
          rounds={k: runs[k]["stats"].rounds for k in spec_runs},
@@ -832,7 +999,7 @@ def longspec(torch, dev, params, prompt, ar):
 
 
 # ---------------------------------------------------------------------------
-# phases 11-12: times at the main path's shapes, the step and round profile
+# phases 13-14: times at the main path's shapes, the step and round profile
 # ---------------------------------------------------------------------------
 
 def _time_ms(torch, fn, n_layers, reps=3, iters=32, graph=False):
@@ -1117,11 +1284,93 @@ def time_kernels(torch, dev, errs, launches):
                  "max_abs_err": errs["page_gather"], "ms": t_k,
                  "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": t_l})
-    del bk, bv, tops
+    del tops
+
+    # page_gather_single: the RetroInfer round-opening step's gather at
+    # budget 1024 (28 of the 130 clusters of 2cap = 64 rows of the KV-fused
+    # store, bf16) split into the round buffer's K and V top regions
+    from magicdec_tpu_torch.ops.page_gather import (page_gather_single,
+                                                    page_gather_single_plain)
+    del k, v
+    torch.cuda.empty_cache()
+    page = 2 * RETRO_CAP
+    store = torch.randn((L, B, RETRO_C * page, Hkv * D), generator=g,
+                        device=dev, dtype=torch.bfloat16)
+    clusters = torch.stack([torch.randperm(RETRO_C, generator=cpu_g)[:RETRO_N]
+                            for _ in range(B)]).to(dev, torch.int32)
+    tops = [[buf[l, :, :RETRO_NS].view(B, RETRO_N, RETRO_CAP, -1)
+             for buf in (bk, bv)] for l in range(L)]
+    rows_idx = (torch.arange(B, device=dev)[:, None] * RETRO_C
+                + clusters.long()).reshape(-1)
+
+    def index_select_single(l):
+        return store[l].view(B * RETRO_C, -1).index_select(0, rows_idx)
+
+    bytes_ = 2 * B * RETRO_N * page * Hkv * D * item + clusters.numel() * 4
+    t_k, t_e = _device_and_eager_ms(torch, lambda l: page_gather_single(
+        store, l, clusters, page, out=tops[l]), L)
+    t_p = _time_ms(torch, lambda l: page_gather_single_plain(
+        store, l, clusters, page), L, graph=True)
+    t_l = _time_ms(torch, index_select_single, L, graph=True)
+    b_ms, b_by = bound(bytes_, 0)
+    gather_single = dict(clusters=[B, RETRO_N], page=page, ms=t_k,
+                         eager_ms=t_e, plain_ms=t_p, library_ms=t_l,
+                         library="1x index_select of whole 2cap-row pages",
+                         bound_ms=b_ms, bound_by=b_by)
+    rows.append({"name": "page_gather_single", "route": "cuda",
+                 "source": "magicdec_tpu_torch/csrc/page_gather.cu",
+                 "replaces": "magicdec_tpu/ops/pallas/page_gather.py:169",
+                 "launches": launches["page_gather_single"],
+                 "max_abs_err": errs["page_gather_single"], "ms": t_k,
+                 "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": t_l})
+    del bk, bv, tops, store
+
+    # centroid_scores: the RetroInfer round-opening step's scoring (T=1,
+    # Hq=32 over Hkv=8, the 130 float32 centroids of each layer read as a
+    # strided view of [B, C, Hkv*D]); no single PyTorch call computes it
+    from magicdec_tpu_torch.ops.gemm_softmax import (centroid_scores,
+                                                     centroid_scores_plain)
+    q = torch.randn((B, 1, Hq, D), generator=g, device=dev,
+                    dtype=torch.bfloat16)
+    cents = torch.randn((L, B, RETRO_C, Hkv * D), generator=g, device=dev)
+    views = [cents[l].view(B, RETRO_C, Hkv, D).transpose(1, 2)
+             for l in range(L)]
+    bytes_ = (q.numel() * item + B * RETRO_C * Hkv * D * 4
+              + B * Hkv * RETRO_C * 4)
+    # the dots, and per logit a scale, an exponent and two sums
+    flops = 2 * B * Hq * RETRO_C * D + 4 * B * Hq * RETRO_C
+    t_k, t_e = _device_and_eager_ms(
+        torch, lambda l: centroid_scores(q, views[l]), L)
+    t_p = _time_ms(torch, lambda l: centroid_scores_plain(q, views[l]), L,
+                   graph=True)
+    tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
+    # device ms against the cluster count (C = max_len / 32 grows with the
+    # context: 1024 at P=32768), same q
+    by_c = {}
+    for c in (32, 520, 1024):
+        cc = torch.randn((L, B, c, Hkv * D), generator=g, device=dev)
+        vv = [cc[l].view(B, c, Hkv, D).transpose(1, 2) for l in range(L)]
+        by_c[c] = _time_ms(torch, lambda l: centroid_scores(q, vv[l]), L,
+                           graph=True)
+    del cc, vv
+    scores = dict(C=RETRO_C, ms=t_k, eager_ms=t_e, plain_ms=t_p,
+                  library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                  ms_by_C=by_c)
+    rows.append({"name": "centroid_scores", "route": "cuda",
+                 "source": "magicdec_tpu_torch/csrc/centroid_scores.cu",
+                 "replaces": "magicdec_tpu/ops/pallas/gemm_softmax.py:50",
+                 "launches": launches["centroid_scores"],
+                 "max_abs_err": errs["centroid_scores"], "ms": t_k,
+                 "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
+                 "library_ms": None})
+    del cents, views
     _set_counts(saved)      # the timing launches are not the main path's
     line(phase="times", decode_shapes=extra, intervals_shapes=draft_shapes,
          prefill_last_chunk=prefill, masked_shapes=masked_shapes,
-         page_gather=gather)
+         page_gather=gather, page_gather_single=gather_single,
+         centroid_scores=scores)
     return rows
 
 
@@ -1176,14 +1425,16 @@ def _profile(torch, fn, n):
 
 def step_profile(torch, dev, steps=8, rounds=2):
     """Where the time of a decode step and of a speculation round goes, at
-    the main path's shape after prefill: an AR step, and a SnapKV and a
-    Quest round at budget 1024 (each drafting gamma tokens and verifying
-    gamma + 1; with random weights one token is accepted per round).
+    the main path's shape after prefill: an AR step, and a SnapKV, a Quest
+    and a RetroInfer round at budget 1024 (each drafting gamma tokens and
+    verifying gamma + 1; with random weights one token is accepted per
+    round).
     Launch counts made here are not the main path's."""
     import numpy as np
 
     from magicdec_tpu_torch.engine.backend import Engine
-    from magicdec_tpu_torch.engine.quest import QuestState, quest_round
+    from magicdec_tpu_torch.engine.quest import QuestState
+    from magicdec_tpu_torch.engine.retro import RetroState, roundtail_round
     from magicdec_tpu_torch.engine.spec import _eot_array, snapkv_round
     from magicdec_tpu_torch.models import llama
     from magicdec_tpu_torch.models.config import ModelArgs
@@ -1204,16 +1455,23 @@ def step_profile(torch, dev, steps=8, rounds=2):
     del eng, state
     torch.cuda.empty_cache()
     eot = _eot_array((), dev)
-    for spec in ("snapkv", "quest"):
+    for spec in ("snapkv", "quest", "retro"):
         eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,
                      draft_budget=BUDGET, window_size=WINDOW,
-                     latest_k=QUEST_TAIL, quest_page=QUEST_PAGE)
+                     latest_k=QUEST_TAIL, quest_page=QUEST_PAGE,
+                     retro_cap=RETRO_CAP)
         state = {"buf": eng.encode(prompt),
                  "gen": torch.zeros(B, dtype=torch.int32, device=dev)}
         output = torch.zeros((B, NEW + GAMMA + 3), dtype=torch.int32,
                              device=dev)
-        st = (QuestState.create(eng.cache, eng.spec_index, BUDGET, QUEST_TAIL,
-                                QUEST_PAGE, GAMMA) if spec == "quest" else None)
+        st = None
+        if spec == "quest":
+            st = QuestState.create(eng.cache, eng.spec_index, BUDGET,
+                                   QUEST_TAIL, QUEST_PAGE, GAMMA)
+        elif spec == "retro":
+            st = RetroState.create(eng.cache, eng.spec_index, nprobe=RETRO_N,
+                                   cap=RETRO_CAP, recent=QUEST_TAIL,
+                                   gamma=GAMMA, max_new_tokens=NEW)
 
         def one_round():
             if st is None:
@@ -1221,7 +1479,7 @@ def step_profile(torch, dev, steps=8, rounds=2):
                     params, cfg, eng.cache, eng.draft, state["buf"], output,
                     state["gen"], eot, GAMMA)
             else:
-                state["buf"], state["gen"], _ = quest_round(
+                state["buf"], state["gen"], _ = roundtail_round(
                     params, cfg, eng.cache, st, state["buf"], output,
                     state["gen"], eot, GAMMA)
 

@@ -1,22 +1,31 @@
-// Page gather for Hopper (sm_90a): copy n selected pages (page rows of
-// row_bytes each) of one layer of the stacked K and V caches [L, B, S, HD]
-// into [B, n, page, HD] outputs, bit for bit.
-//
-// Replaces magicdec_tpu/ops/pallas/page_gather.py page_gather (pallas_call
-// at :231 in DMA mode, :268 in grid mode), which the Quest draft runs at the
-// start of each round to fill the round buffer's top region. The TPU
-// kernel's two modes and their per-DMA-descriptor cost model were facts of
-// the TPU; here the copy is one plain kernel. Bound on the H100: bytes (each
-// selected row read once and written once, no arithmetic). Design:
-//  * one CTA per (page j, sequence b, tensor), so K and V of all B*n pages
-//    are copied by one launch; the layer is a pointer offset;
+// Page gathers for Hopper (sm_90a): copy n selected pages of one layer into
+// [B, n, rows, HD] outputs, bit for bit. One kernel serves both TPU kernels
+// it replaces in magicdec_tpu/ops/pallas/page_gather.py:
+//  * page_gather (pallas_call at :231 in DMA mode, :268 in grid mode): the
+//    Quest draft's K and V pages from the stacked caches [L, B, S, HD];
+//  * page_gather_single (pallas_call at :142 in DMA mode, :169 in grid
+//    mode): whole clusters from the RetroInfer/SqueezedAttention KV-fused
+//    store [L, B, C * 2cap, HD], where cluster c's K rows [c*2cap,
+//    c*2cap + cap) are followed by its V rows. With an output pair the K
+//    halves land in one output and the V halves in the other, so the round
+//    buffer's K and V top regions fill in one launch.
+// Both run once per layer at the start of each round to fill the round
+// buffer's top region. The TPU kernels' two modes and their per-DMA-
+// descriptor cost model were facts of the TPU; here the copy is one plain
+// kernel. Bound on the H100: bytes (each selected row read once and written
+// once, no arithmetic). Design:
+//  * one CTA per (page j, sequence b, part z): part z copies `rows` rows
+//    from source z at (b, page p) to destination z at (b, j). page_gather's
+//    parts are the K and V caches; page_gather_single's are the two halves
+//    of a store page (the second source is the store `cap` rows on); an
+//    unsplit page is one part;
+//  * every stride is free (in 16-byte vectors), so the gather writes
+//    straight into the round buffer's top region at one layer: no
+//    [B, n, page, HD] temporary, no second copy;
 //  * 16-byte vector loads and stores, consecutive threads on consecutive
 //    addresses, several loads in flight per thread;
-//  * each output sequence's n pages are contiguous but the sequence stride
-//    is free, so the gather can write straight into the round buffer's top
-//    region [B, NS, HD] at one layer (no second copy);
-//  * a page index outside [0, S/page) is clamped into it (memory safety; the
-//    callers pass top-k indices, always in range).
+//  * a page index outside [0, n_src_pages) is clamped into it (memory
+//    safety; the callers pass top-k indices, always in range).
 // The copy is type-agnostic: it moves bytes.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -26,52 +35,70 @@ namespace mdt {
 constexpr int GATHER_THREADS = 256;
 constexpr int GATHER_UNROLL = 4;
 
-// grid (n, B, 2): blockIdx.z = 0 copies K, 1 copies V. Strides in 16-byte
-// vectors.
-__global__ void __launch_bounds__(GATHER_THREADS)
-page_gather_kernel(const uint4* __restrict__ k_layer, const uint4* __restrict__ v_layer,
-                   const int* __restrict__ pages, uint4* __restrict__ out_k,
-                   uint4* __restrict__ out_v, int S, int page, int row_vec,
-                   int64_t out_b_stride_vec) {
-  const int j = blockIdx.x, b = blockIdx.y, n = gridDim.x;
-  const int n_src_pages = S / page;
-  const int p = min(max(pages[b * n + j], 0), n_src_pages - 1);
-  const int64_t page_vec = (int64_t)page * row_vec;
-  const uint4* src =
-      (blockIdx.z ? v_layer : k_layer) + ((int64_t)b * S * row_vec + p * page_vec);
-  uint4* dst = (blockIdx.z ? out_v : out_k) + (b * out_b_stride_vec + j * page_vec);
+// two sources and destinations as named fields (not an array: a dynamic
+// index into the parameter block would go through local memory)
+struct GatherArgs {
+  const uint4* src0;
+  const uint4* src1;
+  uint4* dst0;
+  uint4* dst1;
+  const int* pages;          // [B, n]
+  int n_src_pages;
+  int64_t part_vec;          // vectors one CTA copies (rows * row_vec)
+  int64_t src_b, src_page;   // source strides, in vectors
+  int64_t dst_b, dst_page;   // destination strides, in vectors
+};
+
+// grid (n, B, parts)
+__global__ void __launch_bounds__(GATHER_THREADS) page_gather_kernel(GatherArgs a) {
+  const int j = blockIdx.x, b = blockIdx.y, z = blockIdx.z, n = gridDim.x;
+  const int p = min(max(a.pages[b * n + j], 0), a.n_src_pages - 1);
+  const uint4* src = (z ? a.src1 : a.src0) + (b * a.src_b + p * a.src_page);
+  uint4* dst = (z ? a.dst1 : a.dst0) + (b * a.dst_b + j * a.dst_page);
+  const int64_t count = a.part_vec;
   constexpr int STEP = GATHER_THREADS * GATHER_UNROLL;
   int64_t i = threadIdx.x;
-  for (; i + (GATHER_UNROLL - 1) * GATHER_THREADS < page_vec; i += STEP) {
+  for (; i + (GATHER_UNROLL - 1) * GATHER_THREADS < count; i += STEP) {
     uint4 r[GATHER_UNROLL];
 #pragma unroll
     for (int u = 0; u < GATHER_UNROLL; ++u) r[u] = src[i + u * GATHER_THREADS];
 #pragma unroll
     for (int u = 0; u < GATHER_UNROLL; ++u) dst[i + u * GATHER_THREADS] = r[u];
   }
-  for (; i < page_vec; i += GATHER_THREADS) dst[i] = src[i];
+  for (; i < count; i += GATHER_THREADS) dst[i] = src[i];
 }
 
 }  // namespace mdt
 
-// C interface (ctypes). k, v [L, B, S, row_bytes] (any dtype), pages [B, n]
-// int32, out_k / out_v: sequence b's n pages contiguous at
-// out + b * out_b_stride_bytes. row_bytes, out_b_stride_bytes and every
-// pointer are multiples of 16 bytes; S is a multiple of page. Returns the
-// CUDA error code (0 = success).
-extern "C" int mdt_page_gather(const void* k, const void* v, const int* pages,
-                               void* out_k, void* out_v, int layer, int B,
-                               int S, int n, int page, int row_bytes,
-                               long long out_b_stride_bytes, void* stream) {
-  if (row_bytes % 16 || out_b_stride_bytes % 16 || S % page || n <= 0 || B <= 0)
+// C interface (ctypes). src0/src1 point at the layer's rows of sequence 0
+// (src1 null when parts == 1), pages [B, n] int32, dst0/dst1 at the output
+// rows of sequence 0, page 0. Each part copies `rows` rows of row_bytes.
+// Strides are in bytes. row_bytes, every stride and every pointer are
+// multiples of 16 bytes. Returns the CUDA error code (0 = success).
+extern "C" int mdt_page_gather(const void* src0, const void* src1,
+                               const int* pages, void* dst0, void* dst1,
+                               int parts, int B, int n, int n_src_pages,
+                               int rows, int row_bytes,
+                               long long src_b_bytes, long long src_page_bytes,
+                               long long dst_b_bytes, long long dst_page_bytes,
+                               void* stream) {
+  if (row_bytes % 16 || src_b_bytes % 16 || src_page_bytes % 16 ||
+      dst_b_bytes % 16 || dst_page_bytes % 16 || parts < 1 || parts > 2 ||
+      n <= 0 || B <= 0 || rows <= 0 || n_src_pages <= 0)
     return (int)cudaErrorInvalidValue;
-  const int row_vec = row_bytes / 16;
-  const int64_t layer_off = (int64_t)layer * B * S * row_vec;
-  mdt::page_gather_kernel<<<dim3(n, B, 2), mdt::GATHER_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint4*>(k) + layer_off,
-      static_cast<const uint4*>(v) + layer_off,
-      pages, static_cast<uint4*>(out_k), static_cast<uint4*>(out_v), S, page, row_vec,
-      out_b_stride_bytes / 16);
+  mdt::GatherArgs a;
+  a.src0 = static_cast<const uint4*>(src0);
+  a.src1 = static_cast<const uint4*>(parts == 2 ? src1 : src0);
+  a.dst0 = static_cast<uint4*>(dst0);
+  a.dst1 = static_cast<uint4*>(parts == 2 ? dst1 : dst0);
+  a.pages = pages;
+  a.n_src_pages = n_src_pages;
+  a.part_vec = (int64_t)rows * (row_bytes / 16);
+  a.src_b = src_b_bytes / 16;
+  a.src_page = src_page_bytes / 16;
+  a.dst_b = dst_b_bytes / 16;
+  a.dst_page = dst_page_bytes / 16;
+  mdt::page_gather_kernel<<<dim3(n, B, parts), mdt::GATHER_THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(a);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,12 @@
 """Engine: the runtime layer owning KV state and the step functions (port of
-the baseline, SnapKV, StreamingLLM and Quest parts of
-magicdec_tpu/engine/backend.py).
+magicdec_tpu/engine/backend.py without its mesh).
 
 The caches are preallocated tensors that every step writes in place;
 raggedness lives in length vectors, so rollback is length arithmetic.
 
 Public surface:
   encode(input_ids)        chunked prefill (+ SnapKV/StreamingLLM draft build,
-                           Quest page boxes)
+                           Quest page boxes, RetroInfer/Squeeze cluster index)
   inference(tokens)        target decode/verify without draft writes
   speculate(tokens)        one draft step (the gamma loop is in engine/spec.py)
   verify(tokens)           target verify, dual-writing the draft cache (SnapKV)
@@ -16,13 +15,14 @@ Public surface:
   drop_cache()             free the target cache (a standalone draft's)
   clear_kv()               reset lengths (buffers are reused)
 
-Speculation modes: spec=None (baseline), "snapkv", "streaming" and "quest"
-(which drafts out of the target cache through a round buffer that
-generate_selfspec allocates: no draft cache).
+Speculation modes: spec=None (baseline), "snapkv", "streaming", and
+"quest", "retro" and "squeeze", which draft out of the target cache through
+a round buffer that generate_selfspec allocates (no draft cache).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 import torch
@@ -32,15 +32,10 @@ from magicdec_tpu_torch.cache import DraftKVCache, KVCache
 from magicdec_tpu_torch.device import resolve_device
 from magicdec_tpu_torch.engine import attention_impls as impls
 from magicdec_tpu_torch.engine.quest import make_page_meta
+from magicdec_tpu_torch.engine.retro import build_retro_state
 from magicdec_tpu_torch.engine.sampling import argmax_tokens
 from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.models.config import ModelArgs
-
-# speculation modes of the JAX package that the port does not have yet, and
-# the ROADMAP.md item that ports each
-_NOT_PORTED = {"retro": "Queue A11 (RetroInfer and SqueezedAttention)",
-               "squeeze": "Queue A11 (RetroInfer and SqueezedAttention)"}
-
 
 # ---------------------------------------------------------------------------
 # Step functions: caches written in place, greedy tokens returned
@@ -168,21 +163,26 @@ class Engine:
     SnapKV sizes its draft cache at encode (budget plus the slots the target
     has left, so no draft append is dropped); StreamingLLM keeps
     draft_budget + draft_headroom slots and compacts once a length passes
-    size - draft_headroom // 2. Quest keeps no draft cache: encode builds
-    the page boxes (spec_index) of quest_page-slot pages, and the draft
-    attends the top pages plus a tail of the latest_k newest rows."""
+    size - draft_headroom // 2. Quest, RetroInfer and SqueezedAttention keep
+    no draft cache: encode builds their index (spec_index: the page boxes of
+    quest_page-slot pages, or the cluster index and KV-fused store of
+    retro_clusters clusters of at most retro_cap members), and the draft
+    attends the selected pages or clusters plus a tail of the latest_k
+    newest rows. retro_clusters=0 means max(max_len // 32, 8), the JAX
+    package's sizing (max_len before rounding); squeeze_threshold is the
+    normalised mass a cluster needs to be attended."""
 
     def __init__(self, config: ModelArgs, params, *, batch_size: int,
                  max_len: int, spec: Optional[str] = None,
                  draft_budget: int = 0, window_size: int = 32,
                  sink_size: int = 16, draft_headroom: int = 64,
                  latest_k: int = 128, quest_page: int = 128,
+                 retro_clusters: int = 0, retro_cap: int = 32,
+                 squeeze_threshold: float = 0.01,
                  prefill_chunk: int = 128,
                  kv_dtype=None, device=None):
-        if spec in _NOT_PORTED:
-            raise NotImplementedError(
-                f"spec={spec!r} is not ported yet: ROADMAP.md {_NOT_PORTED[spec]}")
-        if spec not in (None, "snapkv", "streaming", "quest"):
+        if spec not in (None, "snapkv", "streaming", "quest", "retro",
+                        "squeeze"):
             raise ValueError(f"unknown spec mode {spec!r}")
         if spec and draft_budget <= 0:
             raise ValueError("speculation needs draft_budget > 0")
@@ -202,6 +202,10 @@ class Engine:
         self.draft_headroom = draft_headroom
         self.latest_k = latest_k
         self.quest_page = quest_page
+        self.retro_cap = retro_cap
+        self.retro_clusters = retro_clusters or max(max_len // 32, 8)
+        self.squeeze_threshold = squeeze_threshold
+        self.index_build_s = 0.0    # the last encode's index build, seconds
         self.prefill_chunk = prefill_chunk
         self.kv_dtype = kv_dtype or w.dtype
         self._create_cache()
@@ -210,7 +214,7 @@ class Engine:
         if spec == "streaming":
             self._new_draft(draft_budget + draft_headroom)
         self._draft_round_start_lengths = None
-        self.spec_index = None      # Quest: (kmin, kmax) built at encode
+        self.spec_index = None      # Quest/Retro/Squeeze: built at encode
 
     def _create_cache(self):
         c = self.config
@@ -247,8 +251,10 @@ class Engine:
     def encode(self, input_ids) -> torch.Tensor:
         """Chunked prefill; returns the first generated token [B, 1]. The last
         chunk builds the SnapKV draft cache; StreamingLLM gathers its draft
-        cache from the target cache afterwards, and Quest builds the page
-        boxes of the prefilled cache."""
+        cache from the target cache afterwards, Quest builds the page
+        boxes of the prefilled cache, and RetroInfer/SqueezedAttention its
+        cluster index and KV-fused store (timed in index_build_s, on the card
+        up to a synchronize)."""
         if self.cache is None:
             self._create_cache()
         input_ids = self._tokens(input_ids)
@@ -281,6 +287,14 @@ class Engine:
                                        self.draft_budget, self.sink_size)
         elif self.spec == "quest":
             self.spec_index = make_page_meta(self.cache, self.quest_page)
+        elif self.spec in ("retro", "squeeze"):
+            t0 = time.perf_counter()
+            self.spec_index = build_retro_state(self.cache,
+                                                self.retro_clusters,
+                                                self.retro_cap)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.index_build_s = time.perf_counter() - t0
         if self.draft is not None:
             self._draft_round_start_lengths = self.draft.lengths
         return next_tok
@@ -300,12 +314,12 @@ class Engine:
     def speculate(self, tokens) -> torch.Tensor:
         """One draft step. SnapKV: the first speculated token sits at
         absolute position target length + tokens already speculated this
-        round. StreamingLLM: positions follow from the draft cache. Quest
-        drafts only inside generate_selfspec (its round buffer lives
-        there)."""
-        if self.spec == "quest":
-            raise ValueError("spec='quest' drafts inside generate_selfspec "
-                             "only")
+        round. StreamingLLM: positions follow from the draft cache. Quest,
+        RetroInfer and SqueezedAttention draft only inside generate_selfspec
+        (their round buffer lives there)."""
+        if self.spec in ("quest", "retro", "squeeze"):
+            raise ValueError(f"spec={self.spec!r} drafts inside "
+                             f"generate_selfspec only")
         if self.spec == "streaming":
             return draft_decode_streaming_step(
                 self.params, self.config, self.draft, self._tokens(tokens),

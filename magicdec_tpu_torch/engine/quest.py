@@ -14,7 +14,7 @@ granularity, not a memory layout: the cache stays the packed
 
 Where the JAX package runs the rounds inside one lax.while_loop, the port
 runs a Python loop over rounds (engine/spec.py) with one host read per
-round; quest_round is the loop's body.
+round; retro.roundtail_round is the loop's body.
 """
 
 from __future__ import annotations
@@ -24,10 +24,7 @@ from dataclasses import dataclass
 import torch
 
 from magicdec_tpu_torch.cache import KVCache
-from magicdec_tpu_torch.engine import attention_impls as impls
 from magicdec_tpu_torch.engine import retro
-from magicdec_tpu_torch.engine.sampling import argmax_tokens
-from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.models.config import ModelArgs
 from magicdec_tpu_torch.ops.page_gather import page_gather
 
@@ -119,94 +116,45 @@ def quest_select_gather_fn(config: ModelArgs, kmin, kmax, tail_base, *,
     return select_gather
 
 
-def quest_sizes(budget: int, latest_k: int, page: int, gamma: int):
-    """(n_pages, NS, keep, Wcap, trigger) of a Quest draft: the budget
-    covers the selected pages and the forced tail window of latest_k rows;
-    the tail region holds keep plus 8*(gamma+2) rows (rounded to 8) and
-    compacts once a tail passes trigger = Wcap - (gamma+2)."""
+def quest_sizes(budget: int, latest_k: int, page: int) -> tuple[int, int]:
+    """(n_pages, NS) of a Quest draft: the budget covers the selected pages
+    and the forced tail window of latest_k rows."""
     if budget < latest_k + page:
         raise ValueError(
             f"quest draft_budget={budget} is below latest_k + page = "
             f"{latest_k + page}; the effective budget is n_pages*{page} + "
             f"{latest_k}-token tail — raise draft_budget or lower latest_k")
     n_pages = max(budget // page - latest_k // page, 1)
-    keep = latest_k
-    Wcap = -(-(keep + 8 * (gamma + 2)) // 8) * 8
-    return n_pages, n_pages * page, keep, Wcap, Wcap - (gamma + 2)
+    return n_pages, n_pages * page
 
 
 @dataclass
-class QuestState:
+class QuestState(retro.RoundBuffer):
     """What the JAX package's Quest while_loop carries besides the target
     cache and the output: the page boxes and the round buffer."""
     kmin: torch.Tensor
     kmax: torch.Tensor
-    bufk: torch.Tensor
-    bufv: torch.Tensor
-    colmask: torch.Tensor
-    tail_len: torch.Tensor
-    tail_base: torch.Tensor
     n_pages: int
-    NS: int
-    keep: int
-    Wcap: int
-    trigger: int
     page: int
 
     @staticmethod
     def create(cache: KVCache, index, budget: int, latest_k: int, page: int,
                gamma: int) -> "QuestState":
         """The state after encode: index = make_page_meta's boxes."""
-        n_pages, NS, keep, Wcap, trigger = quest_sizes(budget, latest_k, page,
-                                                       gamma)
-        bufk, bufv, colmask, tail_len, tail_base = retro.init_tail(
-            cache, NS, Wcap, keep)
-        return QuestState(index[0], index[1], bufk, bufv, colmask, tail_len,
-                          tail_base, n_pages, NS, keep, Wcap, trigger, page)
+        n_pages, NS = quest_sizes(budget, latest_k, page)
+        return QuestState(kmin=index[0], kmax=index[1], n_pages=n_pages,
+                          page=page, **retro.RoundBuffer.init_fields(
+                              cache, NS, latest_k, gamma))
 
-    def compaction_needed(self) -> torch.Tensor:
-        return retro.compaction_needed(self.tail_len, self.trigger)
+    def select_gather(self, config: ModelArgs):
+        return quest_select_gather_fn(config, self.kmin, self.kmax,
+                                      self.tail_base, n_pages=self.n_pages,
+                                      page=self.page)
 
     def compact(self, cache: KVCache) -> None:
         """Shift the tail window and refresh the boxes of the pages that
-        aged out of it (they are unselectable while the tail holds them).
-        Called when compaction_needed() is true: then some tail is longer
-        than trigger > keep, so its tail_base moves, which is when the JAX
-        package refreshes the boxes."""
-        old_base = self.tail_base
-        self.tail_len, self.tail_base = retro.tail_compact(
-            self.bufk, self.bufv, self.tail_len, self.tail_base, NS=self.NS,
-            keep=self.keep)
+        aged out of it (they are unselectable while the tail holds them):
+        the tail_base moved, which is when the JAX package refreshes them."""
+        old_base = self.shift()
         update_page_meta(cache, self.kmin, self.kmax, old_base, self.Wcap,
                          self.page)
-
-
-@torch.inference_mode()
-def quest_round(params, config: ModelArgs, cache: KVCache, st: QuestState,
-                buffer0, output, gen_counts, eot, gamma: int):
-    """One Quest self-speculation round (the body of the JAX package's
-    while_loop after its compaction): a select+gather draft step, gamma-1
-    tail draft steps, the dual-write verify (target cache and tail), the
-    acceptance. Caches, round buffer and output are written in place;
-    returns (bonus [B, 1], gen_counts, info)."""
-    # imported here: engine/spec.py imports this module
-    from magicdec_tpu_torch.engine.spec import _accept_and_update
-
-    lenT0, tlen0 = cache.lengths, st.tail_len
-    select_gather = quest_select_gather_fn(config, st.kmin, st.kmax,
-                                           st.tail_base, n_pages=st.n_pages,
-                                           page=st.page)
-    buffer = retro.roundtail_draft_loop(
-        params, config, cache.k, cache.v, st.bufk, st.bufv, st.colmask,
-        tlen0, st.tail_base, lenT0, buffer0, select_gather, gamma=gamma,
-        NS=st.NS)
-    impl = impls.verify_dual_attn(config, lenT0, st.NS + tlen0, gamma + 1)
-    logits = llama.forward(params, config, buffer, impl,
-                           (cache.k, cache.v, st.bufk, st.bufv))
-    target_tokens = argmax_tokens(logits)
-    accept, bonus, gen_counts, terminal, accepted = _accept_and_update(
-        buffer, target_tokens, eot, gamma, output, gen_counts)
-    cache.lengths = lenT0 + accept
-    st.tail_len = tlen0 + accept
-    return bonus, gen_counts, dict(terminal=terminal, accepted_drafts=accepted,
-                                   accept_nums=accept)

@@ -1,8 +1,20 @@
-"""The round-buffer draft machinery shared by the retrieval drafts (port of
-the round-buffer part of magicdec_tpu/engine/retro.py; the Quest draft uses
-it now, RetroInfer and SqueezedAttention will).
+"""RetroInfer drafting and the round-buffer machinery shared by the
+retrieval drafts (port of magicdec_tpu/engine/retro.py; Quest and
+SqueezedAttention use the round buffer too).
 
-Layout: one stacked draft buffer [L, B, R = NS + Wcap, Hkv*D] per
+RetroInfer: at encode, each (layer, sequence)'s prefix keys are clustered
+over their full packed [Hkv*D] rows (k-means, ops/kmeans.py) into C
+clusters of at most `cap` members (overflow members are dropped from the
+index, as in the JAX package), and a KV-fused cluster-major store
+[L, B, C * 2cap, Hkv*D] holds each cluster's K rows followed by its V rows.
+The round-opening draft step scores the centroids (centroid_scores), takes
+the top nprobe clusters, and gathers them from the store into the round
+buffer's top region with one page_gather_single launch per layer. Unlike
+the JAX package, which builds the store on a TPU only and slices cache rows
+elsewhere, the port builds and gathers from the store on every device; the
+bytes are the same.
+
+Round buffer: one stacked draft buffer [L, B, R = NS + Wcap, Hkv*D] per
 generation. Columns [0, NS) hold the round's gathered working set (pages or
 clusters), refreshed by the round-opening draft step, with pad and dedup
 holes expressed by a colmask [L, B, 1, R] int32. Columns [NS, R) hold a
@@ -10,21 +22,38 @@ rolling tail window of the newest rows: draft steps append their K/V
 there, the verify dual-writes it (and the target cache), rollback rewinds
 tail_len, and an amortised compaction shifts the window left. Every draft
 step attends [top region | causal tail] through flash_decode_stacked_masked.
+Generations of at most TAIL_COVERS_MAX tokens widen the tail to hold every
+generated row; longer ones fold the rows that age out of the tail into the
+cluster index at each compaction (update_cluster_index).
 
-As elsewhere in the port, the buffers are written in place.
+As elsewhere in the port, the buffers, the index and the store are written
+in place. Where the JAX package runs the rounds inside one lax.while_loop,
+the port runs a Python loop over rounds (engine/spec.py) with one host read
+per round; roundtail_round is the loop's body for every round-buffer draft.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from magicdec_tpu_torch.cache import KVCache
+from magicdec_tpu_torch.engine import attention_impls as impls
 from magicdec_tpu_torch.engine.attention_impls import (_flat, _positions,
                                                        _Rotary, _Slots)
 from magicdec_tpu_torch.engine.sampling import argmax_tokens
 from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.models.config import ModelArgs
 from magicdec_tpu_torch.ops.flash_decode import flash_decode_stacked_masked
+from magicdec_tpu_torch.ops.gemm_softmax import centroid_scores
+from magicdec_tpu_torch.ops.kmeans import kmeans
+from magicdec_tpu_torch.ops.page_gather import page_gather_single
+
+# generations up to this many tokens keep every generated row in the tail
+# window (no index maintenance); longer ones fold aged rows into the cluster
+# index at each compaction. Tests lower it to force the fold path.
+TAIL_COVERS_MAX = 256
 
 
 def _gather_rows(buf: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
@@ -165,3 +194,308 @@ def roundtail_draft_loop(params, config: ModelArgs, ck, cv, bufk, bufv,
         tok = argmax_tokens(logits)
         drafted.append(tok)
     return torch.cat([buffer0] + drafted, dim=1)
+
+
+@torch.inference_mode()
+def roundtail_round(params, config: ModelArgs, cache: KVCache, st, buffer0,
+                    output, gen_counts, eot, gamma: int):
+    """One self-speculation round of a round-buffer draft (Quest, RetroInfer,
+    SqueezedAttention; the body of the JAX package's while_loop after its
+    compaction): a select+gather draft step with st.select_gather's rule,
+    gamma-1 tail draft steps, the dual-write verify (target cache and tail),
+    the acceptance. Caches, round buffer and output are written in place;
+    returns (bonus [B, 1], gen_counts, info)."""
+    # imported here: engine/spec.py imports this module
+    from magicdec_tpu_torch.engine.spec import _accept_and_update
+
+    lenT0, tlen0 = cache.lengths, st.tail_len
+    buffer = roundtail_draft_loop(
+        params, config, cache.k, cache.v, st.bufk, st.bufv, st.colmask, tlen0,
+        st.tail_base, lenT0, buffer0, st.select_gather(config), gamma=gamma,
+        NS=st.NS)
+    impl = impls.verify_dual_attn(config, lenT0, st.NS + tlen0, gamma + 1)
+    logits = llama.forward(params, config, buffer, impl,
+                           (cache.k, cache.v, st.bufk, st.bufv))
+    target_tokens = argmax_tokens(logits)
+    accept, bonus, gen_counts, terminal, accepted = _accept_and_update(
+        buffer, target_tokens, eot, gamma, output, gen_counts)
+    cache.lengths = lenT0 + accept
+    st.tail_len = tlen0 + accept
+    return bonus, gen_counts, dict(terminal=terminal, accepted_drafts=accepted,
+                                   accept_nums=accept)
+
+
+def tail_sizes(keep: int, gamma: int) -> tuple[int, int]:
+    """(Wcap, trigger) of a tail region for `keep` rows: it holds keep plus
+    8*(gamma+2) rows (rounded to 8), so the compaction gather amortises over
+    ~8 rounds, and compacts once a tail passes trigger = Wcap - (gamma+2)."""
+    Wcap = -(-(keep + 8 * (gamma + 2)) // 8) * 8
+    return Wcap, Wcap - (gamma + 2)
+
+
+@dataclass
+class RoundBuffer:
+    """The round buffer of a retrieval draft and its tail bookkeeping. Each
+    draft's state extends it with its index, its selection rule
+    (select_gather(config) -> a select_gather_fn for roundtail_select_attn)
+    and what a compaction refreshes (compact(cache))."""
+    bufk: torch.Tensor
+    bufv: torch.Tensor
+    colmask: torch.Tensor
+    tail_len: torch.Tensor
+    tail_base: torch.Tensor
+    NS: int
+    keep: int
+    Wcap: int
+    trigger: int
+
+    @staticmethod
+    def init_fields(cache: KVCache, NS: int, keep: int, gamma: int) -> dict:
+        """The fields of a fresh round buffer after encode."""
+        Wcap, trigger = tail_sizes(keep, gamma)
+        bufk, bufv, colmask, tail_len, tail_base = init_tail(cache, NS, Wcap,
+                                                             keep)
+        return dict(bufk=bufk, bufv=bufv, colmask=colmask, tail_len=tail_len,
+                    tail_base=tail_base, NS=NS, keep=keep, Wcap=Wcap,
+                    trigger=trigger)
+
+    def compaction_needed(self) -> torch.Tensor:
+        return compaction_needed(self.tail_len, self.trigger)
+
+    def shift(self) -> torch.Tensor:
+        """Shift the tail window (called when compaction_needed() is true:
+        then some tail is longer than trigger > keep, so its tail_base
+        moves); returns the tail_base before the shift."""
+        old_base = self.tail_base
+        self.tail_len, self.tail_base = tail_compact(
+            self.bufk, self.bufv, self.tail_len, self.tail_base, NS=self.NS,
+            keep=self.keep)
+        return old_base
+
+
+# ---------------------------------------------------------------------------
+# The cluster index: built at encode, folded at compactions
+# ---------------------------------------------------------------------------
+
+def member_slot_table(assign: torch.Tensor, valid: torch.Tensor,
+                      n_clusters: int, cap: int) -> torch.Tensor:
+    """Per-cluster member slot lists [..., C, cap] int32 (-1 padding) from
+    k-means assignments [..., S]: each valid slot is ranked within its
+    cluster by slot order; members ranked cap or later are dropped."""
+    S = assign.shape[-1]
+    a = assign.long()
+    onehot = (torch.nn.functional.one_hot(a, n_clusters).to(torch.int32)
+              * valid.to(torch.int32)[..., None])               # [..., S, C]
+    rank = torch.cumsum(onehot, dim=-2, dtype=torch.int32) - 1
+    member_rank = torch.gather(rank, -1, a[..., None])[..., 0]
+    is_member = torch.gather(onehot, -1, a[..., None])[..., 0] > 0
+    ok = is_member & (member_rank < cap)
+    # dropped slots go to a spare last column, cut off below
+    target = torch.where(ok, a * cap + member_rank, n_clusters * cap)
+    slot = torch.arange(S, dtype=torch.int32, device=assign.device)
+    table = torch.full((*assign.shape[:-1], n_clusters * cap + 1), -1,
+                       dtype=torch.int32, device=assign.device)
+    table.scatter_(-1, target, slot.expand(assign.shape).contiguous())
+    return table[..., :-1].reshape(*assign.shape[:-1], n_clusters, cap)
+
+
+def build_cluster_index(cache: KVCache, n_clusters: int, cap: int):
+    """Cluster each (layer, sequence)'s keys over the full packed [Hkv*D]
+    rows (all KV heads jointly, so a selected slot moves as one row).
+    Returns (centroids [L, B, C, HD] float32, slots [L, B, C, cap] int32,
+    -1 padding). One layer at a time, so the [B, S, C] transients of the
+    Lloyd distances and the one-hot exist for one layer only."""
+    L, B, S, HD = cache.k.shape
+    dev = cache.k.device
+    valid = torch.arange(S, device=dev)[None, :] < cache.lengths[:, None]
+    cent = torch.empty((L, B, n_clusters, HD), dtype=torch.float32,
+                       device=dev)
+    slots = torch.empty((L, B, n_clusters, cap), dtype=torch.int32,
+                        device=dev)
+    for l in range(L):
+        cent[l], assign = kmeans(cache.k[l], valid, n_clusters)
+        slots[l] = member_slot_table(assign, valid, n_clusters, cap)
+    return cent, slots
+
+
+def build_clustered_store(cache: KVCache, cluster_slots: torch.Tensor,
+                          cap: int) -> torch.Tensor:
+    """The KV-fused cluster-major store [L, B, C * 2cap, HD]: cluster c's K
+    rows at [c*2cap, c*2cap + cap), its V rows right after, so
+    page_gather_single moves a whole cluster as one page of 2cap rows. Pad
+    members (-1) hold the clipped row 0 and are masked at attention. Built
+    one layer at a time into the store."""
+    L, B, S, HD = cache.k.shape
+    C = cluster_slots.shape[2]
+    store = torch.empty((L, B, C, 2, cap, HD), dtype=cache.k.dtype,
+                        device=cache.k.device)
+    b_idx = torch.arange(B, device=cache.k.device)[:, None]
+    for l in range(L):
+        src = cluster_slots[l].clamp(0, S - 1).reshape(B, C * cap).long()
+        store[l, :, :, 0] = cache.k[l][b_idx, src].view(B, C, cap, HD)
+        store[l, :, :, 1] = cache.v[l][b_idx, src].view(B, C, cap, HD)
+    return store.view(L, B, C * 2 * cap, HD)
+
+
+def build_retro_state(cache: KVCache, n_clusters: int, cap: int):
+    """The retrieval index, built after prefill (RetroInfer clusters inside
+    its prefill too): (centroids, cluster_slots, kv_store, counts [L, B, C]
+    int32 live member counts, indexed_upto [B] = the prefill lengths the
+    index was built from)."""
+    centroids, cluster_slots = build_cluster_index(cache, n_clusters, cap)
+    kv_store = build_clustered_store(cache, cluster_slots, cap)
+    counts = (cluster_slots >= 0).sum(-1, dtype=torch.int32)
+    return (centroids, cluster_slots, kv_store, counts,
+            cache.lengths.to(torch.int32).clone())
+
+
+def _scatter_rows(dst: torch.Tensor, target: torch.Tensor, val: torch.Tensor,
+                  ok: torch.Tensor) -> None:
+    """dst[l, b, target[l, b, a]] = val[l, b, a] where ok[l, b, a], in place
+    and without a host read: every entry that is not ok repeats the write of
+    the first ok entry of its (l, b) (or rewrites dst[l, b, 0] with itself
+    when there is none), so duplicate indices always carry equal values.
+    dst [L, B, N, ...], target/ok [L, B, A], val [L, B, A, ...]."""
+    L, B = target.shape[:2]
+    rest = val.shape[3:]
+    first = torch.argmax(ok.to(torch.int32), dim=2, keepdim=True)   # [L,B,1]
+    has = ok.any(dim=2, keepdim=True)
+    target = torch.where(ok, target,
+                         torch.where(has, torch.gather(target, 2, first), 0))
+    extra = (1,) * len(rest)
+    idx = first.view(L, B, 1, *extra).expand(L, B, 1, *rest)
+    val0 = torch.where(has.view(L, B, 1, *extra), torch.gather(val, 2, idx),
+                       dst[:, :, :1].to(val.dtype))
+    val = torch.where(ok.view(L, B, -1, *extra), val, val0)
+    l_idx = torch.arange(L, device=dst.device)[:, None, None]
+    b_idx = torch.arange(B, device=dst.device)[None, :, None]
+    dst[l_idx, b_idx, target] = val.to(dst.dtype)
+
+
+def update_cluster_index(cache: KVCache, centroids, cluster_slots, kv_store,
+                         counts, old_base, new_base, indexed_upto, *,
+                         age_max: int, cap: int) -> None:
+    """Fold the rows [old_base, new_base) per sequence (just compacted out
+    of the tail window) into the index, in place: each joins its nearest
+    centroid (the k-means metric, centroids fixed) and is appended to that
+    cluster's member slots and its rows of the store; counts [L, B, C]
+    advance. Rows below indexed_upto are members already and are skipped (a
+    duplicate key would be attended twice); rows landing in a full cluster
+    are dropped, like build_cluster_index's overflow."""
+    L, B, S, HD = cache.k.shape
+    C = cluster_slots.shape[2]
+    dev = cache.k.device
+    j = torch.arange(age_max, dtype=torch.int32, device=dev)
+    slot = old_base[:, None] + j[None, :]                         # [B, A]
+    valid = ((j[None, :] < (new_base - old_base)[:, None])
+             & (slot >= indexed_upto[:, None]))
+    b_idx = torch.arange(B, device=dev)[:, None]
+    src = slot.clamp(0, S - 1).long()
+    k_rows = cache.k[:, b_idx, src]                               # [L,B,A,HD]
+    v_rows = cache.v[:, b_idx, src]
+    d = (-2.0 * torch.einsum("lbad,lbcd->lbac", k_rows.float(), centroids)
+         + (centroids * centroids).sum(-1)[:, :, None, :])
+    assign = torch.argmin(d, dim=-1)                              # [L, B, A]
+    onehot = (torch.nn.functional.one_hot(assign, C).to(torch.int32)
+              * valid[None, :, :, None].to(torch.int32))
+    rank = torch.cumsum(onehot, dim=2, dtype=torch.int32) - 1
+    rank = torch.gather(rank, -1, assign[..., None])[..., 0]
+    fill = torch.gather(counts, -1, assign) + rank                # [L, B, A]
+    ok = valid[None] & (fill < cap)
+    added = (onehot * ok[..., None].to(torch.int32)).sum(2, dtype=torch.int32)
+    fill = fill.long()
+    _scatter_rows(cluster_slots.view(L, B, C * cap), assign * cap + fill,
+                  slot[None].expand(L, B, age_max), ok)
+    _scatter_rows(kv_store, assign * (2 * cap) + fill, k_rows, ok)
+    _scatter_rows(kv_store, assign * (2 * cap) + cap + fill, v_rows, ok)
+    counts.copy_(torch.clamp(counts + added, max=cap))
+
+
+# ---------------------------------------------------------------------------
+# RetroInfer selection and state
+# ---------------------------------------------------------------------------
+
+def retro_select_gather_fn(config: ModelArgs, centroids, cluster_slots,
+                           kv_store, *, nprobe: int, select_fn=None):
+    """select_gather_fn for roundtail_select_attn: rank the clusters of
+    layer l (centroid_scores summed over KV heads, top nprobe; or a custom
+    select_fn(q, l) -> (top_c [B, n] int32, keep [B, n] bool or None), the
+    SqueezedAttention rule), then page_gather_single the whole clusters (K
+    and V halves of each 2cap-row store page) into the top region. Returns
+    the gathered rows' cache slots [B, n * cap] (-1 for pad members and for
+    clusters not kept)."""
+    Hkv, Dh = config.n_kv_head, config.head_dim
+    cap = cluster_slots.shape[3]
+
+    def default_select(q, l):
+        B, C = q.shape[0], centroids.shape[2]
+        cent = centroids[l].view(B, C, Hkv, Dh).transpose(1, 2)  # no copy
+        scores = centroid_scores(q, cent).sum(dim=1)              # [B, C]
+        return torch.topk(scores, nprobe, dim=1).indices.to(torch.int32), None
+
+    select = select_fn or default_select
+
+    def select_gather(q, ck, cv, l, out_k, out_v):
+        B, HD = q.shape[0], ck.shape[3]
+        top_c, keep = select(q, l)                                # [B, n]
+        n = top_c.shape[1]
+        b_idx = torch.arange(B, device=q.device)[:, None]
+        slots = cluster_slots[l][b_idx, top_c.long()]             # [B,n,cap]
+        if keep is not None:
+            slots = torch.where(keep[..., None], slots, -1)
+        page_gather_single(kv_store, l, top_c, 2 * cap,
+                           out=(out_k.view(B, n, cap, HD),
+                                out_v.view(B, n, cap, HD)))
+        return slots.reshape(B, -1)
+
+    return select_gather
+
+
+@dataclass
+class RetroState(RoundBuffer):
+    """What the JAX package's RetroInfer while_loop carries besides the
+    target cache and the output: the cluster index (written in place by the
+    fold) and the round buffer. age_max = 0 on the tail-covers path (no
+    fold)."""
+    centroids: torch.Tensor
+    cluster_slots: torch.Tensor
+    kv_store: torch.Tensor
+    counts: torch.Tensor
+    indexed_upto: torch.Tensor
+    nprobe: int
+    cap: int
+    age_max: int
+
+    @classmethod
+    def create(cls, cache: KVCache, index, *, nprobe: int, cap: int,
+               recent: int, gamma: int, max_new_tokens: int, **rule):
+        """The state after encode (index = build_retro_state's). A
+        generation of at most TAIL_COVERS_MAX tokens keeps recent +
+        max_new_tokens + gamma + 1 tail rows, so nothing ages out; a longer
+        one keeps `recent` and folds up to Wcap - recent aged rows per
+        compaction."""
+        keep = recent
+        fold = max_new_tokens > TAIL_COVERS_MAX
+        if not fold:
+            keep += max_new_tokens + gamma + 1
+        base = RoundBuffer.init_fields(cache, nprobe * cap, keep, gamma)
+        centroids, cluster_slots, kv_store, counts, indexed_upto = index
+        return cls(centroids=centroids, cluster_slots=cluster_slots,
+                   kv_store=kv_store, counts=counts, indexed_upto=indexed_upto,
+                   nprobe=nprobe, cap=cap,
+                   age_max=base["Wcap"] - keep if fold else 0, **rule, **base)
+
+    def select_gather(self, config: ModelArgs):
+        return retro_select_gather_fn(config, self.centroids,
+                                      self.cluster_slots, self.kv_store,
+                                      nprobe=self.nprobe)
+
+    def compact(self, cache: KVCache) -> None:
+        """Shift the tail window and, on the long-generation path, fold the
+        rows that aged out of it into the index."""
+        old_base = self.shift()
+        if self.age_max:
+            update_cluster_index(cache, self.centroids, self.cluster_slots,
+                                 self.kv_store, self.counts, old_base,
+                                 self.tail_base, self.indexed_upto,
+                                 age_max=self.age_max, cap=self.cap)

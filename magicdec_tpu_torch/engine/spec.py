@@ -1,13 +1,15 @@
-"""Speculative decoding control loops (port of the baseline, SnapKV,
-StreamingLLM and Quest parts of magicdec_tpu/engine/spec.py).
+"""Speculative decoding control loops (port of the baseline and
+self-speculation parts of magicdec_tpu/engine/spec.py: SnapKV,
+StreamingLLM, Quest, RetroInfer and SqueezedAttention).
 
 A round is gamma draft steps on the budget cache, one verify of gamma+1
 tokens (SnapKV's also writes the draft cache), vectorized cumprod
 acceptance, a length-only rollback, the output scatter and the bonus pick,
 all on the device. Where the JAX package runs the rounds inside one
 lax.while_loop, the port runs a Python loop over rounds with one host read
-per round (of the flag that ends the loop, and for StreamingLLM and Quest
-of whether to compact first), as the JAX package's fused=False loop does.
+per round (of the flag that ends the loop, and for StreamingLLM and the
+round-buffer drafts of whether to compact first), as the JAX package's
+fused=False loop does.
 
 Acceptance semantics (as in the JAX package):
   * a drafted token equal to the target argmax and not EOS is accepted;
@@ -29,6 +31,8 @@ from magicdec_tpu_torch import cache as cache_lib
 from magicdec_tpu_torch.cache import DraftKVCache, KVCache
 from magicdec_tpu_torch.engine import attention_impls as impls
 from magicdec_tpu_torch.engine import quest as quest_lib
+from magicdec_tpu_torch.engine import retro as retro_lib
+from magicdec_tpu_torch.engine import squeeze as squeeze_lib
 from magicdec_tpu_torch.engine.backend import Engine
 from magicdec_tpu_torch.engine.sampling import argmax_tokens, sample
 from magicdec_tpu_torch.models import llama
@@ -162,7 +166,8 @@ class SpecStats:
     total_accepted_drafts: int = 0
     generated_tokens: int = 0
     wall_time_s: float = 0.0
-    compactions: int = 0        # StreamingLLM / Quest draft-window shifts
+    compactions: int = 0        # StreamingLLM / round-buffer tail shifts
+    index_build_s: float = 0.0  # RetroInfer/Squeeze index build at encode
 
     @property
     def acceptance_rate(self) -> float:
@@ -228,19 +233,23 @@ def generate_autoregressive(engine: Engine, input_ids, max_new_tokens: int,
 def generate_selfspec(engine: Engine, input_ids, gamma: int,
                       max_new_tokens: int, eot_ids=()
                       ) -> tuple[torch.Tensor, torch.Tensor, SpecStats]:
-    """Self-speculative generation (SnapKV, StreamingLLM or Quest). Returns
-    (output [B, cap], gen_counts [B], stats) with cap = max_new_tokens +
-    gamma + 2. Rounds run while no sequence hit EOS, some sequence has fewer
-    than max_new_tokens tokens and the target cache has room for gamma + 1
-    more: the JAX fused loop's condition, read on the host once per round.
-    For StreamingLLM and Quest that read also says whether to compact the
-    draft window (Quest: and refresh the page boxes that aged out of it)
-    before the round."""
-    if engine.spec not in ("snapkv", "streaming", "quest"):
+    """Self-speculative generation (SnapKV, StreamingLLM, Quest, RetroInfer
+    or SqueezedAttention). Returns (output [B, cap], gen_counts [B], stats)
+    with cap = max_new_tokens + gamma + 2. Rounds run while no sequence hit
+    EOS, some sequence has fewer than max_new_tokens tokens and the target
+    cache has room for gamma + 1 more: the JAX fused loop's condition, read
+    on the host once per round. For StreamingLLM and the round-buffer
+    drafts that read also says whether to compact the draft window first
+    (Quest then refreshes the page boxes that aged out of it; RetroInfer and
+    SqueezedAttention on the long-generation path fold the aged rows into
+    the cluster index). The round-buffer drafts' nprobe (Retro) and
+    max_clusters (Squeeze) are max((budget - latest_k) // retro_cap, 1)."""
+    if engine.spec not in ("snapkv", "streaming", "quest", "retro",
+                           "squeeze"):
         raise ValueError(f"generate_selfspec needs spec='snapkv', "
-                         f"'streaming' or 'quest', not {engine.spec!r}")
+                         f"'streaming', 'quest', 'retro' or 'squeeze', not "
+                         f"{engine.spec!r}")
     streaming = engine.spec == "streaming"
-    quest = engine.spec == "quest"
     dev = engine.device
     input_ids = torch.as_tensor(input_ids, dtype=torch.int32, device=dev)
     B = input_ids.shape[0]
@@ -255,11 +264,25 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
         last_acc = input_ids[:, -1:]
         stale = torch.zeros(B, dtype=torch.bool, device=dev)
         engine.draft.lengths = engine.draft.lengths - 1
-    if quest:
+    st = None       # the round-buffer drafts' state
+    if engine.spec == "quest":
         st = quest_lib.QuestState.create(
             engine.cache, engine.spec_index, engine.draft_budget,
             engine.latest_k, engine.quest_page, gamma)
-    stats = SpecStats()
+    elif engine.spec in ("retro", "squeeze"):
+        nprobe = max((engine.draft_budget - engine.latest_k)
+                     // engine.retro_cap, 1)
+        kw = dict(nprobe=nprobe, cap=engine.retro_cap,
+                  recent=engine.latest_k, gamma=gamma,
+                  max_new_tokens=max_new_tokens)
+        if engine.spec == "retro":
+            st = retro_lib.RetroState.create(engine.cache, engine.spec_index,
+                                             **kw)
+        else:
+            st = squeeze_lib.SqueezeState.create(
+                engine.cache, engine.spec_index,
+                threshold=engine.squeeze_threshold, **kw)
+    stats = SpecStats(index_build_s=engine.index_build_s)
     accepted = torch.zeros((), dtype=torch.int64, device=dev)
     terminal = torch.zeros((), dtype=torch.bool, device=dev)
     max_len = engine.cache.max_len
@@ -272,15 +295,15 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
             trigger = engine.compaction_trigger()
             go, need = torch.stack(
                 [go, cache_lib.compaction_needed(engine.draft, trigger)]).tolist()
-        elif quest:
+        elif st is not None:
             go, need = torch.stack([go, st.compaction_needed()]).tolist()
         if not bool(go):
             break
-        if quest:
+        if st is not None:
             if need:
                 st.compact(engine.cache)
                 stats.compactions += 1
-            buffer0, gen_counts, info = quest_lib.quest_round(
+            buffer0, gen_counts, info = retro_lib.roundtail_round(
                 engine.params, engine.config, engine.cache, st, buffer0,
                 output, gen_counts, eot, gamma)
         elif streaming:

@@ -1,0 +1,103 @@
+"""Centroid scoring for the clustered-KV drafts: q . centroids, softmax over
+the centroids, summed over the query rows of each KV head; with its plain
+PyTorch version and a launch count.
+
+`centroid_scores` replaces magicdec_tpu/ops/pallas/gemm_softmax.py
+centroid_scores (pallas_call at :50) with a hand-written CUDA C++ kernel for
+sm_90a (csrc/centroid_scores.cu, built by ops/_build.py). The RetroInfer
+draft runs it once per layer at the start of each round to rank the
+clusters. The centroids are taken in the JAX package's [B, Hkv, C, D]
+layout as any strided view, so the port passes a view of its
+[L, B, C, Hkv*D] centroids and nothing is copied.
+
+On tensors on the CPU the wrapper runs the plain version; on CUDA tensors it
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from magicdec_tpu_torch.ops import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel keeps a (sequence, KV head)'s query rows, a tile of centroids
+# and the logits in shared memory: at most this many bytes (the H100's
+# per-block limit); a tile holds up to this many floats
+_SMEM_LIMIT = 227 * 1024
+_TILE_FLOATS = 16384
+
+
+def centroid_scores_plain(q: torch.Tensor,
+                          centroids: torch.Tensor) -> torch.Tensor:
+    """The plain version (the JAX package's centroid_scores_xla): q [B, T,
+    Hq, D], centroids [B, Hkv, C, D] -> [B, Hkv, C] float32."""
+    B, T, Hq, D = q.shape
+    Hkv = centroids.shape[1]
+    qg = q.reshape(B, T, Hkv, Hq // Hkv, D).float()
+    logits = torch.einsum("bthgd,bhcd->bthgc", qg,
+                          centroids.float()) * (D ** -0.5)
+    return torch.softmax(logits, dim=-1).sum(dim=(1, 3))
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("centroid_scores")
+    fn = lib.mdt_centroid_scores
+    if fn.argtypes is None:
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [I, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, LL, LL, P]
+        fn.restype = I
+    return lib
+
+
+def centroid_scores(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
+    """q [B, T, Hq, D] (rotated; float32 or bfloat16), centroids [B, Hkv, C,
+    D] float32 (any strides with D contiguous) -> scores [B, Hkv, C]
+    float32: each KV head's softmax mass over the C centroids, summed over
+    its T*G query rows (the quantity RetroInfer ranks clusters by).
+
+    Replaces the TPU kernel centroid_scores (pallas_call at
+    magicdec_tpu/ops/pallas/gemm_softmax.py:50). Launch-bound on the H100 at
+    the main path's shapes (~2.2 MB, ~4.3 MFLOP); one CTA per (sequence,
+    KV head), centroids staged in shared memory in tiles, one thread per
+    logit (csrc/centroid_scores.cu)."""
+    if q.device.type == "cpu" and centroids.device.type == "cpu":
+        return centroid_scores_plain(q, centroids)
+    if not (q.is_cuda and centroids.is_cuda) or q.device != centroids.device:
+        raise ValueError("centroid_scores needs both operands on one CUDA "
+                         "device (or both on the CPU)")
+    B, T, Hq, D = q.shape
+    if (centroids.dim() != 4 or centroids.shape[0] != B
+            or centroids.shape[3] != D):
+        raise ValueError(f"centroids {tuple(centroids.shape)}: need "
+                         f"[{B}, Hkv, C, {D}]")
+    Hkv, C = centroids.shape[1], centroids.shape[2]
+    if q.dtype not in _DTYPE_CODES or centroids.dtype != torch.float32:
+        raise ValueError(f"q {q.dtype}, centroids {centroids.dtype}: need q "
+                         f"float32 or bfloat16 and float32 centroids")
+    if Hq % Hkv or D not in (64, 128):
+        raise ValueError(f"Hq={Hq}, Hkv={Hkv}, D={D}: need Hq a multiple of "
+                         f"Hkv and D 64 or 128 (the kernel's builds)")
+    if q.stride(3) != 1 or centroids.stride(3) != 1:
+        raise ValueError("q and centroids need a contiguous last (D) axis")
+    M = T * (Hq // Hkv)
+    tile = min(C, _TILE_FLOATS // (D + 1))     # rows padded to D + 1
+    if 4 * (M * D + tile * (D + 1) + M * C + 2 * M) > _SMEM_LIMIT:
+        raise ValueError(f"T*G={M} query rows and C={C} centroids exceed the "
+                         f"kernel's {_SMEM_LIMIT} bytes of shared memory")
+    out = torch.empty((B, Hkv, C), dtype=torch.float32, device=q.device)
+    rc = _lib().mdt_centroid_scores(
+        _DTYPE_CODES[q.dtype], q.data_ptr(), centroids.data_ptr(),
+        out.data_ptr(), B, T, Hq, Hkv, D, C, q.stride(0), q.stride(1),
+        q.stride(2), centroids.stride(0), centroids.stride(1),
+        centroids.stride(2), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"centroid_scores launch failed with cudaError_t "
+                           f"{rc}")
+    centroid_scores.launches += 1
+    return out
+
+
+centroid_scores.launches = 0

@@ -1,15 +1,20 @@
-"""Page gather: copy selected pages of one layer of the K and V caches, with
-its plain PyTorch version and a launch count.
+"""Page gathers: copy selected pages of one layer, with their plain PyTorch
+versions and launch counts.
 
 `page_gather` replaces magicdec_tpu/ops/pallas/page_gather.py page_gather
-(pallas_call at :231 in DMA mode and :268 in grid mode) with a hand-written
-CUDA C++ kernel for sm_90a (csrc/page_gather.cu, built by ops/_build.py).
-The Quest draft runs it once per layer at the start of each round, to fill
-the round buffer's top region with the top-scored pages; with `out` it
-writes there directly.
+(pallas_call at :231 in DMA mode and :268 in grid mode) and
+`page_gather_single` replaces page_gather_single there (pallas_call at :142
+in DMA mode and :169 in grid mode). Both launch one hand-written CUDA C++
+kernel for sm_90a (csrc/page_gather.cu, built by ops/_build.py). The Quest
+draft runs `page_gather` once per layer at the start of each round, to fill
+the round buffer's top region with the top-scored pages of the K and V
+caches; the RetroInfer and SqueezedAttention drafts run `page_gather_single`
+there on their KV-fused cluster store (a cluster's K rows followed by its V
+rows), splitting each cluster into the K and V top regions in one launch.
+With `out` both write into the round buffer directly.
 
-On tensors on the CPU the wrapper runs the plain version (one indexed copy
-per tensor); on CUDA tensors it launches the kernel or raises.
+On tensors on the CPU the wrappers run the plain versions (indexed copies);
+on CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -22,11 +27,21 @@ from magicdec_tpu_torch.ops import _build
 
 
 def _slots(pages: torch.Tensor, page: int, n_src_pages: int) -> torch.Tensor:
-    """[B, n * page] source slots of the pages (indices clamped into
+    """[B, n * page] source rows of the pages (indices clamped into
     [0, n_src_pages), as the kernel clamps them)."""
     p = pages.long().clamp(0, n_src_pages - 1)
     rows = torch.arange(page, device=pages.device)
     return (p[:, :, None] * page + rows).reshape(p.shape[0], -1)
+
+
+def _take_pages(src: torch.Tensor, layer: int, pages: torch.Tensor,
+                page: int) -> torch.Tensor:
+    """src [L, B, R, HD] pages pages[b, :] of layer `layer` ->
+    [B, n, page, HD], a new tensor."""
+    _, B, R, HD = src.shape
+    b_idx = torch.arange(B, device=pages.device)[:, None]
+    return src[layer][b_idx, _slots(pages, page, R // page)].reshape(
+        B, pages.shape[1], page, HD)
 
 
 def page_gather_plain(k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -35,36 +50,86 @@ def page_gather_plain(k_cache: torch.Tensor, v_cache: torch.Tensor,
     """The plain version: (k_sel, v_sel) [B, n, page, HD], sequence b's
     j-th block being rows [p*page, (p+1)*page) of k/v_cache[layer, b] with
     p = pages[b, j]."""
-    _, B, S, HD = k_cache.shape
-    n = pages.shape[1]
-    slots = _slots(pages, page, S // page)
-    b_idx = torch.arange(B, device=pages.device)[:, None]
-    return (k_cache[layer][b_idx, slots].reshape(B, n, page, HD),
-            v_cache[layer][b_idx, slots].reshape(B, n, page, HD))
+    return (_take_pages(k_cache, layer, pages, page),
+            _take_pages(v_cache, layer, pages, page))
+
+
+def page_gather_single_plain(store: torch.Tensor, layer: int,
+                             pages: torch.Tensor, page: int) -> torch.Tensor:
+    """The plain version of page_gather_single: [B, n, page, HD], block
+    (b, j) being rows [p*page, (p+1)*page) of store[layer, b] with
+    p = pages[b, j]."""
+    return _take_pages(store, layer, pages, page)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("page_gather")
     fn = lib.mdt_page_gather
     if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, ctypes.c_longlong, P]
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, P]
         fn.restype = I
     return lib
 
 
 def _check_out(o: torch.Tensor, like: torch.Tensor, shape: tuple):
-    """An output [B, n, page, HD]: sequence b's pages contiguous, any
+    """An output [B, n, rows, HD]: sequence b's blocks contiguous, any
     (16-byte multiple) sequence stride, e.g. a view of a round buffer's top
     region at one layer."""
-    B, n, page, HD = shape
+    B, n, rows, HD = shape
     if (tuple(o.shape) != shape or o.dtype != like.dtype
             or o.device != like.device
-            or o.stride()[1:] != (page * HD, HD, 1)
+            or o.stride()[1:] != (rows * HD, HD, 1)
             or (o.stride(0) * o.element_size()) % 16 or o.data_ptr() % 16):
         raise ValueError(f"out {tuple(o.shape)} strides {o.stride()}: need "
                          f"{shape} in {like.dtype} on {like.device} with each "
-                         f"sequence's pages contiguous, 16-byte aligned")
+                         f"sequence's blocks contiguous, 16-byte aligned")
+
+
+def _check_operands(what: str, srcs, pages, layer: int, page: int, out):
+    """Device, type, shape and alignment checks of a CUDA launch."""
+    tensors = tuple(srcs) + (pages,) + tuple(out)
+    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{what} needs every operand on one CUDA device "
+                         "(or every operand on the CPU)")
+    s0 = srcs[0]
+    L, B, R, HD = s0.shape
+    if any(s.shape != s0.shape or s.dtype != s0.dtype or not s.is_contiguous()
+           or s.data_ptr() % 16 for s in srcs) or (HD * s0.element_size()) % 16:
+        raise ValueError(f"{what}: sources {tuple(s0.shape)} {s0.dtype} must "
+                         f"be equal contiguous 16-byte aligned tensors with "
+                         f"rows of a multiple of 16 bytes")
+    if R % page:
+        raise ValueError(f"{what}: source length {R} is not a multiple of "
+                         f"page {page}")
+    if (pages.dtype != torch.int32 or pages.dim() != 2
+            or pages.shape[0] != B or not pages.is_contiguous()):
+        raise ValueError(f"{what}: pages {tuple(pages.shape)} {pages.dtype}: "
+                         f"need contiguous int32 [{B}, n]")
+    if not 0 <= layer < L:
+        raise ValueError(f"{what}: layer {layer} outside [0, {L})")
+    if len(out) == 2 and out[0].stride(0) != out[1].stride(0):
+        raise ValueError(f"{what}: out K and V need the same sequence stride")
+
+
+def _launch(src0, src1, pages, out, layer: int, page: int, rows: int,
+            src_page_rows: int):
+    """One launch: part z copies `rows` rows of each selected page (pages of
+    src_page_rows rows) from source z into out[z]."""
+    L, B, R, HD = src0.shape
+    row_bytes = HD * src0.element_size()
+    layer_bytes = layer * B * R * row_bytes
+    o_b = out[0].stride(0) * out[0].element_size()
+    rc = _lib().mdt_page_gather(
+        src0.data_ptr() + layer_bytes,
+        None if src1 is None else src1 + layer_bytes,
+        pages.data_ptr(), out[0].data_ptr(),
+        out[-1].data_ptr() if len(out) == 2 else None,
+        1 if src1 is None else 2, B, pages.shape[1], R // page, rows,
+        row_bytes, R * row_bytes, src_page_rows * row_bytes, o_b,
+        rows * row_bytes, torch.cuda.current_stream(src0.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"page gather launch failed with cudaError_t {rc}")
 
 
 def page_gather(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
@@ -81,9 +146,8 @@ def page_gather(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
     magicdec_tpu/ops/pallas/page_gather.py:231 and :268). Bound by bytes on
     the H100 (each selected row read and written once); one CTA per page and
     tensor copies with 16-byte vectors (csrc/page_gather.cu)."""
-    L, B, S, HD = k_cache.shape
-    n = pages.shape[1]
-    shape = (B, n, page, HD)
+    _, B, _, HD = k_cache.shape
+    shape = (B, pages.shape[1], page, HD)
     tensors = (k_cache, v_cache, pages) + (() if out is None else tuple(out))
     if all(t.device.type == "cpu" for t in tensors):
         k_sel, v_sel = page_gather_plain(k_cache, v_cache, layer, pages, page)
@@ -92,40 +156,65 @@ def page_gather(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
         out[0].copy_(k_sel)
         out[1].copy_(v_sel)
         return out
-    if not all(t.is_cuda for t in tensors) or len({t.device for t in tensors}) != 1:
-        raise ValueError("page_gather needs every operand on one CUDA device "
-                         "(or every operand on the CPU)")
-    if (v_cache.shape != k_cache.shape or v_cache.dtype != k_cache.dtype
-            or not (k_cache.is_contiguous() and v_cache.is_contiguous())
-            or k_cache.data_ptr() % 16 or v_cache.data_ptr() % 16
-            or (HD * k_cache.element_size()) % 16):
-        raise ValueError(f"k/v {tuple(k_cache.shape)} {k_cache.dtype}: need "
-                         f"equal contiguous 16-byte aligned caches with rows "
-                         f"of a multiple of 16 bytes")
-    if S % page:
-        raise ValueError(f"cache length {S} is not a multiple of page {page}")
-    if (pages.dtype != torch.int32 or pages.dim() != 2
-            or pages.shape[0] != B or not pages.is_contiguous()):
-        raise ValueError(f"pages {tuple(pages.shape)} {pages.dtype}: need "
-                         f"contiguous int32 [{B}, n]")
-    if not 0 <= layer < L:
-        raise ValueError(f"layer {layer} outside [0, {L})")
     if out is None:
-        out = (torch.empty(shape, dtype=k_cache.dtype, device=k_cache.device),
-               torch.empty(shape, dtype=k_cache.dtype, device=k_cache.device))
+        out = tuple(torch.empty(shape, dtype=k_cache.dtype,
+                                device=k_cache.device) for _ in range(2))
+    _check_operands("page_gather", (k_cache, v_cache), pages, layer, page, out)
     for o in out:
         _check_out(o, k_cache, shape)
-    if out[0].stride(0) != out[1].stride(0):
-        raise ValueError("out K and V need the same sequence stride")
-    rc = _lib().mdt_page_gather(
-        k_cache.data_ptr(), v_cache.data_ptr(), pages.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), layer, B, S, n, page,
-        HD * k_cache.element_size(), out[0].stride(0) * out[0].element_size(),
-        torch.cuda.current_stream(k_cache.device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"page_gather launch failed with cudaError_t {rc}")
+    _launch(k_cache, v_cache.data_ptr(), pages, out, layer, page, page, page)
     page_gather.launches += 1
     return out
 
 
 page_gather.launches = 0
+
+
+def page_gather_single(store: torch.Tensor, layer: int, pages: torch.Tensor,
+                       page: int,
+                       out: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """Copy the pages pages[b, :] (int32 [B, n], page indices into the R //
+    page pages of a sequence) of layer `layer` of store [L, B, R, HD], bit
+    for bit. Without out: returns [B, n, page, HD] (the JAX function). With
+    out = (out_k, out_v), each [B, n, page // 2, HD] (each sequence's blocks
+    contiguous, any sequence stride): the first half of every page goes to
+    out_k and the second to out_v, e.g. a KV-fused store's cluster K and V
+    rows into the round buffer's K and V top regions; returns out.
+
+    Replaces the TPU kernel page_gather_single (pallas_call at
+    magicdec_tpu/ops/pallas/page_gather.py:142 and :169). Bound by bytes on
+    the H100; the kernel of page_gather with the store's two halves as its
+    two sources (csrc/page_gather.cu), one launch."""
+    _, B, _, HD = store.shape
+    n = pages.shape[1]
+    if out is not None and page % 2:
+        raise ValueError(f"page_gather_single: an output pair splits a page "
+                         f"in halves; page {page} is odd")
+    tensors = (store, pages) + (() if out is None else tuple(out))
+    if all(t.device.type == "cpu" for t in tensors):
+        blocks = page_gather_single_plain(store, layer, pages, page)
+        if out is None:
+            return blocks
+        out[0].copy_(blocks[:, :, :page // 2])
+        out[1].copy_(blocks[:, :, page // 2:])
+        return out
+    if out is None:
+        res = torch.empty((B, n, page, HD), dtype=store.dtype,
+                          device=store.device)
+        _check_operands("page_gather_single", (store,), pages, layer, page,
+                        (res,))
+        _launch(store, None, pages, (res,), layer, page, page, page)
+    else:
+        _check_operands("page_gather_single", (store,), pages, layer, page,
+                        out)
+        half = page // 2
+        for o in out:
+            _check_out(o, store, (B, n, half, HD))
+        _launch(store, store.data_ptr() + half * HD * store.element_size(),
+                pages, out, layer, page, half, page)
+        res = out
+    page_gather_single.launches += 1
+    return res
+
+
+page_gather_single.launches = 0

@@ -225,3 +225,59 @@ def test_card_page_gather_bitexact(cuda, dtype):
         for top, w in zip(tops, want):
             assert torch.equal(top, w)
         assert not bool(bufs[:, layer, :, 384:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_page_gather_single_bitexact(cuda, dtype):
+    """Whole clusters of a KV-fused store (page = 2cap = 64 rows), repeated
+    and out-of-order, into a new tensor and split into the K and V top
+    regions of a round buffer."""
+    from magicdec_tpu_torch.ops.page_gather import (page_gather_single,
+                                                    page_gather_single_plain)
+
+    _, store, _ = _card_inputs(cuda, dtype, S=10 * 64, T=1)
+    pages = torch.tensor([[9, 0, 3, 3], [2, 2, 5, 1], [1, 0, 6, 8]],
+                         dtype=torch.int32, device=cuda)
+    NS = 4 * 32
+    for layer in range(2):
+        want = page_gather_single_plain(store, layer, pages, 64)
+        assert torch.equal(page_gather_single(store, layer, pages, 64), want)
+        bufs = torch.zeros((2, 2, 3, NS + 64, store.shape[-1]), dtype=dtype,
+                           device=cuda)
+        tops = [buf[layer, :, :NS].view(3, 4, 32, -1) for buf in bufs]
+        page_gather_single(store, layer, pages, 64, out=tops)
+        assert torch.equal(tops[0], want[:, :, :32])
+        assert torch.equal(tops[1], want[:, :, 32:])
+        assert not bool(bufs[:, layer, :, NS:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 7])
+@pytest.mark.parametrize("C", [130, 1000])
+@pytest.mark.parametrize("D", [64, 128])
+def test_card_centroid_scores_matches_plain(cuda, dtype, T, C, D):
+    """q in the working type, float32 centroids read through a strided view
+    of [B, C, Hkv*D] (130 clusters: not a multiple of 32, one staged tile;
+    1000: several tiles), both head dims the kernel is built for, against
+    the plain version on the same inputs within 1e-5 + 1e-5 |ref| (float32
+    sums in another order, expf)."""
+    from magicdec_tpu_torch.ops.gemm_softmax import (centroid_scores,
+                                                     centroid_scores_plain)
+
+    B, Hkv, G = 3, 8, 4
+    rng = np.random.default_rng(T)
+    q = torch.from_numpy(rng.standard_normal((B, T, Hkv * G, D)).astype(
+        np.float32)).to(cuda, dtype)
+    for scale in (0.2, 2.0):            # a flat and a peaked softmax
+        cent = torch.from_numpy((rng.standard_normal((B, C, Hkv * D)) * scale
+                                 ).astype(np.float32)).to(cuda)
+        view = cent.view(B, C, Hkv, D).transpose(1, 2)
+        ref = centroid_scores_plain(q, view)
+        out = centroid_scores(q, view)
+        assert bool(((out - ref).abs() <= 1e-5 + 1e-5 * ref.abs()).all()), \
+            float((out - ref).abs().max())
+        torch.testing.assert_close(out.sum(-1),
+                                   torch.full((B, Hkv), float(T * G),
+                                              device=cuda))

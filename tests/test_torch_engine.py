@@ -131,11 +131,14 @@ def test_snapkv_draft_and_verify_api(tparams, prompt, ar_tokens):
 
 
 def test_engine_rejects_modes_not_ported(tparams):
-    with pytest.raises(NotImplementedError, match="A11"):
-        TEngine(TCFG, tparams, spec="retro", draft_budget=32,
+    """Every speculation mode of the JAX package is ported; an unknown mode
+    and a speculation mode without a draft budget are rejected."""
+    with pytest.raises(ValueError, match="unknown spec mode"):
+        TEngine(TCFG, tparams, spec="medusa", draft_budget=32,
                 device="cpu", **ENGINE_KW)
-    with pytest.raises(ValueError):
-        TEngine(TCFG, tparams, spec="snapkv", device="cpu", **ENGINE_KW)
+    for spec in ("snapkv", "retro", "squeeze"):
+        with pytest.raises(ValueError, match="draft_budget"):
+            TEngine(TCFG, tparams, spec=spec, device="cpu", **ENGINE_KW)
 
 
 def test_full_budget_draft_cache_holds_a_long_generation(tparams, prompt):

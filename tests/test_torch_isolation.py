@@ -29,6 +29,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "magicdec_tpu_torch.engine.longspec" in mods
     assert "magicdec_tpu_torch.engine.quest" in mods
     assert "magicdec_tpu_torch.ops.page_gather" in mods
+    assert "magicdec_tpu_torch.engine.squeeze" in mods
+    assert "magicdec_tpu_torch.ops.kmeans" in mods
+    assert "magicdec_tpu_torch.ops.gemm_softmax" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
