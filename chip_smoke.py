@@ -45,8 +45,19 @@ exits non-zero):
                 (the same bound for the intervals and masked forms), and
                 check that the limit rejects an output that misses each long
                 row's last 64-slot tile.
+  8a. int4      int4_matmul vs its plain version at llama-3.2-1b's four
+                product shapes, M in {8, 56, 64, 1024}, bf16 and f32 x,
+                within int4_matmul_plain_f32_and_limit; M=8 rows bit-equal to
+                the same rows inside M=56; the limit must reject the output
+                with one group's -8 rowsum correction left out
+  8b. fused     fused_qkv (with and without a bias) and fused_post_attn vs
+                their plain versions at llama-3.2-1b's widths, M in {8, 56},
+                bf16 and f32: every element within fused_*_plain_f32_and_limit
+                and the mean error within MEAN_LIMIT; M=8 rows bit-equal to the
+                same rows inside M=56
   9. reference  a small f32 model: logits of the card's path (kernels, cuBLAS)
-                vs the CPU plain path; Quest on it (B=2, P=512, 32 new
+                vs the CPU plain path, with plain, int8, int4 and fused
+                weights; Quest on it (B=2, P=512, 32 new
                 tokens, gamma 3, budget P + 128 = full coverage): lossless
                 and accepting >= 0.9; RetroInfer on it on the fold path
                 (TAIL_COVERS_MAX lowered to 0: 72 new tokens, latest_k 32,
@@ -76,6 +87,13 @@ exits non-zero):
                 2-layer draft of the same widths with its own weights must
                 be lossless in each draft mode (full, snapkv 1024,
                 streaming 1024); launch counts as the path implies.
+ 12a. quant     llama-3.2-1b quantized on the card from the main path's
+                weights: int8 (AR, SnapKV full) and int4 (AR, SnapKV 1024 and
+                full), then set_fused_mode("auto") (AR, SnapKV 1024 and
+                full): each spec stream equals its own AR stream, full budget
+                accepts exactly 1.0, launch counts as the path implies
+                (int4_matmul 4 L per forward, the fused pair L per forward
+                of T <= 32)
  13. times      each kernel at the main path's shapes: kernel, plain version,
                 bound (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s bf16, or 67
                 TFLOP/s for centroid_scores' f32 work) and one PyTorch call
@@ -84,10 +102,14 @@ exits non-zero):
                 index_select for the gathers), each on the device (32 calls
                 replayed from a CUDA graph); the kernel also launched from
                 Python (eager_ms, the host's launch pace included); the
-                StreamingLLM sink twist against a whole-layer copy
+                StreamingLLM sink twist against a whole-layer copy; then
+                int4_matmul at the four decode shapes (M=64) and w_gate_up at
+                M=1024 (yardsticks: bf16 mm of the dequantized weight and
+                torch._weight_int4pack_mm) and the fused pair at M = 8 and 56
+                (yardstick: the unfused chain, several calls)
  14. profile    device-busy share, launches, top kernels and top host ops
-                of an AR step and of a SnapKV, a Quest and a RetroInfer round
-                at budget 1024 (torch.profiler)
+                of an AR step (bf16, int8, int4, fused) and of a SnapKV, a
+                Quest and a RetroInfer round at budget 1024 (torch.profiler)
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels, and the last line {"ok": true, "device": {...}}.
 
@@ -165,7 +187,9 @@ def main() -> int:
             "page_gather": check_page_gather(torch, dev),
             "page_gather_single": check_page_gather_single(torch, dev),
             "centroid_scores": check_centroid_scores(torch, dev),
-            "flash_prefill": check_prefill(torch, dev)}
+            "flash_prefill": check_prefill(torch, dev),
+            "int4_matmul": check_int4(torch, dev)}
+    errs.update(check_fused(torch, dev))
     check_reference(torch, dev)
     quest_small_f32(torch, dev)
     retro_small_f32(torch, dev)
@@ -173,9 +197,11 @@ def main() -> int:
     params, prompt = main_inputs(torch, dev)
     launches, ar = main_path(torch, dev, params, prompt)
     launches = _add(launches, longspec(torch, dev, params, prompt, ar))
+    launches = _add(launches, quant_and_fused(torch, dev, params, prompt))
     del params
     torch.cuda.empty_cache()
-    kernels = time_kernels(torch, dev, errs, launches)
+    kernels = (time_kernels(torch, dev, errs, launches)
+               + time_weight_kernels(torch, dev, errs, launches))
     step_profile(torch, dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -566,6 +592,111 @@ def check_prefill(torch, dev):
     return main_err
 
 
+# llama-3.2-1b's weight products: (name, K, N)
+GEMM_SHAPES = (("wqkv", 2048, 3072), ("wo", 2048, 2048),
+               ("w_gate_up", 2048, 16384), ("w_down", 8192, 2048))
+
+
+def check_int4(torch, dev):
+    """int4_matmul against its plain version at llama-3.2-1b's four product
+    shapes, M in {8, 56, 64 (decode, padded), 1024 (a prefill chunk)}, bf16
+    and f32 x, within int4_matmul_plain_f32_and_limit's per-element limit
+    (f32 sums in another order; one bf16 rounding of the output); rows at
+    M=8 bit-equal to the same rows inside M=56; and the limit rejects the
+    output with one group's -8 rowsum correction left out (M=1024, bf16)."""
+    from magicdec_tpu_torch.ops import int4_matmul as im
+
+    g = torch.Generator(device=dev).manual_seed(80)
+    errs, ratios, faults, bits = {}, {}, {}, {}
+    for name, K, N in GEMM_SHAPES:
+        q4, s4 = im.pack_int4_cols(
+            torch.randn((K, N), generator=g, device=dev) * 0.02)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            x = torch.randn((1024, K), generator=g, device=dev).to(dtype)
+            for M in (8, 56, 64, 1024):
+                what = f"{name}_{dn}_M{M}"
+                out = im.int4_matmul(x[:M], q4, s4)
+                ref, limit = im.int4_matmul_plain_f32_and_limit(x[:M], q4, s4)
+                _check_out(torch, what, out, ref, limit, errs, ratios)
+                if M == 56:
+                    bits[f"{name}_{dn}"] = torch.equal(
+                        im.int4_matmul(x[:8], q4, s4), out[:8])
+                    if not bits[f"{name}_{dn}"]:
+                        fail(f"int4 {name} {dn}: rows at M=8 differ from the "
+                             f"same rows inside M=56")
+            faulty = out.float() + 8.0 * x[:, :128].float().sum(
+                1, keepdim=True) * s4[0]
+            faults[f"{name}_{dn}"] = not _hold(faulty, ref, limit)[2]
+            if not faults[f"{name}_{dn}"]:
+                fail(f"int4 {name} {dn}: the limit does not reject a missed "
+                     f"group correction")
+            del x, ref, limit, out, faulty
+        torch.cuda.empty_cache()
+    line(phase="int4_vs_plain", max_abs_err=errs, max_err_over_limit=ratios,
+         rows_bitexact=bits, missed_correction_rejected=faults)
+    return max(e for k_, e in errs.items() if "bfloat16_M64" in k_)
+
+
+def check_fused(torch, dev):
+    """fused_qkv (with and without a bias) and fused_post_attn against their
+    plain versions at llama-3.2-1b's widths (D = HqD 2048, O 3072, I 8192),
+    M in {8, 56}, bf16 and f32: every element within
+    fused_*_plain_f32_and_limit's limit and the mean error within
+    MEAN_LIMIT of the mean |plain|; rows at M=8 bit-equal to the same rows
+    inside M=56."""
+    from magicdec_tpu_torch.ops import fused_block as fb
+
+    D, HqD, I, O = 2048, 2048, 8192, 3072
+    g = torch.Generator(device=dev).manual_seed(81)
+    errs, ratios, means, bits = {}, {}, {}, {}
+
+    def rnd(*shape, s=1.0):
+        return torch.randn(shape, generator=g, device=dev) * s
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        x, ctx = rnd(56, D).to(dtype), rnd(56, HqD).to(dtype)
+        n1, n2 = (1.0 + rnd(D, s=0.1)).to(dtype), (1.0 + rnd(D, s=0.1)).to(dtype)
+        wqkv, b = rnd(D, O, s=0.02).to(dtype), rnd(O, s=0.1).to(dtype)
+        wo, wd = rnd(HqD, D, s=0.02).to(dtype), rnd(I, D, s=0.02).to(dtype)
+        gu = rnd(D, 2, I, s=0.02).to(dtype)
+        for M in (8, 56):
+            cases = {
+                "qkv": (fb.fused_qkv(x[:M], n1, wqkv),
+                        fb.fused_qkv_plain_f32_and_limit(x[:M], n1, wqkv)),
+                "qkv_bias": (fb.fused_qkv(x[:M], n1, wqkv, b),
+                             fb.fused_qkv_plain_f32_and_limit(x[:M], n1, wqkv,
+                                                              b)),
+                "post_attn": (fb.fused_post_attn(x[:M], ctx[:M], wo, n2, gu, wd),
+                              fb.fused_post_attn_plain_f32_and_limit(
+                                  x[:M], ctx[:M], wo, n2, gu, wd))}
+            for case, (out, (ref, limit)) in cases.items():
+                what = f"{case}_{dn}_M{M}"
+                _check_out(torch, what, out, ref, limit, errs, ratios)
+                means[what] = float((out.float() - ref).abs().mean()
+                                    / ref.abs().mean())
+                if means[what] > fb.MEAN_LIMIT:
+                    fail(f"fused {what}: mean error {means[what]} of the mean "
+                         f"|plain| exceeds {fb.MEAN_LIMIT}")
+        bits[dn] = (torch.equal(fb.fused_qkv(x[:8], n1, wqkv, b),
+                                fb.fused_qkv(x, n1, wqkv, b)[:8])
+                    and torch.equal(fb.fused_post_attn(x[:8], ctx[:8], wo, n2,
+                                                       gu, wd),
+                                    fb.fused_post_attn(x, ctx, wo, n2, gu,
+                                                       wd)[:8]))
+        if not bits[dn]:
+            fail(f"fused {dn}: rows at M=8 differ from the same rows inside "
+                 f"M=56")
+        del x, ctx, wqkv, wo, wd, gu, cases
+        torch.cuda.empty_cache()
+    line(phase="fused_vs_plain", max_abs_err=errs, max_err_over_limit=ratios,
+         mean_err_over_mean=means, mean_limit=fb.MEAN_LIMIT,
+         rows_bitexact=bits)
+    return {"fused_qkv": errs["qkv_bfloat16_M8"],
+            "fused_post_attn": errs["post_attn_bfloat16_M8"]}
+
+
 # ---------------------------------------------------------------------------
 # phase 9: the card's path against the CPU plain path on a small model, and
 # Quest and RetroInfer on that model
@@ -580,36 +711,60 @@ def _small_cfg():
         vocab_size=1024)
 
 
+def _to(tree, d):
+    """A params tree, plain or with quantized leaves, on device d."""
+    from magicdec_tpu_torch.quant.int8 import Int4ColWeight
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _to(v, d) for k, v in tree.items()}
+    if isinstance(tree, Int4ColWeight):
+        return Int4ColWeight(tree.q4.to(d), tree.s4.to(d), tree.out_shape)
+    return tree.to(d)
+
+
 def check_reference(torch, dev):
+    """The small f32 model's logits (a 128-token prefill chunk, then a
+    7-token step) on the card's path against the CPU plain path: plain
+    weights, int8 and int4 weights (quantize_params), and plain weights
+    with fused=True (the fused block for both forwards)."""
     from magicdec_tpu_torch.engine import attention_impls as impls
     from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.quant.int8 import quantize_params
 
     cfg = _small_cfg()
     params = llama.init_params(cfg, torch.float32, scale=0.1, seed=1,
                                device="cpu")
+    variants = {"plain": (params, None),
+                "int8": (quantize_params(params, "int8"), None),
+                "int4": (quantize_params(params, "int4"), None),
+                "fused": (params, True)}
     tokens = torch.randint(0, cfg.vocab_size, (2, 128),
                            generator=torch.Generator().manual_seed(2))
-    logits = {}
-    for d in ("cpu", dev):
-        p = {k: (v.to(d) if torch.is_tensor(v) else
-                 {n: t.to(d) for n, t in v.items()} if isinstance(v, dict)
-                 else v) for k, v in params.items()}
-        shape = (cfg.n_layer, 2, 256, cfg.n_kv_head * cfg.head_dim)
-        caches = (torch.zeros(shape, device=d), torch.zeros(shape, device=d))
-        lens = torch.zeros(2, dtype=torch.int32, device=d)
-        pre = llama.forward(p, cfg, tokens.to(d),
-                            impls.target_attn(cfg, lens, 128, cap=128,
-                                              uniform_start=0), caches)
-        dec = llama.forward(p, cfg, tokens[:, :7].to(d),
-                            impls.target_attn(cfg, lens + 128, 7), caches)
-        logits[str(d)] = (pre.cpu(), dec.cpu())
-    cpu, gpu = logits["cpu"], logits[str(dev)]
-    errs = [float((a - b).abs().max()) for a, b in zip(cpu, gpu)]
+    errs = {}
+    for name, (tree, fused) in variants.items():
+        logits = {}
+        for d in ("cpu", dev):
+            p = _to(tree, d)
+            shape = (cfg.n_layer, 2, 256, cfg.n_kv_head * cfg.head_dim)
+            caches = (torch.zeros(shape, device=d),
+                      torch.zeros(shape, device=d))
+            lens = torch.zeros(2, dtype=torch.int32, device=d)
+            pre = llama.forward(p, cfg, tokens.to(d),
+                                impls.target_attn(cfg, lens, 128, cap=128,
+                                                  uniform_start=0), caches,
+                                fused=fused)
+            dec = llama.forward(p, cfg, tokens[:, :7].to(d),
+                                impls.target_attn(cfg, lens + 128, 7), caches,
+                                fused=fused)
+            logits[str(d)] = (pre.cpu(), dec.cpu())
+        cpu, gpu = logits["cpu"], logits[str(dev)]
+        errs[name] = [float((a - b).abs().max()) for a, b in zip(cpu, gpu)]
     # f32 on both sides (TF32 off); different summation orders
-    if not all(e < 1e-3 for e in errs):
+    if not all(e < 1e-3 for v in errs.values() for e in v):
         fail(f"card path vs CPU plain path: max abs logits err {errs}")
-    line(phase="reference_small_f32", prefill_logits_err=errs[0],
-         decode_logits_err=errs[1], tol=1e-3)
+    line(phase="reference_small_f32", prefill_decode_logits_err=errs,
+         tol=1e-3)
 
 
 def quest_small_f32(torch, dev):
@@ -727,16 +882,20 @@ def retro_small_f32(torch, dev):
 
 KERNELS = ("flash_decode_stacked", "flash_decode_intervals",
            "flash_decode_stacked_masked", "page_gather", "flash_prefill",
-           "page_gather_single", "centroid_scores")
+           "page_gather_single", "centroid_scores", "int4_matmul",
+           "fused_qkv", "fused_post_attn")
 
 
 def _wrappers():
     """Each kernel's wrapper, which counts its launches."""
     from magicdec_tpu_torch.ops import flash_decode as fd
+    from magicdec_tpu_torch.ops import fused_block as fb
     from magicdec_tpu_torch.ops import gemm_softmax as gs
+    from magicdec_tpu_torch.ops import int4_matmul as im
     from magicdec_tpu_torch.ops import page_gather as pg
     module = {"page_gather": pg, "page_gather_single": pg,
-              "centroid_scores": gs}
+              "centroid_scores": gs, "int4_matmul": im, "fused_qkv": fb,
+              "fused_post_attn": fb}
     return {name: getattr(module.get(name, fd), name) for name in KERNELS}
 
 
@@ -995,6 +1154,99 @@ def longspec(torch, dev, params, prompt, ar):
     line(phase="longspec", target="llama-3.2-1b", draft_layers=DRAFT_LAYERS,
          budget=BUDGET, gamma=GAMMA, runs=res, lossless=True,
          self_draft_acceptance=1.0)
+    return total
+
+
+def quant_and_fused(torch, dev, params, prompt):
+    """llama-3.2-1b at full width with weights quantized on the card from the
+    main path's seeded bf16 ones (int8: AR and SnapKV at full budget; int4:
+    AR, SnapKV 1024 and full budget), then with the fused decode block
+    (set_fused_mode("auto"): AR, SnapKV 1024 and full budget). Each
+    speculative stream must equal its own AR stream, each full budget must
+    accept exactly 1.0, and the launch counts must be those the path
+    implies: int4_matmul 4 L per forward (prefill chunks included), the
+    fused pair L per forward of T <= 32 (none in prefill)."""
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
+                                                generate_selfspec)
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.quant.int8 import quantize_params
+
+    cfg = ModelArgs.from_name("llama-3.2-1b")
+    L, chunks = cfg.n_layer, P // 128
+    runs, total = {}, _zero()
+
+    def expect(spec, mode):
+        def launches(result):
+            r = result[-1].rounds
+            steps = NEW - 1 if spec is None else (GAMMA + 1) * r
+            want = dict(_zero(), flash_prefill=L * chunks,
+                        flash_decode_stacked=L * steps)
+            if mode == "int4":
+                want["int4_matmul"] = 4 * L * (chunks + steps)
+            if mode == "fused":
+                want["fused_qkv"] = want["fused_post_attn"] = L * steps
+            return want
+        return launches
+
+    def run(mode, w, spec, budget):
+        name = f"{mode}_{spec or 'ar'}" + ("_full" if budget == P else "")
+
+        def go():
+            eng = Engine(cfg, w, batch_size=B, max_len=MAX_LEN, spec=spec,
+                         draft_budget=budget, window_size=WINDOW)
+            if spec is None:
+                out, stats = generate_autoregressive(eng, prompt, NEW)
+                return out, torch.full((B,), NEW, dtype=torch.int32), stats
+            return generate_selfspec(eng, prompt, GAMMA, NEW)
+
+        (out, counts, stats), used, seconds = _drive(torch, name, go,
+                                                     expect(spec, mode))
+        runs[name] = dict(out=out.cpu(), counts=counts.cpu(), stats=stats,
+                          total_s=seconds, launches=used, mode=mode)
+        total.update(_add(total, used))
+
+    for mode in ("int8", "int4"):
+        t0 = time.perf_counter()
+        qparams = quantize_params(params, mode)
+        torch.cuda.synchronize()
+        quant_s = time.perf_counter() - t0
+        run(mode, qparams, None, 0)
+        if mode == "int4":
+            run(mode, qparams, "snapkv", BUDGET)
+        run(mode, qparams, "snapkv", P)
+        runs[f"{mode}_ar"]["quantize_s"] = quant_s
+        del qparams
+        torch.cuda.empty_cache()
+    llama.set_fused_mode("auto")
+    try:
+        run("fused", params, None, 0)
+        run("fused", params, "snapkv", BUDGET)
+        run("fused", params, "snapkv", P)
+    finally:
+        llama.set_fused_mode("off")
+
+    for name, r in runs.items():
+        if name.endswith("_ar"):
+            continue
+        _check_stream(torch, name, r["out"], r["counts"],
+                      runs[f"{r['mode']}_ar"]["out"], cfg.vocab_size)
+        if name.endswith("_full") and r["stats"].acceptance_rate != 1.0:
+            fail(f"{name}: full-budget acceptance "
+                 f"{r['stats'].acceptance_rate} != 1.0 (invariant 2)")
+    spec_runs = [k for k in runs if not k.endswith("_ar")]
+    line(phase="quant_and_fused", model="llama-3.2-1b", B=B, P=P,
+         new_tokens=NEW, gamma=GAMMA, budget=BUDGET,
+         quantize_s={m: runs[f"{m}_ar"]["quantize_s"] for m in ("int8", "int4")},
+         tok_s={k: r["stats"].generated_tokens / r["stats"].wall_time_s
+                for k, r in runs.items()},
+         acceptance={k: runs[k]["stats"].acceptance_rate for k in spec_runs},
+         rounds={k: runs[k]["stats"].rounds for k in spec_runs},
+         run_s={k: r["total_s"] for k, r in runs.items()},
+         decode_s={k: r["stats"].wall_time_s for k, r in runs.items()},
+         launches={k: r["launches"] for k, r in runs.items()},
+         invariant1=True, invariant2=True)
     return total
 
 
@@ -1374,6 +1626,162 @@ def time_kernels(torch, dev, errs, launches):
     return rows
 
 
+def _int4pack_mm(torch, q4, s4):
+    """torch._weight_int4pack_mm on the same weight, as a yardstick, or None
+    where the card's torch lacks it: its nibbles are the same biased codes,
+    packed along K in [N, K/2] bytes, with (scale, zero = 0) pairs in bf16,
+    so it dequantizes (q - 8) * s as int4_matmul does."""
+    from magicdec_tpu_torch.ops.int4_matmul import unpack_int4_cols
+    if not hasattr(torch, "_weight_int4pack_mm"):
+        return None
+    codes = unpack_int4_cols(q4).t().contiguous()              # [N, K]
+    packed = torch._convert_weight_to_int4pack(
+        (codes[:, ::2] << 4 | codes[:, 1::2]).to(torch.uint8), 8)
+    sz = torch.stack([s4, torch.zeros_like(s4)], -1).to(torch.bfloat16)
+    return lambda x: torch._weight_int4pack_mm(x, packed, 128, sz)
+
+
+def time_weight_kernels(torch, dev, errs, launches, L=16):
+    """int4_matmul at llama-3.2-1b's four products at the decode shape (M =
+    64 padded rows) and w_gate_up at M = 1024 (a prefill chunk); the fused
+    pair at M = 8 (AR and draft steps) and 56 (the verify). Each with 16
+    layers of weights cycled (they do not fit the 50 MB L2 together): device
+    ms (CUDA graph), eager ms, the plain version and the bound (weights and
+    activations read once, outputs written once, over 3.35 TB/s; 2 M K N
+    over 989 TFLOP/s). Yardsticks, which the port never calls: for int4 the
+    bf16 product with the dequantized weight (torch.mm) and
+    torch._weight_int4pack_mm where the card's torch has it; for the fused
+    pair the unfused chain of the bf16 path (rms_norm, cuBLAS products and
+    the elementwise ops: several calls)."""
+    import torch.nn.functional as F
+
+    from magicdec_tpu_torch.ops import fused_block as fb
+    from magicdec_tpu_torch.ops import int4_matmul as im
+    from magicdec_tpu_torch.ops.norms import rms_norm
+
+    saved = _counts()
+    g = torch.Generator(device=dev).manual_seed(90)
+    rows, int4 = [], {}
+
+    def bound(bytes_, flops):
+        tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    for (name, K, N), Ms in zip(GEMM_SHAPES, ((64,), (64,), (64, 1024), (64,))):
+        packs = [im.pack_int4_cols(torch.randn((K, N), generator=g, device=dev)
+                                   * 0.02) for _ in range(L)]
+        deq = [((im.unpack_int4_cols(q).float() - 8.0)
+                * s.repeat_interleave(128, 0)).to(torch.bfloat16)
+               for q, s in packs]
+        for M in Ms:
+            x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
+            t_k, t_e = _device_and_eager_ms(
+                torch, lambda l: im.int4_matmul(x, *packs[l]), L)
+            t_p = _time_ms(torch, lambda l: im.int4_matmul_plain(x, *packs[l]),
+                           L, graph=True)
+            t_mm = _time_ms(torch, lambda l: x @ deq[l], L, graph=True)
+            t_pack = None
+            try:
+                fns = [_int4pack_mm(torch, q, s) for q, s in packs]
+                if fns[0] is not None:
+                    t_pack = _time_ms(torch, lambda l: fns[l](x), L, graph=True)
+            except (RuntimeError, NotImplementedError) as e:
+                t_pack = f"unavailable: {str(e).splitlines()[0][:120]}"
+            bytes_ = (K * N // 2 + K // 128 * N * 4) + 2 * M * (K + N)
+            b_ms, b_by = bound(bytes_, 2 * M * K * N)
+            int4[f"{name}_M{M}"] = dict(
+                ms=t_k, eager_ms=t_e, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, bf16_mm_dequantized_ms=t_mm,
+                weight_int4pack_mm_ms=t_pack)
+        del packs, deq
+        torch.cuda.empty_cache()
+    step = sum(int4[f"{n}_M64"]["ms"] for n, _, _ in GEMM_SHAPES)
+    step_bound = sum(int4[f"{n}_M64"]["bound_ms"] for n, _, _ in GEMM_SHAPES)
+    gu = int4["w_gate_up_M64"]
+    lib = gu["weight_int4pack_mm_ms"]
+    rows.append({"name": "int4_matmul", "route": "cuda",
+                 "source": "magicdec_tpu_torch/csrc/int4_matmul.cu",
+                 "replaces": "magicdec_tpu/ops/pallas/int4_matmul.py:131",
+                 "launches": launches["int4_matmul"],
+                 "max_abs_err": errs["int4_matmul"], "ms": gu["ms"],
+                 "plain_ms": gu["plain_ms"], "bound_ms": gu["bound_ms"],
+                 "bound_by": gu["bound_by"],
+                 "library_ms": lib if isinstance(lib, float)
+                 else gu["bf16_mm_dequantized_ms"]})
+
+    D, HqD, I, O = 2048, 2048, 8192, 3072
+    w = dict(n=[torch.ones(D, device=dev, dtype=torch.bfloat16)] * L,
+             wqkv=[], wo=[], gu=[], wd=[])
+    for _ in range(L):
+        for k, shape in (("wqkv", (D, O)), ("wo", (HqD, D)),
+                         ("gu", (D, 2, I)), ("wd", (I, D))):
+            w[k].append((torch.randn(shape, generator=g, device=dev) * 0.02
+                         ).to(torch.bfloat16))
+    fused = {}
+    for M in (8, 56):
+        x = torch.randn((M, D), generator=g, device=dev, dtype=torch.bfloat16)
+        ctx = torch.randn((M, HqD), generator=g, device=dev,
+                          dtype=torch.bfloat16)
+
+        def qkv(l):
+            return fb.fused_qkv(x, w["n"][l], w["wqkv"][l])
+
+        def post(l):
+            return fb.fused_post_attn(x, ctx, w["wo"][l], w["n"][l],
+                                      w["gu"][l], w["wd"][l])
+
+        def qkv_plain(l):
+            return fb.fused_qkv_plain(x, w["n"][l], w["wqkv"][l])
+
+        def post_plain(l):
+            return fb.fused_post_attn_plain(x, ctx, w["wo"][l], w["n"][l],
+                                            w["gu"][l], w["wd"][l])
+
+        def qkv_chain(l):
+            return rms_norm(x, w["n"][l]) @ w["wqkv"][l]
+
+        def post_chain(l):
+            t = x + ctx @ w["wo"][l]
+            gu = (rms_norm(t, w["n"][l]) @ w["gu"][l].reshape(D, -1)).view(
+                M, 2, I)
+            return t + (F.silu(gu[:, 0]) * gu[:, 1]) @ w["wd"][l]
+
+        for what, fn, plain, chain, (wbytes, K_N) in (
+                ("fused_qkv", qkv, qkv_plain, qkv_chain,
+                 (D * O * 2, D * O)),
+                ("fused_post_attn", post, post_plain, post_chain,
+                 ((HqD * D + D * 2 * I + I * D) * 2,
+                  HqD * D + D * 2 * I + I * D))):
+            t_k, t_e = _device_and_eager_ms(torch, fn, L)
+            t_p = _time_ms(torch, plain, L, graph=True)
+            t_c = _time_ms(torch, chain, L, graph=True)
+            act = 2 * M * ((D + O) if what == "fused_qkv" else (2 * D + HqD))
+            b_ms, b_by = bound(wbytes + act, 2 * M * K_N)
+            fused[f"{what}_M{M}"] = dict(ms=t_k, eager_ms=t_e, plain_ms=t_p,
+                                         unfused_chain_ms=t_c, bound_ms=b_ms,
+                                         bound_by=b_by)
+    del w
+    torch.cuda.empty_cache()
+    for what in ("fused_qkv", "fused_post_attn"):
+        r = fused[f"{what}_M8"]
+        rows.append({"name": what, "route": "cuda",
+                     "source": "magicdec_tpu_torch/csrc/fused_block.cu",
+                     "replaces": "magicdec_tpu/ops/pallas/fused_block.py:"
+                                 + ("96" if what == "fused_qkv" else "191"),
+                     "launches": launches[what], "max_abs_err": errs[what],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": None})
+    _set_counts(saved)
+    line(phase="times_weights", int4=int4,
+         int4_decode_products_per_layer_ms=step,
+         int4_decode_products_per_layer_bound_ms=step_bound, fused=fused,
+         int4_library="weight_int4pack_mm where available, else bf16 mm of "
+                      "the dequantized weight",
+         fused_library="none: the unfused chain is several calls")
+    return rows
+
+
 def _profile(torch, fn, n):
     """Device-busy share of n calls of fn (after 2 warm-up calls): the union
     of the kernel intervals torch.profiler records over the host wall time,
@@ -1454,6 +1862,18 @@ def step_profile(torch, dev, steps=8, rounds=2):
     res["ar_step"] = _profile(torch, ar_step, steps)
     del eng, state
     torch.cuda.empty_cache()
+    from magicdec_tpu_torch.quant.int8 import quantize_params
+    for mode in ("int8", "int4", "fused"):
+        w = params if mode == "fused" else quantize_params(params, mode)
+        llama.set_fused_mode("auto" if mode == "fused" else "off")
+        try:
+            eng = Engine(cfg, w, batch_size=B, max_len=MAX_LEN)
+            state = {"tok": eng.encode(prompt)}
+            res[f"{mode}_ar_step"] = _profile(torch, ar_step, steps)
+        finally:
+            llama.set_fused_mode("off")
+        del eng, state, w
+        torch.cuda.empty_cache()
     eot = _eot_array((), dev)
     for spec in ("snapkv", "quest", "retro"):
         eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,

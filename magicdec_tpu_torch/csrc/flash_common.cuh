@@ -30,26 +30,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace mdt {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int NT = 128;    // threads per CTA
 constexpr int TILE = 64;   // cache slots per shared-memory tile
 constexpr int NGRP = NT / TILE;  // row groups: thread t owns rows t/TILE + NGRP*i
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T's precision (round to nearest even), returned as f32
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
-}
 
 // 16 bytes of T at src (16-byte aligned) -> f32 values
 template <typename T>

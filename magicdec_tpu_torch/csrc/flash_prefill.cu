@@ -80,25 +80,6 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
 // ---- bf16 on the tensor cores -------------------------------------------
 constexpr int PITCH = 72;  // bf16 per shared row: 64 + 8, conflict-free fragments
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// two floats -> bf16x2 (round to nearest even), the first in the low half
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // grid (ceil(T*G / QROWS), Hkv, B), 4 warps; warp w owns rows 16w..16w+15.
 // Fragment layouts (PTX m16n8k16): lane = 4*g + c; A holds rows g, g+8 and
 // k 2c, 2c+1 (+8); B holds k 2c, 2c+1 (+8) of column g; C rows g, g+8, cols

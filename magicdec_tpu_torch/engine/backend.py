@@ -36,6 +36,7 @@ from magicdec_tpu_torch.engine.retro import build_retro_state
 from magicdec_tpu_torch.engine.sampling import argmax_tokens
 from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.models.config import ModelArgs
+from magicdec_tpu_torch.quant.int8 import is_quantized
 
 # ---------------------------------------------------------------------------
 # Step functions: caches written in place, greedy tokens returned
@@ -187,9 +188,9 @@ class Engine:
         if spec and draft_budget <= 0:
             raise ValueError("speculation needs draft_budget > 0")
         self.device = resolve_device(device)
-        w = params["layers"]["wqkv"]
-        if w.device != self.device:
-            raise ValueError(f"params lie on {w.device}, the engine runs on "
+        emb = params["tok_embeddings"]      # quantization leaves it as it is
+        if emb.device != self.device:
+            raise ValueError(f"params lie on {emb.device}, the engine runs on "
                              f"{self.device}")
         self.config = config
         self.params = params
@@ -207,7 +208,11 @@ class Engine:
         self.squeeze_threshold = squeeze_threshold
         self.index_build_s = 0.0    # the last encode's index build, seconds
         self.prefill_chunk = prefill_chunk
-        self.kv_dtype = kv_dtype or w.dtype
+        # the weights' dtype, or bf16 under quantized weights (as the JAX
+        # Engine)
+        w = params["layers"]["wqkv"]
+        self.kv_dtype = kv_dtype or (torch.bfloat16 if is_quantized(w)
+                                     else w.dtype)
         self._create_cache()
         # SnapKV: sized by encode; StreamingLLM: budget + headroom slots
         self.draft: Optional[DraftKVCache] = None

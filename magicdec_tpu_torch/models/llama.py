@@ -23,6 +23,14 @@ product gives a row other bits at M=8 than inside M=56, and without the
 padding the speculative stream leaves the AR stream; the padding costs
 about 1 ms of an AR step at llama-3.2-1b widths, B=8 (chip_smoke.py
 gemm_rows).
+
+The four weight products of a block run through quant/int8.py qmatmul, so
+a layer weight may be plain or quantized (quantize_params: int8, or int4
+through the int4_matmul kernel); the quantized paths keep the padded rows.
+With the fused decode block on (set_fused_mode("auto"), plain weights on a
+CUDA device, T <= 32) the products and their norms, residuals and SwiGLU
+run in ops/fused_block.py's kernels, whose rows do not depend on the row
+count, so the token rows run unpadded through the layers.
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ import torch.nn.functional as F
 from magicdec_tpu_torch.checkpoint.store import tensor_from_numpy
 from magicdec_tpu_torch.device import resolve_device
 from magicdec_tpu_torch.models.config import ModelArgs
+from magicdec_tpu_torch.ops.fused_block import fused_post_attn, fused_qkv
 from magicdec_tpu_torch.ops.norms import rms_norm
+from magicdec_tpu_torch.quant.int8 import Int4ColWeight, is_quantized, qmatmul
 
 Params = dict[str, Any]
 AttnImpl = Callable
@@ -83,12 +93,18 @@ def init_params(config: ModelArgs, dtype=torch.float32, scale: float = 0.02,
 def params_from_numpy(tree, device=None) -> Params:
     """The JAX params pytree as numpy arrays (same keys and layout, `output`
     None when tied; bfloat16 leaves as ml_dtypes arrays) -> the port's params
-    on `device`."""
+    on `device`. Quantized weights carry over: int8's {"qT", "s"} dicts as
+    dicts, and an int4 Int4ColWeight (recognised by its q4, s4 and
+    out_shape) as the port's Int4ColWeight."""
     device = resolve_device(device)
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
+    if all(hasattr(tree, a) for a in ("q4", "s4", "out_shape")):
+        return Int4ColWeight(params_from_numpy(tree.q4, device),
+                             params_from_numpy(tree.s4, device),
+                             tuple(tree.out_shape))
     return tensor_from_numpy(np.asarray(tree)).to(device)
 
 
@@ -129,36 +145,89 @@ def _split_qkv(qkv: torch.Tensor, config: ModelArgs):
     return q, k, v
 
 
+def _layer(w, l: int):
+    """Layer l of a stacked weight, plain or quantized."""
+    if isinstance(w, dict):
+        return {k: v[l] for k, v in w.items()}
+    return w[l]
+
+
 def _block(x: torch.Tensor, params: Params, config: ModelArgs,
-           attn_impl: AttnImpl, caches: tuple, l: int, B: int,
-           T: int) -> torch.Tensor:
+           attn_impl: AttnImpl, caches: tuple, l: int, B: int, T: int,
+           fused: bool = False) -> torch.Tensor:
     """One decoder block at layer l: pre-norm attention + pre-norm SwiGLU.
-    x: [Mp, dim] padded rows, the first B*T of them the tokens."""
+    x: [Mp, dim] padded rows, the first B*T of them the tokens. With fused,
+    x is the B*T token rows unpadded and the weight products run through
+    the fused decode block (ops/fused_block.py), whose rows do not depend
+    on the row count."""
     lp = params["layers"]
+    bqkv = lp["bqkv"][l] if "bqkv" in lp else None
+    if fused:
+        qkv = fused_qkv(x, lp["attn_norm"][l], lp["wqkv"][l], bqkv,
+                        config.norm_eps)
+        q, k, v = _split_qkv(qkv.reshape(B, T, -1), config)
+        ctx = attn_impl(q, k, v, caches, l)
+        return fused_post_attn(x, ctx.reshape(B * T, -1), lp["wo"][l],
+                               lp["ffn_norm"][l], lp["w_gate_up"][l],
+                               lp["w_down"][l], config.norm_eps)
+
     h = rms_norm(x, lp["attn_norm"][l], config.norm_eps)
-    qkv = h @ lp["wqkv"][l]
-    if "bqkv" in lp:
-        qkv = qkv + lp["bqkv"][l]
+    qkv = qmatmul(h, _layer(lp["wqkv"], l))
+    if bqkv is not None:
+        qkv = qkv + bqkv
     q, k, v = _split_qkv(qkv[:B * T].reshape(B, T, -1), config)
     ctx = attn_impl(q, k, v, caches, l)
-    x = x + _pad_rows(ctx.reshape(B * T, -1)) @ lp["wo"][l]
+    x = x + qmatmul(_pad_rows(ctx.reshape(B * T, -1)), _layer(lp["wo"], l))
 
     h = rms_norm(x, lp["ffn_norm"][l], config.norm_eps)
-    w_gu = lp["w_gate_up"][l]
-    gate_up = (h @ w_gu.reshape(w_gu.shape[0], -1)).reshape(
-        x.shape[0], 2, w_gu.shape[-1])
+    gate_up = qmatmul(h, _layer(lp["w_gate_up"], l))
     act = F.silu(gate_up[:, 0]) * gate_up[:, 1]
-    return x + act @ lp["w_down"][l]
+    return x + qmatmul(act, _layer(lp["w_down"], l))
+
+
+_FUSED_MODE = "off"  # "auto" | "off": see set_fused_mode
+
+
+def set_fused_mode(mode: str):
+    """Process-wide switch of the fused decode block, as in the JAX
+    package: "auto" routes every forward of T <= 32 tokens with plain
+    weights on a CUDA device through fused_qkv and fused_post_attn (decode,
+    verify and draft steps; prefill chunks keep the unfused path); "off"
+    (the default) keeps the unfused path everywhere."""
+    global _FUSED_MODE
+    if mode not in ("auto", "off"):
+        raise ValueError(f"fused mode {mode!r}: auto or off")
+    _FUSED_MODE = mode
+
+
+def _fused_auto(params: Params, x: torch.Tensor, T: int,
+                fused: bool | None) -> bool:
+    """Resolve the fused switch: an explicit value wins (True with quantized
+    weights raises: the fused kernels take plain weights); "auto" means a
+    CUDA device, T <= 32 and plain weights."""
+    quantized = is_quantized(params["layers"]["wqkv"])
+    if fused is not None:
+        if fused and quantized:
+            raise ValueError("the fused decode block takes plain weights, "
+                             "not quantized ones")
+        return fused
+    return (_FUSED_MODE == "auto" and x.is_cuda and T <= 32
+            and not quantized)
 
 
 def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
-               attn_impl: AttnImpl, caches: tuple, B: int,
-               T: int) -> torch.Tensor:
+               attn_impl: AttnImpl, caches: tuple, B: int, T: int,
+               fused: bool | None = None) -> torch.Tensor:
     """The decoder stack over padded rows x [Mp, dim]; caches are the full
-    stacked [L, ...] tensors, which attn_impl writes in place at layer l."""
+    stacked [L, ...] tensors, which attn_impl writes in place at layer l.
+    fused: see _fused_auto. The fused block runs the B*T token rows
+    unpadded; they are padded again for the unembedding."""
+    use_fused = _fused_auto(params, x, T, fused)
+    if use_fused:
+        x = x[:B * T]
     for l in range(config.n_layer):
-        x = _block(x, params, config, attn_impl, caches, l, B, T)
-    return x
+        x = _block(x, params, config, attn_impl, caches, l, B, T, use_fused)
+    return _pad_rows(x) if use_fused else x
 
 
 def unembed(params: Params, config: ModelArgs, x: torch.Tensor) -> torch.Tensor:
@@ -170,14 +239,15 @@ def unembed(params: Params, config: ModelArgs, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: Params, config: ModelArgs, tokens: torch.Tensor,
-            attn_impl: AttnImpl, caches: tuple,
-            last_only: bool = False) -> torch.Tensor:
+            attn_impl: AttnImpl, caches: tuple, last_only: bool = False,
+            fused: bool | None = None) -> torch.Tensor:
     """tokens [B, T] -> logits float32 [B, T, V] ([B, 1, V] with last_only);
-    the caches are written in place."""
+    the caches are written in place. fused: the fused decode block switch
+    (None = auto; see _fused_auto)."""
     B, T = tokens.shape
     x = _pad_rows(F.embedding(tokens.reshape(-1).long(),
                               params["tok_embeddings"]))
-    x = run_layers(params, config, x, attn_impl, caches, B, T)
+    x = run_layers(params, config, x, attn_impl, caches, B, T, fused)
     if last_only:
         x = _pad_rows(x[:B * T].reshape(B, T, -1)[:, -1])
         T = 1

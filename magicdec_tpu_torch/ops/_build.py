@@ -28,7 +28,8 @@ from pathlib import Path
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("flash_decode", "flash_prefill", "page_gather", "centroid_scores")
+SOURCES = ("flash_decode", "flash_prefill", "page_gather", "centroid_scores",
+           "int4_matmul", "fused_block")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,0 +1,274 @@
+"""The fused decode block: the weight products around a decoder layer's
+attention, each with its plain PyTorch version and a launch count.
+
+  fused_qkv:       qkv = rmsnorm(x) @ wqkv (+ bqkv)
+  fused_post_attn: t = x + ctx @ wo;  out = t + swiglu(rmsnorm(t)) @ w_down
+
+`fused_qkv` and `fused_post_attn` replace magicdec_tpu/ops/pallas/
+fused_block.py fused_qkv (pallas_call at :96) and fused_post_attn
+(pallas_call at :191) with hand-written CUDA C++ kernels for sm_90a
+(csrc/fused_block.cu, built by ops/_build.py). models/llama.py routes every
+forward of T <= 32 tokens through them when the fused mode is on.
+
+Rounding points, as the TPU kernels (x's dtype is bf16 on the card's main
+path, f32 in the exact tests): RMSNorm normalizes in f32, rounds to x's
+dtype and multiplies by the norm weight in x's dtype; each product sums in
+f32 and rounds to x's dtype; the residual of the attention output is
+t = x + round(acc - x) with acc = x + ctx @ wo in f32; the SwiGLU operand
+is round(silu(gate)) * round(up), a product in x's dtype; the output is
+t + round(a @ w_down).
+
+Every row is computed by a fixed sequence of operations that does not
+depend on the number of rows in the call, so a draft row (M = B) and the
+same row inside a verify (M = B * (gamma + 1)) get the same bits: the
+kernels never choose a tile from M, and the plain versions run at rows
+padded to a multiple of ROW_BUCKET (PyTorch's CPU GEMM and row reductions
+pick their blocking from the shape).
+
+On tensors on the CPU a wrapper runs the plain version; on CUDA tensors it
+launches the kernels or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from magicdec_tpu_torch.ops import _build
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+ROW_BUCKET = 64
+KERNEL_K = 64       # every contraction length must be a multiple
+KERNEL_COLS = 16    # every output width must be a multiple
+# the per-element limit of a bf16 output is loose (see
+# fused_post_attn_plain_f32_and_limit); the mean |kernel - plain| over a
+# call's outputs must also stay within this share of the mean |plain|
+MEAN_LIMIT = 2.0 ** -8
+
+
+def _pad(*tensors):
+    """Pad each [M, ...] tensor to a multiple of ROW_BUCKET rows (zeros)."""
+    pad = -tensors[0].shape[0] % ROW_BUCKET
+    return [F.pad(t, (0, 0, 0, pad)) if pad else t for t in tensors]
+
+
+def _rms(xf: torch.Tensor, weight: torch.Tensor, eps: float, dtype):
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dtype) * weight.to(dtype)
+
+
+def _qkv_parts(x, attn_norm, wqkv, bqkv, eps):
+    """(h, out) of fused_qkv at padded rows."""
+    (xp,) = _pad(x)
+    h = _rms(xp.float(), attn_norm, eps, x.dtype)
+    out = (h.float() @ wqkv.float()).to(x.dtype)
+    if bqkv is not None:
+        out = out + bqkv.to(x.dtype)
+    return h, out
+
+
+def fused_qkv_plain(x: torch.Tensor, attn_norm: torch.Tensor,
+                    wqkv: torch.Tensor, bqkv: torch.Tensor | None = None,
+                    eps: float = 1e-5) -> torch.Tensor:
+    """The plain version: rmsnorm(x) @ wqkv (+ bqkv) with the TPU kernel's
+    rounding points. x [M, D], wqkv [D, O] -> [M, O] in x's dtype."""
+    return _qkv_parts(x, attn_norm, wqkv, bqkv, eps)[1][:x.shape[0]]
+
+
+def _post_parts(x, ctx, wo, ffn_norm, w_gate_up, w_down, eps):
+    """(t, a, out) of fused_post_attn at padded rows."""
+    dt = x.dtype
+    xp, cp = _pad(x, ctx)
+    xf = xp.float()
+    acc = xf + cp.float() @ wo.float()
+    t = (xf + (acc - xf).to(dt).float()).to(dt)
+    h = _rms(t.float(), ffn_norm, eps, dt)
+    D, _, I = w_gate_up.shape
+    gu = h.float() @ w_gate_up.reshape(D, 2 * I).float()
+    gate, up = gu[:, :I], gu[:, I:]
+    a = (torch.sigmoid(gate) * gate).to(dt) * up.to(dt)
+    out = t + (a.float() @ w_down.float()).to(dt)
+    return t, a, out
+
+
+def fused_post_attn_plain(x: torch.Tensor, ctx: torch.Tensor,
+                          wo: torch.Tensor, ffn_norm: torch.Tensor,
+                          w_gate_up: torch.Tensor, w_down: torch.Tensor,
+                          eps: float = 1e-5) -> torch.Tensor:
+    """The plain version: t = x + ctx @ wo; t + swiglu(rmsnorm(t)) @ w_down
+    with the TPU kernel's rounding points. x [M, D], ctx [M, HqD], wo
+    [HqD, D], w_gate_up [D, 2, I], w_down [I, D] -> [M, D] in x's dtype."""
+    return _post_parts(x, ctx, wo, ffn_norm, w_gate_up, w_down,
+                       eps)[2][:x.shape[0]]
+
+
+def _limit(ref: torch.Tensor, ref_abs: torch.Tensor, dtype) -> torch.Tensor:
+    if dtype == torch.float32:
+        return 2.0 ** -14 * (ref.abs() + ref_abs) + 1e-30
+    return 2.0 ** -7 * (ref.abs() + ref_abs) + 1e-30
+
+
+def fused_qkv_plain_f32_and_limit(x, attn_norm, wqkv, bqkv=None, eps=1e-5):
+    """What a fused_qkv output is held against: the plain version (as f32)
+    and a per-element limit on |kernel - plain|, both [M, O].
+
+    The kernel and the plain version sum in other orders (the RMSNorm mean
+    over D, the product over D). float32: within 2^-14 of ref_abs = |h| @
+    |wqkv| + |bqkv| (f32 sums of D terms) plus |ref|. bfloat16: where an f32
+    sum lands near a rounding point the two round h, the product or the
+    bias sum to neighbouring values, each at most one step (2^-7 of itself)
+    apart, so |kernel - plain| <= 2^-7 (|ref| + ref_abs). That bound is
+    loose where outputs cancel; MEAN_LIMIT checks the mean error too."""
+    M = x.shape[0]
+    h, out = _qkv_parts(x, attn_norm, wqkv, bqkv, eps)
+    ref_abs = (h.float().abs() @ wqkv.float().abs())[:M]
+    if bqkv is not None:
+        ref_abs = ref_abs + bqkv.float().abs()
+    ref = out[:M].float()
+    return ref, _limit(ref, ref_abs, x.dtype)
+
+
+def fused_post_attn_plain_f32_and_limit(x, ctx, wo, ffn_norm, w_gate_up,
+                                        w_down, eps=1e-5):
+    """fused_qkv_plain_f32_and_limit for fused_post_attn: ref_abs = |x| +
+    |ctx| @ |wo| + |a| @ |w_down|, the magnitudes of every term of the
+    output (a neighbouring rounding of t, of h and so of a, or of the
+    output, moves it by at most 2^-7 of such a term)."""
+    M = x.shape[0]
+    t, a, out = _post_parts(x, ctx, wo, ffn_norm, w_gate_up, w_down, eps)
+    ref_abs = (x.float().abs() + ctx.float().abs() @ wo.float().abs()
+               + (a.float().abs() @ w_down.float().abs())[:M])
+    ref = out[:M].float()
+    return ref, _limit(ref, ref_abs, x.dtype)
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("fused_block")
+    if lib.mdt_fused_qkv.argtypes is None:
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.mdt_fused_qkv.argtypes = [I, P, P, P, P, P, P, I, I, I, Fl, P]
+        lib.mdt_fused_qkv.restype = I
+        lib.mdt_fused_post_attn.argtypes = [I, P, P, P, P, P, P, P, P, P, P,
+                                            I, I, I, I, Fl, P]
+        lib.mdt_fused_post_attn.restype = I
+    return lib
+
+
+def _check(what: str, x: torch.Tensor, *operands):
+    """Validate the kernels' operands: one CUDA device, x's dtype, and
+    contiguous, 16-byte aligned storage."""
+    ops = [t for t in operands if t is not None]
+    if not all(t.is_cuda for t in (x, *ops)) or len(
+            {t.device for t in (x, *ops)}) != 1:
+        raise ValueError(f"{what} needs every operand on one CUDA device "
+                         f"(or every operand on the CPU)")
+    if x.dtype not in _DTYPE_CODES or any(t.dtype != x.dtype for t in ops):
+        raise ValueError(f"{what}: x {x.dtype} and the weights "
+                         f"{[t.dtype for t in ops]} must share float32 or "
+                         f"bfloat16")
+    for t in (x, *ops):
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{what}: operands must be contiguous and "
+                             f"16-byte aligned")
+
+
+def _check_widths(what: str, **widths):
+    for name, (n, quantum) in widths.items():
+        if n % quantum:
+            raise ValueError(f"{what}: {name}={n} must be a multiple of "
+                             f"{quantum} (the kernel's tiles)")
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t is None or t.device.type == "cpu" for t in tensors)
+
+
+def fused_qkv(x: torch.Tensor, attn_norm: torch.Tensor, wqkv: torch.Tensor,
+              bqkv: torch.Tensor | None = None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """rmsnorm(x) @ wqkv (+ bqkv): x [M, D], attn_norm [D], wqkv [D, O],
+    bqkv [O] -> [M, O] in x's dtype.
+
+    Replaces the TPU kernel fused_qkv (pallas_call at
+    magicdec_tpu/ops/pallas/fused_block.py:96). Bound by wqkv's bytes at
+    decode. Two kernels: the RMSNorm of the rows (one CTA per row), then
+    the product with the bias in its epilogue on 64-row x 32-column tiles
+    (mma.sync for bf16, CUDA cores for f32), K walked in order
+    (csrc/fused_block.cu)."""
+    if _on_cpu(x, attn_norm, wqkv, bqkv):
+        return fused_qkv_plain(x, attn_norm, wqkv, bqkv, eps)
+    _check("fused_qkv", x, attn_norm, wqkv, bqkv)
+    M, D = x.shape
+    O = wqkv.shape[1]
+    if (tuple(attn_norm.shape) != (D,) or wqkv.shape[0] != D
+            or (bqkv is not None and tuple(bqkv.shape) != (O,))):
+        raise ValueError(f"fused_qkv: x {tuple(x.shape)}, attn_norm "
+                         f"{tuple(attn_norm.shape)}, wqkv {tuple(wqkv.shape)}")
+    _check_widths("fused_qkv", D=(D, KERNEL_K), O=(O, KERNEL_COLS))
+    out = torch.empty((M, O), dtype=x.dtype, device=x.device)
+    h = torch.empty_like(x)
+    rc = _lib().mdt_fused_qkv(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), attn_norm.data_ptr(),
+        wqkv.data_ptr(), None if bqkv is None else bqkv.data_ptr(),
+        h.data_ptr(), out.data_ptr(), M, D, O, eps,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_qkv launch failed with cudaError_t {rc}")
+    fused_qkv.launches += 1
+    return out
+
+
+fused_qkv.launches = 0
+
+
+def fused_post_attn(x: torch.Tensor, ctx: torch.Tensor, wo: torch.Tensor,
+                    ffn_norm: torch.Tensor, w_gate_up: torch.Tensor,
+                    w_down: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """t = x + ctx @ wo; out = t + swiglu(rmsnorm(t) @ w_gate_up) @ w_down:
+    x [M, D], ctx [M, HqD], wo [HqD, D], ffn_norm [D], w_gate_up [D, 2, I],
+    w_down [I, D] -> [M, D] in x's dtype.
+
+    Replaces the TPU kernel fused_post_attn (pallas_call at
+    magicdec_tpu/ops/pallas/fused_block.py:191). Bound by the bytes of wo,
+    w_gate_up and w_down at decode. The TPU kernel carries t, h and the
+    accumulator across a sequential grid; Hopper's CTAs run in no order, so
+    one call issues four kernels of one source, each a full pass: t (the wo
+    product with the residual in its epilogue), h = rmsnorm(t), a (the
+    gate/up product, each CTA holding a gate tile and the matching up tile,
+    SwiGLU in the epilogue) and out (the w_down product with the residual)
+    (csrc/fused_block.cu). `launches` counts calls."""
+    if _on_cpu(x, ctx, wo, ffn_norm, w_gate_up, w_down):
+        return fused_post_attn_plain(x, ctx, wo, ffn_norm, w_gate_up, w_down,
+                                     eps)
+    _check("fused_post_attn", x, ctx, wo, ffn_norm, w_gate_up, w_down)
+    M, D = x.shape
+    HqD = wo.shape[0]
+    I = w_down.shape[0]
+    if (ctx.shape != (M, HqD) or tuple(wo.shape) != (HqD, D)
+            or tuple(ffn_norm.shape) != (D,)
+            or tuple(w_gate_up.shape) != (D, 2, I)
+            or tuple(w_down.shape) != (I, D)):
+        raise ValueError(f"fused_post_attn: x {tuple(x.shape)}, ctx "
+                         f"{tuple(ctx.shape)}, wo {tuple(wo.shape)}, w_gate_up "
+                         f"{tuple(w_gate_up.shape)}, w_down "
+                         f"{tuple(w_down.shape)}")
+    _check_widths("fused_post_attn", D=(D, KERNEL_K), HqD=(HqD, KERNEL_K),
+                  I=(I, KERNEL_K))
+    out = torch.empty_like(x)
+    t, h = torch.empty_like(x), torch.empty_like(x)
+    a = torch.empty((M, I), dtype=x.dtype, device=x.device)
+    rc = _lib().mdt_fused_post_attn(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), ctx.data_ptr(), wo.data_ptr(),
+        ffn_norm.data_ptr(), w_gate_up.data_ptr(), w_down.data_ptr(),
+        t.data_ptr(), h.data_ptr(), a.data_ptr(), out.data_ptr(), M, D, HqD,
+        I, eps, torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fused_post_attn launch failed with cudaError_t "
+                           f"{rc}")
+    fused_post_attn.launches += 1
+    return out
+
+
+fused_post_attn.launches = 0

@@ -281,3 +281,69 @@ def test_card_centroid_scores_matches_plain(cuda, dtype, T, C, D):
         torch.testing.assert_close(out.sum(-1),
                                    torch.full((B, Hkv), float(T * G),
                                               device=cuda))
+
+
+def _rand(rng, dev, dtype, *shape, s=1.0):
+    return torch.from_numpy((rng.standard_normal(shape) * s).astype(
+        np.float32)).to(dev, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K,N2", [(256, 2816), (2048, 1536)])
+def test_card_int4_matmul_matches_plain(cuda, dtype, K, N2):
+    """int4_matmul against its plain version within the stated limit
+    (int4_matmul_plain_f32_and_limit) at M in {8, 56, 64, 100}; rows at M=8
+    bit-equal to the same rows inside M=56; the call with one group's
+    -8 rowsum correction left out fails the limit."""
+    from magicdec_tpu_torch.ops import int4_matmul as im
+
+    rng = np.random.default_rng(K)
+    q4, s4 = im.pack_int4_cols(_rand(rng, cuda, torch.float32, K, 2 * N2,
+                                     s=0.02))
+    x = _rand(rng, cuda, dtype, 100, K)
+    for M in (8, 56, 64, 100):
+        out = im.int4_matmul(x[:M], q4, s4)
+        ref, limit = im.int4_matmul_plain_f32_and_limit(x[:M], q4, s4)
+        assert out.dtype == dtype and out.shape == (M, 2 * N2)
+        assert bool(((out.float() - ref).abs() <= limit).all())
+        if M == 56:
+            assert torch.equal(im.int4_matmul(x[:8], q4, s4), out[:8])
+    faulty = out.float() + 8.0 * x[:, :128].float().sum(1, keepdim=True) * s4[0]
+    assert not bool(((faulty - ref).abs() <= limit).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_fused_block_matches_plain(cuda, dtype):
+    """fused_qkv (with and without a bias) and fused_post_attn against their
+    plain versions within the stated limits (per element, and the mean
+    error in bf16) at tests/test_fused_block.py's widths, M in {8, 56}; rows
+    at M=8 bit-equal to the same rows inside M=56."""
+    from magicdec_tpu_torch.ops import fused_block as fb
+
+    D, HqD, I, O = 256, 256, 704, 512
+    rng = np.random.default_rng(9)
+    x, ctx = _rand(rng, cuda, dtype, 56, D), _rand(rng, cuda, dtype, 56, HqD)
+    n = 1.0 + _rand(rng, cuda, dtype, D, s=0.1)
+    wqkv, b = _rand(rng, cuda, dtype, D, O, s=0.3), _rand(rng, cuda, dtype, O)
+    wo = _rand(rng, cuda, dtype, HqD, D, s=0.3)
+    gu = _rand(rng, cuda, dtype, D, 2, I, s=0.3)
+    wd = _rand(rng, cuda, dtype, I, D, s=0.3)
+
+    def hold(out, ref, limit):
+        err = (out.float() - ref).abs()
+        assert bool((err <= limit).all()), float((err / limit).max())
+        assert float(err.mean()) <= fb.MEAN_LIMIT * float(ref.abs().mean())
+
+    for M in (8, 56):
+        for bias in (None, b):
+            out = fb.fused_qkv(x[:M], n, wqkv, bias)
+            hold(out, *fb.fused_qkv_plain_f32_and_limit(x[:M], n, wqkv, bias))
+        post = fb.fused_post_attn(x[:M], ctx[:M], wo, n, gu, wd)
+        hold(post, *fb.fused_post_attn_plain_f32_and_limit(x[:M], ctx[:M], wo,
+                                                           n, gu, wd))
+    assert torch.equal(fb.fused_qkv(x[:8], n, wqkv, b),
+                       fb.fused_qkv(x, n, wqkv, b)[:8])
+    assert torch.equal(fb.fused_post_attn(x[:8], ctx[:8], wo, n, gu, wd),
+                       fb.fused_post_attn(x, ctx, wo, n, gu, wd)[:8])

@@ -32,6 +32,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "magicdec_tpu_torch.engine.squeeze" in mods
     assert "magicdec_tpu_torch.ops.kmeans" in mods
     assert "magicdec_tpu_torch.ops.gemm_softmax" in mods
+    assert "magicdec_tpu_torch.quant.int8" in mods
+    assert "magicdec_tpu_torch.ops.int4_matmul" in mods
+    assert "magicdec_tpu_torch.ops.fused_block" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
