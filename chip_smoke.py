@@ -55,6 +55,16 @@ exits non-zero):
                 bf16 and f32: every element within fused_*_plain_f32_and_limit
                 and the mean error within MEAN_LIMIT; M=8 rows bit-equal to the
                 same rows inside M=56
+  8c. lse       the return_lse forms against their plain versions at the
+                GliDe shapes: flash_decode_stacked at T=7 and T=29 (two
+                launches, attention_impls.flash_stacked_lse) over a 4224-slot
+                stacked cache, flash_decode_intervals at T in {1, 2, 4, 8,
+                16} over a 4224-slot flat own cache's prefix, bf16 and f32,
+                flat and peaked, an empty row each: ctx within
+                plain_f32_and_limit and bit-equal with and without the flag,
+                m and l within fd.lse_limits, empty rows l == 0 and ctx 0, a
+                planted fault (l of a merge skipping the last split) rejected,
+                merge_lse of two halves within twice the one-pass limit
   9. reference  a small f32 model: logits of the card's path (kernels, cuBLAS)
                 vs the CPU plain path, with plain, int8, int4 and fused
                 weights; Quest on it (B=2, P=512, 32 new
@@ -63,9 +73,12 @@ exits non-zero):
                 (TAIL_COVERS_MAX lowered to 0: 72 new tokens, latest_k 32,
                 the tail compacts and aged rows join the index): lossless
   10. gemm rows each row-wise product of a decode step at llama-3.2-1b
-                widths: do M=B rows get the bits of the same rows inside
-                M=B*(gamma+1), unpadded and padded to 64 rows, and the ms of
-                each (the padding's cost)
+                widths, for (B, gamma) = (8, 6) and (16, 4): do M=B rows get
+                the bits of the same rows inside M=B*(gamma+1), unpadded,
+                padded each to a multiple of 64, and padded as the port pads
+                (llama.row_bucket: B * 32 rows rounded up to 64 for every
+                decode-phase forward), and the ms of each (the padding's
+                cost); fails if the port's padded rows differ
   11. main path llama-3.2-1b at full width (random bf16 weights from a seeded
                 torch.Generator), B=8, P=4096, 64 new tokens, gamma=6:
                 generate_autoregressive, generate_selfspec with SnapKV
@@ -81,7 +94,10 @@ exits non-zero):
                 accept exactly 1.0 (Quest's full coverage is printed: its
                 draft reads the pages in another order than the verify), and
                 each run's kernel launch counts (zeroed before it) must be
-                those its path implies.
+                those its path implies. Then B=16, gamma=4 (the JAX
+                package's production_shape defaults; P cut to 1024): AR and
+                SnapKV at budget 1024 = full budget, lossless and accepting
+                exactly 1.0.
  12. longspec   two-model SD with llama-3.2-1b as the target: a self-draft
                 (the same weights, full KV) must accept exactly 1.0, and a
                 2-layer draft of the same widths with its own weights must
@@ -94,6 +110,15 @@ exits non-zero):
                 accepts exactly 1.0, launch counts as the path implies
                 (int4_matmul 4 L per forward, the fused pair L per forward
                 of T <= 32)
+ 12b. glide     GliDe on the main path's model with a random glide block
+                (seed 5, scale 0.3): linear (gamma 6), greedy tree (2,2) and
+                (4,2,2) generations and 4 stochastic tree (2,2) rounds; the
+                linear stream equals the AR stream, the tree streams' share
+                matching AR before a divergence is printed, the stochastic
+                rounds emit 1..depth+1 tokens and advance both caches by it;
+                launch counts as each path implies
+ 12c. glide_f32 the same model in f32 weights and caches, P cut to 1024: the
+                tree (2,2) stream equals the f32 AR stream
  13. times      each kernel at the main path's shapes: kernel, plain version,
                 bound (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s bf16, or 67
                 TFLOP/s for centroid_scores' f32 work) and one PyTorch call
@@ -106,10 +131,13 @@ exits non-zero):
                 int4_matmul at the four decode shapes (M=64) and w_gate_up at
                 M=1024 (yardsticks: bf16 mm of the dequantized weight and
                 torch._weight_int4pack_mm) and the fused pair at M = 8 and 56
-                (yardstick: the unfused chain, several calls)
+                (yardstick: the unfused chain, several calls); and the
+                return_lse forms at the GliDe shapes (SDPA, which returns no
+                (m, l), as the yardstick)
  14. profile    device-busy share, launches, top kernels and top host ops
-                of an AR step (bf16, int8, int4, fused) and of a SnapKV, a
-                Quest and a RetroInfer round at budget 1024 (torch.profiler)
+                of an AR step (bf16, int8, int4, fused), of a GliDe tree
+                (2,2) round and of a SnapKV, a Quest and a RetroInfer round at
+                budget 1024 (torch.profiler)
 Then the card's name and power limit (nvidia-smi), one JSON line of the
 kernels, and the last line {"ok": true, "device": {...}}.
 
@@ -190,6 +218,8 @@ def main() -> int:
             "flash_prefill": check_prefill(torch, dev),
             "int4_matmul": check_int4(torch, dev)}
     errs.update(check_fused(torch, dev))
+    errs["flash_decode_stacked_lse"], errs["flash_decode_intervals_lse"] = (
+        check_lse(torch, dev))
     check_reference(torch, dev)
     quest_small_f32(torch, dev)
     retro_small_f32(torch, dev)
@@ -198,6 +228,8 @@ def main() -> int:
     launches, ar = main_path(torch, dev, params, prompt)
     launches = _add(launches, longspec(torch, dev, params, prompt, ar))
     launches = _add(launches, quant_and_fused(torch, dev, params, prompt))
+    launches = _add(launches, glide(torch, dev, params, prompt, ar))
+    launches = _add(launches, glide_f32(torch, dev, params, prompt))
     del params
     torch.cuda.empty_cache()
     kernels = (time_kernels(torch, dev, errs, launches)
@@ -697,6 +729,134 @@ def check_fused(torch, dev):
             "fused_post_attn": errs["post_attn_bfloat16_M8"]}
 
 
+def _hold_lse(torch, fd, what, got, want, ctx_ref, ctx_limit, dtype, errs,
+              ratios):
+    """One return_lse output (ctx, m, l) against the plain f32 version: ctx
+    of the live rows within the ctx limit, m of the live rows and l of all
+    rows within fd.lse_limits, an empty row (plain l == 0) with l == 0 and
+    ctx == 0, every output finite. Records ctx's max abs error (and the
+    worst error / limit of each output)."""
+    ctx, m, l = got
+    _, m_ref, l_ref = want
+    live = l_ref > 0
+    lim_m, lim_l = fd.lse_limits(m_ref, l_ref, dtype)
+    if not all(bool(torch.isfinite(t.float()).all()) for t in got):
+        fail(f"lse {what}: non-finite output")
+    diff = (ctx.float() - ctx_ref).abs()[live]
+    dm = (m - m_ref).abs()[live]
+    dl = (l - l_ref).abs()
+    errs[what] = float(diff.max())
+    ratios[what] = {"ctx": float((diff / ctx_limit[live]).max()),
+                    "m": float((dm / lim_m[live]).max()),
+                    "l": float((dl / lim_l).max())}
+    if max(ratios[what].values()) > 1.0:
+        fail(f"lse {what}: outside the limit ({ratios[what]} of it)")
+    if not (bool((l[~live] == 0).all()) and bool((ctx[~live] == 0).all())):
+        fail(f"lse {what}: an empty row gives l != 0 or ctx != 0")
+
+
+def check_lse(torch, dev):
+    """The return_lse forms against their plain versions at the GliDe
+    shapes, bf16 and f32, flat and peaked softmax: flash_decode_stacked over
+    a 4224-slot stacked cache with ragged prefixes at T=7 (tree (2,2)'s
+    verify) and T=29 (tree (4,2,2)'s: attention_impls.flash_stacked_lse,
+    two launches), each with one empty row; flash_decode_intervals over a
+    4224-slot flat own cache's prefix [0, base) at T in {1, 2, 4, 8, 16}
+    (the tree drafts' levels; 16 is tree (4,2,2)'s leaf level, 64 rows),
+    one sequence with an empty prefix. ctx within plain_f32_and_limit, m
+    and l within fd.lse_limits; ctx bit-equal with and without the flag
+    (T=29 chunk by chunk); a planted fault (l of a merge that skips each
+    row's last 512-slot split) must fail the l limit; merge_lse of the
+    kernel over two disjoint halves of the prefix must hold the one-pass
+    attention over their union within twice its limit (each half's ctx is
+    rounded to the cache dtype before the merge rounds once more)."""
+    from magicdec_tpu_torch.engine.attention_impls import flash_stacked_lse
+    from magicdec_tpu_torch.ops import flash_decode as fd
+    from magicdec_tpu_torch.ops.attention import merge_lse
+
+    S = 4224
+    lens = torch.tensor([4100, 4160, 3, 511, 512, 2049, 4096, 1000],
+                        dtype=torch.int32, device=dev)
+    bases = torch.tensor([4128, 0, 700, 513, 1024, 2049, 4000, 64],
+                         dtype=torch.int32, device=dev)
+    errs, ratios, faults, merged = {}, {}, {}, {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[1]
+        for scale, qs in Q_SCALES.items():
+            for T in (7, 29):
+                q, k, v = _cache_inputs(torch, dev, dtype, S, T, seed=90 + T,
+                                        q_scale=qs)
+                hi = lens[:, None].expand(B, T).contiguous()
+                hi[2, 0] = 0                              # an empty row
+                what = f"stacked_{name}_T{T}_{scale}"
+                got = flash_stacked_lse(q, k, v, 1, hi)
+                step = 64 // 4
+                plain_ctx = torch.cat([fd.flash_decode_stacked(
+                    q[:, i:i + step].contiguous(), k, v, 1,
+                    hi[:, i:i + step].contiguous()) for i in range(0, T, step)],
+                    dim=1)
+                if not torch.equal(got[0], plain_ctx):
+                    fail(f"lse {what}: ctx differs from the call without "
+                         f"return_lse")
+                want = fd.attention_plain_lse(q.float(), k.float(), v.float(),
+                                              1, hi)
+                ref, limit = fd.plain_f32_and_limit(q, k, v, 1, hi)
+                _hold_lse(torch, fd, what, got, want, ref, limit, dtype, errs,
+                          ratios)
+                # planted fault: l without each long row's last split
+                cut = torch.where(hi > 512, (hi - 1) // 512 * 512, hi)
+                _, _, l_bad = fd.attention_plain_lse(
+                    q.float(), k.float(), v.float(), 1, cut.to(torch.int32))
+                _, lim_l = fd.lse_limits(want[1], want[2], dtype)
+                faults[what] = bool(((l_bad - want[2]).abs() > lim_l).any())
+                if not faults[what]:
+                    fail(f"lse {what}: the l limit does not reject a merge "
+                         f"that skips the last split")
+            for T in (1, 2, 4, 8, 16):
+                q, k, v = _cache_inputs(torch, dev, dtype, S, T, seed=95 + T,
+                                        q_scale=qs, L=1)
+                kl, vl = k[0], v[0]
+                zero = torch.zeros((B, T), dtype=torch.int32, device=dev)
+                hi = bases[:, None].expand(B, T).contiguous()
+                what = f"intervals_{name}_T{T}_{scale}"
+                got = fd.flash_decode_intervals(q, kl, vl, zero, zero, hi,
+                                                return_lse=True)
+                if not torch.equal(got[0], fd.flash_decode_intervals(
+                        q, kl, vl, zero, zero, hi)):
+                    fail(f"lse {what}: ctx differs from the call without "
+                         f"return_lse")
+                want = fd.intervals_plain_lse(q.float(), kl.float(),
+                                              vl.float(), zero, zero, hi)
+                ref, limit = fd.intervals_plain_f32_and_limit(q, kl, vl, zero,
+                                                              zero, hi)
+                _hold_lse(torch, fd, what, got, want, ref, limit, dtype, errs,
+                          ratios)
+                # two disjoint halves [0, h) and [h, base), merged
+                h = (hi // 2 + 37).clamp(max=hi)
+                a = fd.flash_decode_intervals(q, kl, vl, zero, zero, h,
+                                              return_lse=True)
+                b = fd.flash_decode_intervals(q, kl, vl, zero, h, hi,
+                                              return_lse=True)
+                out = merge_lse(*a, *b)
+                live = want[2] > 0
+                diff = (out.float() - ref).abs()[live]
+                merged[what] = float((diff / (2 * limit[live])).max())
+                if merged[what] > 1.0:
+                    fail(f"lse {what}: merge_lse of two halves is "
+                         f"{merged[what]} times twice the one-pass limit")
+    line(phase="lse_vs_plain", S=S, max_abs_err=errs,
+         max_err_over_limit=ratios, skipped_split_rejected=faults,
+         merge_of_halves_over_twice_limit=merged,
+         limits={"ctx": "plain_f32_and_limit",
+                 "m": "1e-5 (1 + |m|) where l > 0",
+                 "l": "2^-8 l + 1e-5 (bf16), 2e-5 + 2e-5 l (f32)"},
+         ctx_bitexact_with_and_without_flag=True)
+    return (max(e for k_, e in errs.items()
+                if k_.startswith("stacked_bfloat16")),
+            max(e for k_, e in errs.items()
+                if k_.startswith("intervals_bfloat16")))
+
+
 # ---------------------------------------------------------------------------
 # phase 9: the card's path against the CPU plain path on a small model, and
 # Quest and RetroInfer on that model
@@ -712,7 +872,8 @@ def _small_cfg():
 
 
 def _to(tree, d):
-    """A params tree, plain or with quantized leaves, on device d."""
+    """A params tree, plain or with quantized leaves, on device d (or, a
+    plain tree, cast to dtype d)."""
     from magicdec_tpu_torch.quant.int8 import Int4ColWeight
     if tree is None:
         return None
@@ -883,11 +1044,13 @@ def retro_small_f32(torch, dev):
 KERNELS = ("flash_decode_stacked", "flash_decode_intervals",
            "flash_decode_stacked_masked", "page_gather", "flash_prefill",
            "page_gather_single", "centroid_scores", "int4_matmul",
-           "fused_qkv", "fused_post_attn")
+           "fused_qkv", "fused_post_attn", "flash_decode_stacked_lse",
+           "flash_decode_intervals_lse")
 
 
-def _wrappers():
-    """Each kernel's wrapper, which counts its launches."""
+def _counters():
+    """Each kernel entry's (wrapper, count attribute): the return_lse forms
+    (name + "_lse") are counted apart, on their wrapper's launches_lse."""
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops import fused_block as fb
     from magicdec_tpu_torch.ops import gemm_softmax as gs
@@ -896,16 +1059,23 @@ def _wrappers():
     module = {"page_gather": pg, "page_gather_single": pg,
               "centroid_scores": gs, "int4_matmul": im, "fused_qkv": fb,
               "fused_post_attn": fb}
-    return {name: getattr(module.get(name, fd), name) for name in KERNELS}
+    out = {}
+    for name in KERNELS:
+        lse = name.endswith("_lse")
+        base = name[:-len("_lse")] if lse else name
+        out[name] = (getattr(module.get(base, fd), base),
+                     "launches_lse" if lse else "launches")
+    return out
 
 
 def _counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
 
 def _set_counts(counts):
-    for name, fn in _wrappers().items():
-        fn.launches = counts[name]
+    for name, (fn, attr) in _counters().items():
+        setattr(fn, attr, counts[name])
 
 
 def _zero():
@@ -916,57 +1086,85 @@ def _add(a, b):
     return {k: a[k] + b[k] for k in a}
 
 
+# (batch, gamma) row cases of gemm_rows: the main path's, and the JAX
+# package's benchmarks/production_shape.py defaults (:53, :56), whose verify
+# (80 rows) pads to another bucket than its AR and draft steps (16 rows)
+B16, B16_GAMMA, B16_P = 16, 4, 1024
+ROW_CASES = ((B, GAMMA), (B16, B16_GAMMA))
+
+
 def gemm_rows(torch, dev, L=16):
-    """Why models/llama.py pads rows to ROW_BUCKET, and what it costs: for
-    each row-wise product of a decode step at llama-3.2-1b widths, whether
-    the AR/draft rows (M=B) get the bits of the same rows inside a verify
-    (M=B*(gamma+1)) unpadded and padded, and the ms of one product at each
-    row count (16 layers of weights cycled, so they are read from HBM as in
-    a step). Fails if padded rows differ: the invariants rest on them. On an
-    H100 with cuBLAS of CUDA 12.8 the w_down rows differ unpadded, and the
-    main path without the padding breaks invariant 1."""
+    """Why models/llama.py pads rows, and what it costs: for each row-wise
+    product of a decode step at llama-3.2-1b widths and each (batch, gamma)
+    of ROW_CASES, whether the AR/draft rows (M=batch) get the bits of the
+    same rows inside a verify (M=batch*(gamma+1)) unpadded, padded each to
+    a multiple of 64 (the port's padding before this check's B=16 case), and
+    padded as the port pads (llama.row_bucket: one count fixed by the
+    batch); and the ms of one product at the main path's row counts (16
+    layers of weights cycled, so they are read from HBM as in a step).
+    Fails if rows padded as the port pads differ: the invariants rest on
+    them. On an H100 with cuBLAS of CUDA 12.8 the w_down rows differ
+    unpadded at M=8 against 56, and padded to 64 against 128 at M=16
+    against 80."""
     from magicdec_tpu_torch.models import llama
     from magicdec_tpu_torch.ops.norms import rms_norm
 
     g = torch.Generator(device=dev).manual_seed(3)
     Mv = B * (GAMMA + 1)
+    M_max = max(b * (gm + 1) for b, gm in ROW_CASES)
+    pad = llama._pad_rows
     res, extra_ms = {}, 0.0
+
+    def rows_equal(f, b, gm):
+        m = b * (gm + 1)
+        r_ar, r_v = llama.row_bucket(b, 1), llama.row_bucket(b, gm + 1)
+        return {"M": [b, m], "M_pad64": [pad(x[:b]).shape[0],
+                                         pad(x[:m]).shape[0]],
+                "M_padded": [r_ar, r_v],
+                "unpadded_rows_equal": torch.equal(f(x[:b]), f(x[:m])[:b]),
+                "pad64_rows_equal": torch.equal(f(pad(x[:b]))[:b],
+                                                f(pad(x[:m]))[:b]),
+                "padded_rows_equal": torch.equal(f(pad(x[:b], r_ar))[:b],
+                                                 f(pad(x[:m], r_v))[:b])}
+
+    rows = llama.row_bucket(B, 1)
     for name, K, N in (("wqkv", 2048, 3072), ("wo", 2048, 2048),
                        ("w_gate_up", 2048, 16384), ("w_down", 8192, 2048),
                        ("unembed", 2048, 128256)):
         n_w = 1 if name == "unembed" else L
         w = (torch.randn((n_w, K, N), generator=g, device=dev) * 0.02).to(
             torch.bfloat16)
-        x = torch.randn((Mv, K), generator=g, device=dev, dtype=torch.bfloat16)
+        x = torch.randn((M_max, K), generator=g, device=dev,
+                        dtype=torch.bfloat16)
         if name == "unembed":
             def mm(a, i):
                 return torch.mm(a, w[i], out_dtype=torch.float32)
         else:
             def mm(a, i):
                 return a @ w[i]
-        pad = llama._pad_rows
-        res[name] = {
-            "unpadded_rows_equal": torch.equal(mm(x[:B], 0), mm(x, 0)[:B]),
-            "padded_rows_equal": torch.equal(mm(pad(x[:B]), 0)[:B],
-                                             mm(pad(x), 0)[:B]),
+        res[name] = {f"B{b}_gamma{gm}": rows_equal(lambda a: mm(a, 0), b, gm)
+                     for b, gm in ROW_CASES}
+        res[name].update({
             "ms_unpadded_M8": _time_ms(torch, lambda i: mm(x[:B], i), n_w),
-            "ms_unpadded_M56": _time_ms(torch, lambda i: mm(x, i), n_w),
-            "ms_padded_M64": _time_ms(torch, lambda i: mm(pad(x[:B]), i), n_w)}
+            "ms_unpadded_M56": _time_ms(torch, lambda i: mm(x[:Mv], i), n_w),
+            "ms_padded_M64": _time_ms(torch, lambda i: mm(pad(x[:B]), i), n_w),
+            f"ms_padded_M{rows}": _time_ms(
+                torch, lambda i: mm(pad(x[:B], rows), i), n_w)})
         per_step = 1 if name == "unembed" else L
-        extra_ms += per_step * (res[name]["ms_padded_M64"]
+        extra_ms += per_step * (res[name][f"ms_padded_M{rows}"]
                                 - res[name]["ms_unpadded_M8"])
         del w
-    x = torch.randn((Mv, 2048), generator=g, device=dev, dtype=torch.bfloat16)
+    x = torch.randn((M_max, 2048), generator=g, device=dev,
+                    dtype=torch.bfloat16)
     w = torch.ones(2048, device=dev, dtype=torch.bfloat16)
-    res["rms_norm"] = {
-        "unpadded_rows_equal": torch.equal(rms_norm(x[:B], w),
-                                           rms_norm(x, w)[:B]),
-        "padded_rows_equal": torch.equal(
-            rms_norm(llama._pad_rows(x[:B]), w)[:B],
-            rms_norm(llama._pad_rows(x), w)[:B])}
-    line(phase="gemm_rows", M_ar=B, M_verify=Mv, M_padded=llama.ROW_BUCKET,
+    res["rms_norm"] = {f"B{b}_gamma{gm}": rows_equal(lambda a: rms_norm(a, w),
+                                                     b, gm)
+                       for b, gm in ROW_CASES}
+    line(phase="gemm_rows", row_cases=ROW_CASES,
+         decode_rows_per_seq=llama.DECODE_ROWS_PER_SEQ,
          padding_ms_per_ar_step=extra_ms, **res)
-    bad = [k for k, r in res.items() if not r["padded_rows_equal"]]
+    bad = [f"{k} {case}" for k, r in res.items() for case, c in r.items()
+           if isinstance(c, dict) and not c["padded_rows_equal"]]
     if bad:
         fail(f"padded rows differ across row counts in {bad}")
 
@@ -1007,7 +1205,7 @@ def _check_stream(torch, name, out, counts, ar, vocab):
     out = out.cpu()
     if out.min() < 0 or out.max() >= vocab:
         fail(f"{name}: token ids out of range")
-    for b in range(B):
+    for b in range(out.shape[0]):
         n = min(int(counts[b]), NEW)
         if n <= 0 or not torch.equal(out[b, :n], ar[b, :n]):
             fail(f"{name}: stream of sequence {b} differs from the AR "
@@ -1015,6 +1213,8 @@ def _check_stream(torch, name, out, counts, ar, vocab):
 
 
 def main_path(torch, dev, params, prompt):
+    import numpy as np
+
     from magicdec_tpu_torch.engine.backend import Engine
     from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
                                                 generate_selfspec)
@@ -1068,12 +1268,49 @@ def main_path(torch, dev, params, prompt):
     run("retro", "retro", BUDGET)
     run("squeeze", "squeeze", BUDGET)
 
+    # C1: the JAX package's production_shape.py batch and gamma (B=16,
+    # gamma=4: a verify of 80 rows against AR and draft steps of 16) at full
+    # width; P cut to B16_P, where budget B16_P is the full budget
+    prompt16 = np.random.default_rng(8).integers(0, cfg.vocab_size,
+                                                 (B16, B16_P))
+    kw16 = dict(batch_size=B16, max_len=B16_P + NEW + 2 * B16_GAMMA + 16)
+
+    def go16(spec):
+        def go():
+            if spec is None:
+                out, stats = generate_autoregressive(
+                    Engine(cfg, params, **kw16), prompt16, NEW)
+                return out, torch.full((B16,), NEW, dtype=torch.int32), stats
+            return generate_selfspec(
+                Engine(cfg, params, spec="snapkv", draft_budget=B16_P,
+                       window_size=WINDOW, **kw16), prompt16, B16_GAMMA, NEW)
+        return go
+
+    def expect16(spec):
+        def launches(result):
+            r = result[-1].rounds
+            return dict(_zero(), flash_prefill=L * B16_P // 128,
+                        flash_decode_stacked=(L * (NEW - 1) if spec is None
+                                              else L * (B16_GAMMA + 1) * r))
+        return launches
+
+    for name, spec in (("b16_ar", None), ("b16_snapkv_full", "snapkv")):
+        (out, counts, stats), used, seconds = _drive(torch, name, go16(spec),
+                                                     expect16(spec))
+        runs[name] = dict(out=out.cpu(), counts=counts.cpu(), stats=stats,
+                          total_s=seconds, launches=used)
+        total.update(_add(total, used))
+    _check_stream(torch, "b16_snapkv_full", runs["b16_snapkv_full"]["out"],
+                  runs["b16_snapkv_full"]["counts"], runs["b16_ar"]["out"],
+                  cfg.vocab_size)
+
     ar = runs["ar"]["out"]
-    spec_runs = [k for k in runs if k != "ar"]
+    spec_runs = [k for k in runs if k not in ("ar", "b16_ar")]
     for name in spec_runs:
-        _check_stream(torch, name, runs[name]["out"], runs[name]["counts"], ar,
-                      cfg.vocab_size)
-    for name in ("snapkv_full", "streaming_full"):
+        if name != "b16_snapkv_full":
+            _check_stream(torch, name, runs[name]["out"], runs[name]["counts"],
+                          ar, cfg.vocab_size)
+    for name in ("snapkv_full", "streaming_full", "b16_snapkv_full"):
         acc = runs[name]["stats"].acceptance_rate
         if acc != 1.0:
             fail(f"{name}: full-budget acceptance {acc} != 1.0 (invariant 2)")
@@ -1090,6 +1327,9 @@ def main_path(torch, dev, params, prompt):
          streaming_draft_slots=DRAFT_SLOTS, streaming_full_budget=STREAM_FULL,
          quest_round_buffer=QUEST_R, quest_full_budget=QUEST_FULL,
          retro_clusters=[RETRO_C, RETRO_CAP], retro_gathered=RETRO_N,
+         b16={"B": B16, "gamma": B16_GAMMA, "P": B16_P, "P_cut_from": P,
+              "budget": B16_P, "note": f"P cut to {B16_P} to save time, so "
+              f"the SnapKV budget {B16_P} is the full budget"},
          index_build_s={k: runs[k]["stats"].index_build_s
                         for k in ("retro", "squeeze")},
          tok_s={k: rate(r) for k, r in runs.items()},
@@ -1248,6 +1488,181 @@ def quant_and_fused(torch, dev, params, prompt):
          launches={k: r["launches"] for k, r in runs.items()},
          invariant1=True, invariant2=True)
     return total
+
+
+GLIDE_SEED, GLIDE_SCALE = 5, 0.3      # the glide block's random params
+GLIDE_STOCH_ROUNDS = 4
+GLIDE_F32_P = 1024                     # the f32 phase's prompt, cut from P
+
+
+def _glide_expect(L, chunks, tree):
+    """The launch counts a GlideEngine.generate run implies: the target's
+    prefill (L per chunk) and the glide's (2 per chunk: self- and
+    cross-attention); per round, linear (tree None): 2 (gamma + 1) flat
+    decode launches (gamma drafts and the appending forward) and L verify
+    launches; tree: per level and leaf level one intervals launch with
+    return_lse (self-attention) and one without (cross-attention), and L
+    verify launches with return_lse per chunk of 16 nodes."""
+    def launches(result):
+        r = result[-1].rounds
+        want = dict(_zero(), flash_prefill=(L + 2) * chunks)
+        if tree is None:
+            want.update(flash_decode_intervals=2 * (GAMMA + 1) * r,
+                        flash_decode_stacked=L * r)
+        else:
+            levels = len(tree.branching) + 1
+            want.update(flash_decode_intervals=levels * r,
+                        flash_decode_intervals_lse=levels * r,
+                        flash_decode_stacked_lse=L * r * -(-tree.n_nodes // 16))
+        return want
+    return launches
+
+
+def _prefix_share(torch, out, counts, ar):
+    """Per sequence, the share of its tokens (up to NEW) that match the AR
+    stream before the first divergence."""
+    out = out.cpu()
+    shares = []
+    for b in range(out.shape[0]):
+        n = min(int(counts[b]), NEW)
+        same = (out[b, :n] == ar[b, :n]).to(torch.int32)
+        shares.append(float(torch.cumprod(same, 0).sum()) / n)
+    return shares
+
+
+def glide(torch, dev, params, prompt, ar):
+    """GliDe at llama-3.2-1b full width (the main path's bf16 weights, B=8,
+    P=4096, 64 new tokens) with a random glide block (torch.Generator seed
+    GLIDE_SEED, scale GLIDE_SCALE): linear (gamma 6), greedy tree (2,2) (7
+    nodes, 56 verify rows) and (4,2,2) (29 nodes: two verify launches a
+    layer), and GLIDE_STOCH_ROUNDS stochastic tree (2,2) rounds after an
+    encode. The linear stream must equal the AR stream (invariant 1); the
+    tree streams' share matching AR before their first divergence is
+    printed (a tree verify may flip argmax at a near-tie, as in the JAX
+    package); the stochastic rounds must emit 1..depth+1 tokens and advance
+    both caches by it. Every run's launch counts as its path implies."""
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.glide_engine import (
+        GlideEngine, SpecTree, glide_tree_round_stochastic)
+    from magicdec_tpu_torch.engine.spec import SpecStats, _eot_array
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.models.glide import init_glide_params
+
+    cfg = ModelArgs.from_name("llama-3.2-1b")
+    L, chunks = cfg.n_layer, P // 128
+    gp = init_glide_params(cfg, torch.bfloat16, scale=GLIDE_SCALE,
+                           seed=GLIDE_SEED, device=dev)
+    res, total, outs = {}, _zero(), {}
+    for name, branching in (("linear", None), ("tree_2_2", (2, 2)),
+                            ("tree_4_2_2", (4, 2, 2))):
+        tree = None if branching is None else SpecTree(branching)
+
+        def go():
+            eng = GlideEngine(Engine(cfg, params, batch_size=B,
+                                     max_len=MAX_LEN), gp)
+            return eng.generate(prompt, NEW, gamma=GAMMA, tree=tree)
+
+        (out, counts, stats), used, seconds = _drive(
+            torch, f"glide {name}", go, _glide_expect(L, chunks, tree))
+        if out.min() < 0 or out.max() >= cfg.vocab_size:
+            fail(f"glide {name}: token ids out of range")
+        outs[name] = (out, counts)
+        res[name] = dict(rounds=stats.rounds, acceptance=stats.acceptance_rate,
+                         tok_s=stats.generated_tokens / stats.wall_time_s,
+                         decode_s=stats.wall_time_s, run_s=seconds,
+                         launches=used)
+        total = _add(total, used)
+    _check_stream(torch, "glide linear", *outs["linear"], ar, cfg.vocab_size)
+    shares = {k: _prefix_share(torch, *outs[k], ar)
+              for k in ("tree_2_2", "tree_4_2_2")}
+
+    tree = SpecTree((2, 2))
+    depth1 = len(tree.branching) + 1
+    rounds = []
+
+    def go_stochastic():
+        eng = GlideEngine(Engine(cfg, params, batch_size=B, max_len=MAX_LEN),
+                          gp)
+        root = eng.encode(prompt)
+        gen = torch.Generator(device=dev).manual_seed(3)
+        eot = _eot_array((), dev)
+        cache = eng.target.cache
+        for _ in range(GLIDE_STOCH_ROUNDS):
+            before = cache.lengths.clone()
+            own_len, emitted, emit_len, root, _ = glide_tree_round_stochastic(
+                params, gp, cfg, tree, cache, eng.own_k, eng.own_v,
+                eng.own_len, root, eot, gen, use_flash=eng.use_flash)
+            eng.own_len = own_len
+            el = emit_len.cpu()
+            if (emitted.shape != (B, depth1) or root.shape != (B, 1)
+                    or not bool(((el >= 1) & (el <= depth1)).all())
+                    or not torch.equal((cache.lengths - before).cpu(), el)
+                    or not torch.equal(own_len.cpu(), cache.lengths.cpu())):
+                fail("glide stochastic: a round's shapes, emit_len or cache "
+                     "lengths are wrong")
+            rounds.append(el.tolist())
+        return None, None, SpecStats(rounds=GLIDE_STOCH_ROUNDS)
+
+    _, used, seconds = _drive(torch, "glide stochastic", go_stochastic,
+                              _glide_expect(L, chunks, tree))
+    total = _add(total, used)
+    res["stochastic_tree_2_2"] = dict(emit_len_per_round=rounds, run_s=seconds,
+                                      launches=used)
+    line(phase="glide", model="llama-3.2-1b", dtype="bfloat16", B=B, P=P,
+         new_tokens=NEW, gamma=GAMMA, glide_seed=GLIDE_SEED,
+         glide_scale=GLIDE_SCALE, runs=res, invariant1_linear=True,
+         tree_share_matching_ar_before_divergence=shares)
+    return total
+
+
+def glide_f32(torch, dev, params, prompt):
+    """The same model in float32 weights and caches, the prompt cut to its
+    first GLIDE_F32_P tokens: the greedy tree (2,2) stream must equal the
+    float32 AR stream (the card's form of tests/test_glide.py's tree
+    losslessness test)."""
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.glide_engine import GlideEngine, SpecTree
+    from magicdec_tpu_torch.engine.spec import generate_autoregressive
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.models.glide import init_glide_params
+
+    cfg = ModelArgs.from_name("llama-3.2-1b")
+    L, chunks = cfg.n_layer, GLIDE_F32_P // 128
+    p32 = _to(params, torch.float32)
+    gp = init_glide_params(cfg, torch.float32, scale=GLIDE_SCALE,
+                           seed=GLIDE_SEED, device=dev)
+    pr = prompt[:, :GLIDE_F32_P]
+    max_len = GLIDE_F32_P + NEW + 2 * GAMMA + 16
+    tree = SpecTree((2, 2))
+
+    def go_ar():
+        out, stats = generate_autoregressive(
+            Engine(cfg, p32, batch_size=B, max_len=max_len), pr, NEW)
+        return out, torch.full((B,), NEW, dtype=torch.int32), stats
+
+    def go_tree():
+        return GlideEngine(Engine(cfg, p32, batch_size=B, max_len=max_len),
+                           gp).generate(pr, NEW, tree=tree)
+
+    (ar, _, ar_stats), used_ar, s_ar = _drive(
+        torch, "glide_f32 ar", go_ar, lambda r: dict(
+            _zero(), flash_prefill=L * chunks,
+            flash_decode_stacked=L * (NEW - 1)))
+    (out, counts, stats), used, seconds = _drive(
+        torch, "glide_f32 tree_2_2", go_tree, _glide_expect(L, chunks, tree))
+    _check_stream(torch, "glide_f32 tree_2_2", out, counts, ar.cpu(),
+                  cfg.vocab_size)
+    line(phase="glide_f32", model="llama-3.2-1b", dtype="float32", B=B,
+         P=GLIDE_F32_P, P_cut_from=P, new_tokens=NEW,
+         tree=list(tree.branching), rounds=stats.rounds,
+         acceptance=stats.acceptance_rate,
+         tok_s={"ar": ar_stats.generated_tokens / ar_stats.wall_time_s,
+                "tree_2_2": stats.generated_tokens / stats.wall_time_s},
+         run_s={"ar": s_ar, "tree_2_2": seconds},
+         launches={"ar": used_ar, "tree_2_2": used}, tree_equals_ar=True)
+    del p32, gp
+    torch.cuda.empty_cache()
+    return _add(used_ar, used)
 
 
 # ---------------------------------------------------------------------------
@@ -1422,6 +1837,61 @@ def time_kernels(torch, dev, errs, launches):
             _device_and_eager_ms(torch, f, L))
     del kf, vf, sinks, k_read
     t1 = draft_shapes["T1"]
+
+    # the return_lse forms at the GliDe shapes, every sequence at P + 32
+    # verified slots: the tree verify's prefix part (flash_decode_stacked
+    # with return_lse: T=7, tree (2,2)'s nodes; T=29, tree (4,2,2)'s, two
+    # launches through attention_impls.flash_stacked_lse) and the tree
+    # draft's own-prefix part (flash_decode_intervals with return_lse over a
+    # 4224-slot flat layer: T = 1, 2, 4, tree (2,2)'s levels). SDPA on the
+    # same work is the yardstick; it returns no (m, l)
+    from magicdec_tpu_torch.engine.attention_impls import flash_stacked_lse
+    length = P + 32
+    lse_shapes = {}
+    for form, Ts in (("stacked", (7, 29)), ("intervals", (1, 2, 4))):
+        for T in Ts:
+            q = torch.randn((B, T, Hq, D), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            hi = torch.full((B, T), length, dtype=torch.int32, device=dev)
+            zero = torch.zeros_like(hi)
+            rows_in = (1 if form == "stacked" else 3) * hi.numel() * 4
+            bytes_ = ((B * length * Hkv * D * 2 + 2 * q.numel()) * item
+                      + rows_in + 2 * B * T * Hq * 4)
+            flops = 4 * int(hi.sum()) * Hq * D
+            if form == "stacked":
+                def kern(l):
+                    return flash_stacked_lse(q, k, v, l, hi)
+
+                def plain(l):
+                    return fd.attention_plain_lse(q, k, v, l, hi)
+            else:
+                def kern(l):
+                    return fd.flash_decode_intervals(q, k[l], v[l], zero, zero,
+                                                     hi, return_lse=True)
+
+                def plain(l):
+                    return fd.intervals_plain_lse(q, k[l], v[l], zero, zero,
+                                                  hi)
+            t_k, t_e = _device_and_eager_ms(torch, kern, L)
+            t_p = _time_ms(torch, plain, L, graph=True)
+            t_l = _time_ms(torch, lambda l: _sdpa(torch, q, k, v, l, hi,
+                                                  length), L, graph=True)
+            b_ms, b_by = bound(bytes_, flops)
+            lse_shapes[f"{form}_T{T}"] = dict(
+                cached=length, launches_per_call=-(-T * 4 // 64), ms=t_k,
+                eager_ms=t_e, plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
+                bound_by=b_by)
+    for name, key, at in (("flash_decode_stacked_lse", "stacked_T7", "488"),
+                          ("flash_decode_intervals_lse", "intervals_T2",
+                           "370")):
+        r = lse_shapes[key]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "magicdec_tpu_torch/csrc/flash_decode.cu",
+                     "replaces": f"magicdec_tpu/ops/pallas/flash_decode.py:{at}",
+                     "launches": launches[name], "max_abs_err": errs[name],
+                     "ms": r["ms"], "plain_ms": r["plain_ms"],
+                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                     "library_ms": r["library_ms"]})
     rows.append({"name": "flash_decode_intervals", "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/flash_decode.cu",
                  "replaces": "magicdec_tpu/ops/pallas/flash_decode.py:370",
@@ -1620,6 +2090,8 @@ def time_kernels(torch, dev, errs, launches):
     del cents, views
     _set_counts(saved)      # the timing launches are not the main path's
     line(phase="times", decode_shapes=extra, intervals_shapes=draft_shapes,
+         lse_shapes=lse_shapes, lse_library="SDPA on the same work; it "
+         "returns no (m, l)",
          prefill_last_chunk=prefill, masked_shapes=masked_shapes,
          page_gather=gather, page_gather_single=gather_single,
          centroid_scores=scores)
@@ -1833,8 +2305,9 @@ def _profile(torch, fn, n):
 
 def step_profile(torch, dev, steps=8, rounds=2):
     """Where the time of a decode step and of a speculation round goes, at
-    the main path's shape after prefill: an AR step, and a SnapKV, a Quest
-    and a RetroInfer round at budget 1024 (each drafting gamma tokens and
+    the main path's shape after prefill: an AR step, a GliDe tree (2,2)
+    round (3 glide forwards, a 7-node verify), and a SnapKV, a Quest and a
+    RetroInfer round at budget 1024 (each drafting gamma tokens and
     verifying gamma + 1; with random weights one token is accepted per
     round).
     Launch counts made here are not the main path's."""
@@ -1862,6 +2335,23 @@ def step_profile(torch, dev, steps=8, rounds=2):
     res["ar_step"] = _profile(torch, ar_step, steps)
     del eng, state
     torch.cuda.empty_cache()
+    from magicdec_tpu_torch.engine.glide_engine import (GlideEngine, SpecTree,
+                                                        glide_tree_round)
+    from magicdec_tpu_torch.models.glide import init_glide_params
+    gp = init_glide_params(cfg, torch.bfloat16, scale=GLIDE_SCALE,
+                           seed=GLIDE_SEED, device=dev)
+    geng = GlideEngine(Engine(cfg, params, batch_size=B, max_len=MAX_LEN), gp)
+    state = {"root": geng.encode(prompt)}
+    tree, eot = SpecTree((2, 2)), _eot_array((), dev)
+
+    def tree_round():
+        geng.own_len, _, _, state["root"], _ = glide_tree_round(
+            params, gp, cfg, tree, geng.target.cache, geng.own_k, geng.own_v,
+            geng.own_len, state["root"], eot, use_flash=geng.use_flash)
+
+    res["glide_tree_2_2_round"] = _profile(torch, tree_round, rounds)
+    del geng, state, gp
+    torch.cuda.empty_cache()
     from magicdec_tpu_torch.quant.int8 import quantize_params
     for mode in ("int8", "int4", "fused"):
         w = params if mode == "fused" else quantize_params(params, mode)
@@ -1874,7 +2364,6 @@ def step_profile(torch, dev, steps=8, rounds=2):
             llama.set_fused_mode("off")
         del eng, state, w
         torch.cuda.empty_cache()
-    eot = _eot_array((), dev)
     for spec in ("snapkv", "quest", "retro"):
         eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,
                      draft_budget=BUDGET, window_size=WINDOW,

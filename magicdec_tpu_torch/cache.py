@@ -135,6 +135,19 @@ def append_at_layer(cache: torch.Tensor, new: torch.Tensor,
                 append_slots(lengths, new.shape[1], cache.shape[2], write_mask))
 
 
+def append_layer_kv(cache_k_l: torch.Tensor, cache_v_l: torch.Tensor,
+                    k_new: torch.Tensor, v_new: torch.Tensor,
+                    lengths: torch.Tensor) -> None:
+    """Write k_new / v_new [B, T, H, D] (or packed [B, T, H*D]) at the
+    per-sequence offsets lengths [B] into one flat cache layer [B, S, H*D]
+    each (the GliDe block's own cache), in place. Callers guarantee
+    lengths + T <= S; a row past the end is dropped (append_slots), never
+    clamped onto a live slot."""
+    slots = append_slots(lengths, k_new.shape[1], cache_k_l.shape[1])
+    write_slots(cache_k_l.unsqueeze(0), k_new, 0, slots)
+    write_slots(cache_v_l.unsqueeze(0), v_new, 0, slots)
+
+
 def append_at_layer_uniform(cache: torch.Tensor, new: torch.Tensor,
                             start: int, l: int) -> None:
     """append_at_layer for the uniform case (every sequence writes at the same

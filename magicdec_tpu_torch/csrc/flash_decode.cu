@@ -16,6 +16,12 @@
 // CTA takes one KV head's columns. The intervals form may also read the K
 // of slots < n_sink from a separate [B, n_sink, Hkv*D] tensor (the draft's
 // rope-twisted sink rows), so no per-step copy of the cache layer is made.
+// The stacked and intervals forms also serve the TPU kernels' return_lse
+// outputs (:486-499 and :395-398, the GliDe tree verify and tree draft):
+// the merge kernel already holds each row's merged softmax state (m, l) in
+// the TPU kernel's units (m the max of the scaled logits, natural base; l
+// the sum of exp(s - m)) and writes it to two optional f32 outputs; the
+// context output keeps its bits whether they are asked for or not.
 // Bound on the H100: bytes. Each call streams the K and V of every valid
 // slot once (B * len * Hkv*D * 2 * itemsize) and does ~2*T*G*D FLOPs per
 // slot and head, far below the card's ~295 FLOP/byte ridge. Design against
@@ -105,11 +111,15 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
 }
 
 // grid (M, Hkv, B), D threads: merge the splits of one query row in order.
+// out_m / out_l [B, T, Hq] (both null, or both set: the return_lse form)
+// take the row's merged softmax state: m the max of the scaled logits, l the
+// sum of exp(s - m); an empty row gives m = NEG_INF, l = 0 and out = 0.
 template <typename T, int D>
 __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
                                     const float* __restrict__ part_ml,
-                                    T* __restrict__ out, int T_, int Hq, int Hkv,
-                                    int nsplit) {
+                                    T* __restrict__ out, float* __restrict__ out_m,
+                                    float* __restrict__ out_l, int T_, int Hq,
+                                    int Hkv, int nsplit) {
   const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z, d = threadIdx.x;
   const int M = gridDim.x, G = Hq / Hkv;
   float m = NEG_INF, l = 0.f, a = 0.f;
@@ -130,7 +140,12 @@ __global__ void decode_merge_kernel(const float* __restrict__ part_acc,
     }
   }
   const int t = r / G, g = r % G;
-  out[(((int64_t)b * T_ + t) * Hq + h * G + g) * D + d] = from_f32<T>(any ? a / l : 0.f);
+  const int64_t row = ((int64_t)b * T_ + t) * Hq + h * G + g;
+  out[row * D + d] = from_f32<T>(any ? a / l : 0.f);
+  if (out_m && d == 0) {
+    out_m[row] = m;
+    out_l[row] = l;
+  }
 }
 
 // The bounds, the sink rows and the column bits of one call.
@@ -145,7 +160,8 @@ struct Rows {
 
 template <typename T, int MR>
 int launch_decode(const void* q, const void* k, const void* v, Rows rows,
-                  void* out, float* part_acc, float* part_ml, int layer, int B,
+                  void* out, float* out_m, float* out_l, float* part_acc,
+                  float* part_ml, int layer, int B,
                   int T_, int Hq, int Hkv, int S, int s_extent, cudaStream_t stream) {
   constexpr int D = 64;
   const size_t smem = Smem<D>::bytes(2 * MR);
@@ -170,18 +186,19 @@ int launch_decode(const void* q, const void* k, const void* v, Rows rows,
   if (e != cudaSuccess) return (int)e;
   const int M = T_ * (Hq / Hkv);
   decode_merge_kernel<T, D><<<dim3(M, Hkv, B), D, 0, stream>>>(
-      part_acc, part_ml, static_cast<T*>(out), T_, Hq, Hkv, nsplit);
+      part_acc, part_ml, static_cast<T*>(out), out_m, out_l, T_, Hq, Hkv, nsplit);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch_rows(const void* q, const void* k, const void* v, Rows rows,
-                  void* out, float* part_acc, float* part_ml, int layer, int B,
+                  void* out, float* out_m, float* out_l, float* part_acc,
+                  float* part_ml, int layer, int B,
                   int T_, int Hq, int Hkv, int S, int s_extent, cudaStream_t stream) {
   const int rows_per_group = (T_ * (Hq / Hkv) + NGRP - 1) / NGRP;
 #define MDT_LAUNCH(MR)                                                            \
-  return launch_decode<T, MR>(q, k, v, rows, out, part_acc, part_ml, layer, B,    \
-                              T_, Hq, Hkv, S, s_extent, stream)
+  return launch_decode<T, MR>(q, k, v, rows, out, out_m, out_l, part_acc,        \
+                              part_ml, layer, B, T_, Hq, Hkv, S, s_extent, stream)
   if (rows_per_group <= 2) MDT_LAUNCH(2);
   if (rows_per_group <= 4) MDT_LAUNCH(4);
   if (rows_per_group <= 8) MDT_LAUNCH(8);
@@ -197,7 +214,8 @@ int dispatch_rows(const void* q, const void* k, const void* v, Rows rows,
 // [B, T, Hq, 64]; k, v [L, B, S, Hkv*64]; a, lo, hi [B, T] int32 (a and lo
 // may be null: 0); ksink [B, n_sink, Hkv*64] or null with n_sink = 0;
 // colmask [L, B, 1, S] int32 (slot col of sequence b attended only where
-// colmask[layer, b, 0, col] != 0) or null;
+// colmask[layer, b, 0, col] != 0) or null; out_m, out_l [B, T, Hq] f32 (the
+// return_lse form: each row's merged m and l) or both null;
 // part_acc [B, Hkv, nsplit, T*Hq/Hkv, 64] and part_ml [.., 2] f32 scratch
 // with nsplit = ceil(s_extent / 512). Returns the CUDA error code (0 =
 // success).
@@ -206,17 +224,18 @@ extern "C" int mdt_split_slots() { return mdt::SPLIT; }
 extern "C" int mdt_flash_decode(int dtype, const void* q, const void* k,
                                 const void* v, const int* a, const int* lo,
                                 const int* hi, const void* ksink, int n_sink,
-                                const int* colmask,
-                                void* out, float* part_acc, float* part_ml,
+                                const int* colmask, void* out, float* out_m,
+                                float* out_l, float* part_acc, float* part_ml,
                                 int layer, int B, int T, int Hq, int Hkv, int S,
                                 int s_extent, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const mdt::Rows rows{a, lo, hi, ksink, n_sink, colmask};
   if (dtype == 0)
-    return mdt::dispatch_rows<float>(q, k, v, rows, out, part_acc, part_ml, layer,
-                                     B, T, Hq, Hkv, S, s_extent, st);
+    return mdt::dispatch_rows<float>(q, k, v, rows, out, out_m, out_l, part_acc,
+                                     part_ml, layer, B, T, Hq, Hkv, S, s_extent, st);
   if (dtype == 1)
-    return mdt::dispatch_rows<__nv_bfloat16>(q, k, v, rows, out, part_acc, part_ml,
-                                             layer, B, T, Hq, Hkv, S, s_extent, st);
+    return mdt::dispatch_rows<__nv_bfloat16>(q, k, v, rows, out, out_m, out_l,
+                                             part_acc, part_ml, layer, B, T, Hq, Hkv,
+                                             S, s_extent, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -38,6 +38,26 @@ def _attend_stacked(config: ModelArgs, q, ck, cv, l: int, valid,
     return flash_prefill(q, ck, cv, l, valid, s_cap=cap)
 
 
+def flash_stacked_lse(q, ck, cv, l: int, valid, s_cap: int | None = None):
+    """flash_decode_stacked with the online-softmax state (m, l) returned,
+    for a merge with another partial attention (ops/attention.merge_lse):
+    the GliDe tree verify's prefix part. The decode kernel holds at most
+    FLASH_MAX_TG rows per KV head, so larger query blocks (tree (4,2,2): 29
+    nodes x G=4) run as chunks of FLASH_MAX_TG // G rows, one launch each;
+    rows are independent, so the chunks give the bits of one launch."""
+    T = q.shape[1]
+    G = q.shape[2] // (ck.shape[-1] // q.shape[-1])
+    step = max(FLASH_MAX_TG // G, 1)
+    if T <= step:
+        return flash_decode_stacked(q, ck, cv, l, valid, s_cap=s_cap,
+                                    return_lse=True)
+    parts = [flash_decode_stacked(q[:, i:i + step].contiguous(), ck, cv, l,
+                                  valid[:, i:i + step].contiguous(),
+                                  s_cap=s_cap, return_lse=True)
+             for i in range(0, T, step)]
+    return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+
 def _flat(ctx: torch.Tensor) -> torch.Tensor:
     B, T, H, D = ctx.shape
     return ctx.reshape(B, T, H * D)

@@ -1,5 +1,7 @@
-"""Token selection: greedy argmax and temperature/top-p sampling (port of
-magicdec_tpu/engine/sampling.py). Random draws come from an explicit
+"""Token selection: greedy argmax, temperature/top-p sampling, and the
+categorical and uniform draws of the stochastic verifiers (port of
+magicdec_tpu/engine/sampling.py and the jax.random calls of
+engine/glide_engine.py). Random draws come from an explicit
 torch.Generator, so they differ from jax.random's for the same seed."""
 
 from __future__ import annotations
@@ -22,6 +24,25 @@ def top_p_filter(logits: torch.Tensor, top_p: float) -> torch.Tensor:
     cutoff_idx = torch.clamp(cutoff_idx, max=logits.shape[-1] - 1)
     cutoff = torch.gather(sorted_logits, -1, cutoff_idx)
     return logits.masked_fill(logits < cutoff, float("-inf"))
+
+
+def categorical(generator: torch.Generator, *, logits=None, probs=None,
+                num_samples: int = 1) -> torch.Tensor:
+    """num_samples i.i.d. draws (with replacement) from the categorical
+    distribution over the last axis of logits (softmax) or of probs (rows of
+    non-negative weights) -> int32 [..., num_samples]."""
+    if (logits is None) == (probs is None):
+        raise ValueError("give exactly one of logits and probs")
+    p = torch.softmax(logits.float(), dim=-1) if probs is None else probs
+    flat = p.reshape(-1, p.shape[-1])
+    tok = torch.multinomial(flat, num_samples, replacement=True,
+                            generator=generator)
+    return tok.reshape(*p.shape[:-1], num_samples).to(torch.int32)
+
+
+def uniform(generator: torch.Generator, shape, device=None) -> torch.Tensor:
+    """Uniform float32 draws in [0, 1) of `shape`."""
+    return torch.rand(shape, generator=generator, device=device)
 
 
 def sample(logits: torch.Tensor, generator: torch.Generator | None = None,

@@ -12,17 +12,21 @@ with q [B,T,Hq,Dh], k/v [B,T,Hkv,Dh] pre-rope; the impl owns rope and
 writes its caches in place.
 
 Row-count-independent numerics: the hidden state runs through the layers
-as [M, dim] rows, M = B*T padded to a multiple of ROW_BUCKET, with the pad
-rows zero. A GEMM library picks its algorithm from the shape, and PyTorch
-splits a row reduction (the RMSNorm mean) by the number of rows, and both
-round differently for different shapes. The draft step (B rows) and the
-verify step (B*(gamma+1) rows) must produce bit-identical rows for the
-full-budget acceptance of exactly 1.0, so both run every row-wise operation
-at the same padded shape. On an H100 (cuBLAS of CUDA 12.8) the w_down
-product gives a row other bits at M=8 than inside M=56, and without the
-padding the speculative stream leaves the AR stream; the padding costs
-about 1 ms of an AR step at llama-3.2-1b widths, B=8 (chip_smoke.py
-gemm_rows).
+as [M, dim] rows, M = row_bucket(B, T) with the pad rows zero. A GEMM
+library picks its algorithm from the shape, and PyTorch splits a row
+reduction (the RMSNorm mean) by the number of rows, and both round
+differently for different shapes. The AR and draft steps (B or 2B rows),
+the verify (B*(gamma+1) rows) and the GliDe tree verify (B*n_nodes rows)
+must produce bit-identical rows for the speculative stream to be the AR
+stream and the full-budget acceptance to be exactly 1.0, so every forward
+of at most DECODE_ROWS_PER_SEQ tokens a sequence runs every row-wise
+operation at one shape fixed by the batch alone: B * DECODE_ROWS_PER_SEQ
+rows rounded up to ROW_BUCKET. The AR baseline is a generation of its own,
+so a bucket sized by one generation's largest forward could not hold its
+rows to a speculative run's. On an H100 (cuBLAS of CUDA 12.8) the w_down
+product gives a row other bits at M=8 than inside M=56, and M=16 rows
+padded to 64 other bits than inside 80 rows padded to 128 (chip_smoke.py
+gemm_rows, which also times the padding).
 
 The four weight products of a block run through quant/int8.py qmatmul, so
 a layer weight may be plain or quantized (quantize_params: int8, or int4
@@ -52,6 +56,10 @@ Params = dict[str, Any]
 AttnImpl = Callable
 
 ROW_BUCKET = 64
+# the most tokens a sequence feeds one decode-phase forward: gamma + 1 of a
+# verify, the nodes of a GliDe tree verify (tree (4,2,2): 29); the fused
+# decode block serves the same forwards (T <= 32)
+DECODE_ROWS_PER_SEQ = 32
 
 
 def init_params(config: ModelArgs, dtype=torch.float32, scale: float = 0.02,
@@ -108,9 +116,22 @@ def params_from_numpy(tree, device=None) -> Params:
     return tensor_from_numpy(np.asarray(tree)).to(device)
 
 
-def _pad_rows(x2: torch.Tensor) -> torch.Tensor:
-    """[M, K] -> [M padded to ROW_BUCKET, K], pad rows zero."""
-    pad = -x2.shape[0] % ROW_BUCKET
+def row_bucket(B: int, T: int) -> int:
+    """The padded row count of a forward of B sequences x T tokens: for
+    T <= DECODE_ROWS_PER_SEQ (every decode-phase forward: AR, draft, verify,
+    tree verify) B * DECODE_ROWS_PER_SEQ rounded up to ROW_BUCKET, whatever
+    T is, so all of them run one shape; for a prefill chunk B*T rounded up
+    to ROW_BUCKET."""
+    rows = B * max(T, DECODE_ROWS_PER_SEQ)
+    return -(-rows // ROW_BUCKET) * ROW_BUCKET
+
+
+def _pad_rows(x2: torch.Tensor, rows: int | None = None) -> torch.Tensor:
+    """[M, K] -> [rows, K] (rows None: M rounded up to ROW_BUCKET), pad rows
+    zero."""
+    if rows is None:
+        rows = -(-x2.shape[0] // ROW_BUCKET) * ROW_BUCKET
+    pad = rows - x2.shape[0]
     return F.pad(x2, (0, 0, 0, pad)) if pad else x2
 
 
@@ -177,7 +198,8 @@ def _block(x: torch.Tensor, params: Params, config: ModelArgs,
         qkv = qkv + bqkv
     q, k, v = _split_qkv(qkv[:B * T].reshape(B, T, -1), config)
     ctx = attn_impl(q, k, v, caches, l)
-    x = x + qmatmul(_pad_rows(ctx.reshape(B * T, -1)), _layer(lp["wo"], l))
+    x = x + qmatmul(_pad_rows(ctx.reshape(B * T, -1), x.shape[0]),
+                    _layer(lp["wo"], l))
 
     h = rms_norm(x, lp["ffn_norm"][l], config.norm_eps)
     gate_up = qmatmul(h, _layer(lp["w_gate_up"], l))
@@ -221,17 +243,19 @@ def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
     """The decoder stack over padded rows x [Mp, dim]; caches are the full
     stacked [L, ...] tensors, which attn_impl writes in place at layer l.
     fused: see _fused_auto. The fused block runs the B*T token rows
-    unpadded; they are padded again for the unembedding."""
+    unpadded; they are padded to Mp again for the unembedding."""
     use_fused = _fused_auto(params, x, T, fused)
+    rows = x.shape[0]
     if use_fused:
         x = x[:B * T]
     for l in range(config.n_layer):
         x = _block(x, params, config, attn_impl, caches, l, B, T, use_fused)
-    return _pad_rows(x) if use_fused else x
+    return _pad_rows(x, rows) if use_fused else x
 
 
 def unembed(params: Params, config: ModelArgs, x: torch.Tensor) -> torch.Tensor:
-    """Final norm + lm_head; logits in float32."""
+    """Final norm + lm_head; logits in float32. x's rows are padded to a
+    multiple of ROW_BUCKET, which keeps row_bucket's count as it is."""
     x = rms_norm(x, params["norm"], config.norm_eps)
     w_out = (params["tok_embeddings"].t() if config.tie_word_embeddings
              else params["output"])
@@ -246,9 +270,9 @@ def forward(params: Params, config: ModelArgs, tokens: torch.Tensor,
     (None = auto; see _fused_auto)."""
     B, T = tokens.shape
     x = _pad_rows(F.embedding(tokens.reshape(-1).long(),
-                              params["tok_embeddings"]))
+                              params["tok_embeddings"]), row_bucket(B, T))
     x = run_layers(params, config, x, attn_impl, caches, B, T, fused)
     if last_only:
-        x = _pad_rows(x[:B * T].reshape(B, T, -1)[:, -1])
+        x = _pad_rows(x[:B * T].reshape(B, T, -1)[:, -1], row_bucket(B, 1))
         T = 1
     return unembed(params, config, x)[:B * T].reshape(B, T, -1)

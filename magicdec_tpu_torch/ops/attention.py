@@ -54,6 +54,46 @@ def masked_attention_general(q: torch.Tensor, k: torch.Tensor,
     return _attend_masked(q, k, v, mask)
 
 
+def masked_attention_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         mask: torch.Tensor):
+    """As masked_attention_general, also returning the online-softmax state
+    (m = row max of the scaled logits, l = sum exp(s - m)), so a caller can
+    merge this attention with another over a disjoint slot set (merge_lse):
+    the GliDe tree verify and tree draft attend [flash kernel over the
+    prefix | this dense block over the tree slots].
+
+    Returns (ctx [B, T, Hq, D] in q's dtype, m [B, T, Hq] f32, l [B, T, Hq]
+    f32). A row with an empty mask gives m = NEG_INF, l = 0 and ctx = 0
+    (finite, so a merge weight of 0 gives 0, not NaN)."""
+    B, T, Hq, D = q.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q.reshape(B, T, Hkv, G, D).float()
+    logits = torch.einsum("bthgd,bshd->bthgs", qg, k.float()) * (D ** -0.5)
+    valid = mask[:, :, None, None, :]
+    logits = logits.masked_fill(~valid, NEG_INF)
+    m = logits.amax(dim=-1)
+    p = torch.exp(logits - m[..., None]).masked_fill(~valid, 0.0)
+    l = p.sum(dim=-1)
+    out = torch.einsum("bthgs,bshd->bthgd", p.to(v.dtype).float(), v.float())
+    out = out / torch.clamp(l[..., None], min=1e-30)
+    return (out.reshape(B, T, Hq, D).to(q.dtype), m.reshape(B, T, Hq),
+            l.reshape(B, T, Hq))
+
+
+def merge_lse(ctx_a, m_a, l_a, ctx_b, m_b, l_b) -> torch.Tensor:
+    """Combine two partial softmax attentions over disjoint slot sets:
+    ctx_* [B, T, Hq, D] (normalized), m_* / l_* [B, T, Hq] f32. Returns
+    ctx_a's dtype."""
+    m = torch.maximum(m_a, m_b)
+    w_a = l_a * torch.exp(m_a - m)
+    w_b = l_b * torch.exp(m_b - m)
+    tot = torch.clamp(w_a + w_b, min=1e-30)
+    out = (ctx_a.float() * w_a[..., None]
+           + ctx_b.float() * w_b[..., None]) / tot[..., None]
+    return out.to(ctx_a.dtype)
+
+
 def decode_valid_upto(lengths_before: torch.Tensor, T: int,
                       cap: int | None = None) -> torch.Tensor:
     """valid_upto [B, T] int32 for T tokens appended after lengths_before [B]

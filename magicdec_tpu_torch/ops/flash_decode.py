@@ -2,9 +2,10 @@
 of the port, each with its plain PyTorch version and a launch count.
 
 `flash_decode_stacked` replaces magicdec_tpu/ops/pallas/flash_decode.py
-flash_decode_stacked (pallas_call at :488), `flash_decode_intervals` (and
-the flat `flash_decode` over it) replaces flash_decode_intervals there
-(pallas_call at :370), `flash_decode_stacked_masked` replaces
+flash_decode_stacked (pallas_call at :488, return_lse outputs :486-499),
+`flash_decode_intervals` (and the flat `flash_decode` over it) replaces
+flash_decode_intervals there (pallas_call at :370, return_lse outputs
+:395-398), `flash_decode_stacked_masked` replaces
 flash_decode_stacked_masked (pallas_call at :738), and `flash_prefill`
 replaces flash_prefill (pallas_call at :646). All are hand-written CUDA C++
 for sm_90a (csrc/flash_decode.cu, csrc/flash_prefill.cu, built by
@@ -18,9 +19,12 @@ The wrappers take the JAX package's layouts: q [B, T, Hq, D] (rotated),
 stacked k/v caches [L, B, S, Hkv*D] with `layer` an int (flat caches
 [B, S, Hkv*D] for the intervals form), valid_upto [B, T] int32 — query
 (b, t) attends to slots < valid_upto[b, t] — and s_cap bounding the attended
-slots (callers guarantee valid_upto <= s_cap). On tensors on the CPU a
-wrapper runs the plain version (the dense oracle on the layer slice); on
-CUDA tensors it launches its kernel or raises.
+slots (callers guarantee valid_upto <= s_cap). With return_lse the stacked
+and intervals forms also return each row's softmax state (m, l) [B, T, Hq]
+in f32, for ops/attention.merge_lse, and count those launches apart
+(`launches_lse`). On tensors on the CPU a wrapper runs the plain version
+(the dense oracle on the layer slice); on CUDA tensors it launches its
+kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,11 +34,24 @@ import ctypes
 import torch
 
 from magicdec_tpu_torch.ops import _build
-from magicdec_tpu_torch.ops.attention import (masked_attention,
-                                              masked_attention_general)
+from magicdec_tpu_torch.ops.attention import (masked_attention_general,
+                                              masked_attention_lse)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIM = 64
+
+
+def _stacked_operands(q, k_cache, v_cache, layer, valid_upto, s_cap):
+    """(q in the cache dtype, k, v [B, ext, Hkv, D] of layer `layer`'s first
+    ext = min(s_cap, S) slots, mask [B, T, ext])."""
+    _, B, S, HD = k_cache.shape
+    D = q.shape[-1]
+    ext = S if s_cap is None else min(s_cap, S)
+    k = k_cache[layer, :, :ext].reshape(B, ext, HD // D, D)
+    v = v_cache[layer, :, :ext].reshape(B, ext, HD // D, D)
+    slot = torch.arange(ext, device=k_cache.device)
+    return (q.to(k_cache.dtype), k, v,
+            slot[None, None, :] < valid_upto[:, :, None])
 
 
 def attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -44,12 +61,34 @@ def attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     """The plain version of both kernels: dense masked attention over layer
     `layer`'s first min(s_cap, S) slots. Returns [B, T, Hq, D] in the cache
     dtype (q is cast to it first, as the TPU kernels do)."""
-    _, B, S, HD = k_cache.shape
+    return masked_attention_general(*_stacked_operands(
+        q, k_cache, v_cache, layer, valid_upto, s_cap))
+
+
+def attention_plain_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, layer: int,
+                        valid_upto: torch.Tensor, s_cap: int | None = None):
+    """The plain version of flash_decode_stacked(return_lse=True):
+    (ctx [B, T, Hq, D] in the cache dtype, m, l [B, T, Hq] f32) of
+    masked_attention_lse over the slots attention_plain attends. An empty
+    row gives ctx = 0, m = NEG_INF and l = 0."""
+    return masked_attention_lse(*_stacked_operands(
+        q, k_cache, v_cache, layer, valid_upto, s_cap))
+
+
+def _intervals_operands(q, k_cache, v_cache, sink_end, lo, hi, k_sink):
+    """(q in the cache dtype, k, v [B, S, Hkv, D], mask [B, T, S]) of the
+    flat cache's two-interval attention."""
+    B, S, HD = k_cache.shape
     D = q.shape[-1]
-    ext = S if s_cap is None else min(s_cap, S)
-    k = k_cache[layer, :, :ext].reshape(B, ext, HD // D, D)
-    v = v_cache[layer, :, :ext].reshape(B, ext, HD // D, D)
-    return masked_attention(q.to(k_cache.dtype), k, v, valid_upto)
+    if k_sink is not None:
+        k_cache = torch.cat([k_sink.to(k_cache.dtype),
+                             k_cache[:, k_sink.shape[1]:]], dim=1)
+    slot = torch.arange(S, device=k_cache.device)
+    mask = ((slot < sink_end[..., None])
+            | ((slot >= lo[..., None]) & (slot < hi[..., None])))
+    return (q.to(k_cache.dtype), k_cache.reshape(B, S, HD // D, D),
+            v_cache.reshape(B, S, HD // D, D), mask)
 
 
 def intervals_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -61,17 +100,18 @@ def intervals_plain(q: torch.Tensor, k_cache: torch.Tensor,
     attending to slots [0, sink_end) u [lo, hi); with k_sink [B, n, Hkv*D]
     the K of slots < n is k_sink's. Returns [B, T, Hq, D] in the cache
     dtype."""
-    B, S, HD = k_cache.shape
-    D = q.shape[-1]
-    if k_sink is not None:
-        k_cache = torch.cat([k_sink.to(k_cache.dtype),
-                             k_cache[:, k_sink.shape[1]:]], dim=1)
-    slot = torch.arange(S, device=k_cache.device)
-    mask = ((slot < sink_end[..., None])
-            | ((slot >= lo[..., None]) & (slot < hi[..., None])))
-    return masked_attention_general(q.to(k_cache.dtype),
-                                    k_cache.reshape(B, S, HD // D, D),
-                                    v_cache.reshape(B, S, HD // D, D), mask)
+    return masked_attention_general(*_intervals_operands(
+        q, k_cache, v_cache, sink_end, lo, hi, k_sink))
+
+
+def intervals_plain_lse(q: torch.Tensor, k_cache: torch.Tensor,
+                        v_cache: torch.Tensor, sink_end: torch.Tensor,
+                        lo: torch.Tensor, hi: torch.Tensor,
+                        k_sink: torch.Tensor | None = None):
+    """The plain version of flash_decode_intervals(return_lse=True): (ctx,
+    m, l) of masked_attention_lse over the slots intervals_plain attends."""
+    return masked_attention_lse(*_intervals_operands(
+        q, k_cache, v_cache, sink_end, lo, hi, k_sink))
 
 
 def stacked_masked_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -104,6 +144,20 @@ def _ref_and_limit(plain, q, k, v):
         return ref, 2e-5 + 2e-5 * ref.abs()
     ref_abs = plain(q.float(), k.float(), v.float().abs())
     return ref, 1.1 * 2.0 ** -8 * (ref.abs() + ref_abs) + 1e-5
+
+
+def lse_limits(m_ref: torch.Tensor, l_ref: torch.Tensor, dtype):
+    """The limits on |kernel - plain| of the return_lse outputs, against
+    the plain (m, l) computed in float32 from the same inputs. Both kernels
+    compute the logits and l in f32 from the operands in the cache dtype
+    (l sums the unrounded P), so only summation order differs: m within
+    1e-5 (1 + |m|); l within 2e-5 + 2e-5 l in float32 and, for bfloat16
+    caches, within ctx's relative rounding bound, 2^-8 l + 1e-5. Compare m
+    only where l > 0 (an empty row's m is NEG_INF in the kernel, the
+    dtype's minimum in the plain version)."""
+    lim_l = (2e-5 + 2e-5 * l_ref if dtype == torch.float32
+             else 2.0 ** -8 * l_ref + 1e-5)
+    return 1e-5 * (1.0 + m_ref.abs()), lim_l
 
 
 def plain_f32_and_limit(q: torch.Tensor, k_cache: torch.Tensor,
@@ -221,8 +275,8 @@ def _lib_decode() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     fn = lib.mdt_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _I,
-                       _I, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
         lib.mdt_split_slots.restype = _I
     return lib
@@ -238,9 +292,10 @@ def _lib_prefill() -> ctypes.CDLL:
 
 
 def _decode_launch(q, k_cache, v_cache, layer, hi, ext, a=None, lo=None,
-                   k_sink=None, colmask=None) -> torch.Tensor:
+                   k_sink=None, colmask=None, lse=False):
     """Launch the split decode kernel on checked operands (stacked caches);
-    returns [B, T, Hq, D] in the cache dtype."""
+    returns [B, T, Hq, D] in the cache dtype, with lse also (m, l)
+    [B, T, Hq] f32."""
     B, T, Hq, D = q.shape
     _, _, S, HD = k_cache.shape
     Hkv = HD // D
@@ -250,6 +305,10 @@ def _decode_launch(q, k_cache, v_cache, layer, hi, ext, a=None, lo=None,
     nsplit = -(-ext // lib.mdt_split_slots())   # the kernel's fixed split size
     M = T * (Hq // Hkv)
     out = torch.empty_like(q)
+    m = l = None
+    if lse:
+        m = torch.empty((B, T, Hq), dtype=torch.float32, device=q.device)
+        l = torch.empty_like(m)
     part_acc = torch.empty((B, Hkv, nsplit, M, D), dtype=torch.float32,
                            device=q.device)
     part_ml = torch.empty((B, Hkv, nsplit, M, 2), dtype=torch.float32,
@@ -259,56 +318,71 @@ def _decode_launch(q, k_cache, v_cache, layer, hi, ext, a=None, lo=None,
         _DTYPE_CODES[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), ptr(a), ptr(lo), hi.data_ptr(), ptr(k_sink),
         0 if k_sink is None else k_sink.shape[1], ptr(colmask), out.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), layer, B, T, Hq, Hkv, S, ext,
-        torch.cuda.current_stream(q.device).cuda_stream)
+        ptr(m), ptr(l), part_acc.data_ptr(), part_ml.data_ptr(), layer, B, T,
+        Hq, Hkv, S, ext, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash decode launch")
-    return out
+    return (out, m, l) if lse else out
+
+
+def _count(wrapper, lse: bool) -> None:
+    if lse:
+        wrapper.launches_lse += 1
+    else:
+        wrapper.launches += 1
 
 
 def flash_decode_stacked(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, layer: int,
                          valid_upto: torch.Tensor,
-                         s_cap: int | None = None) -> torch.Tensor:
+                         s_cap: int | None = None, return_lse: bool = False):
     """Decode / verify / draft attention (T*G <= 64 rows per KV head) over
-    one layer of the stacked cache. Returns [B, T, Hq, D] in the cache dtype.
+    one layer of the stacked cache. Returns [B, T, Hq, D] in the cache dtype;
+    with return_lse (ctx, m, l), m and l [B, T, Hq] in f32 (an empty row:
+    ctx 0, m NEG_INF, l 0).
 
     Replaces the TPU kernel flash_decode_stacked (pallas_call at
-    magicdec_tpu/ops/pallas/flash_decode.py:488). Bound by bytes on the
-    H100 (each valid K/V slot read once); the kernel splits KV over CTAs in
-    fixed 512-slot splits so B=8 fills the SMs, reads nothing past a row's
-    bound, and merges the splits in order so rows are bit-exact across T and
-    cache capacity (csrc/flash_decode.cu)."""
+    magicdec_tpu/ops/pallas/flash_decode.py:488, return_lse :486-499).
+    Bound by bytes on the H100 (each valid K/V slot read once); the kernel
+    splits KV over CTAs in fixed 512-slot splits so B=8 fills the SMs, reads
+    nothing past a row's bound, and merges the splits in order so rows are
+    bit-exact across T and cache capacity; ctx has the same bits with and
+    without return_lse (csrc/flash_decode.cu)."""
     if _on_cpu(q, k_cache, v_cache, valid_upto):
-        return attention_plain(q, k_cache, v_cache, layer, valid_upto, s_cap)
+        plain = attention_plain_lse if return_lse else attention_plain
+        return plain(q, k_cache, v_cache, layer, valid_upto, s_cap)
     q = _check(q, k_cache, v_cache, layer, valid_upto)
     S = k_cache.shape[2]
     out = _decode_launch(q, k_cache, v_cache, layer, valid_upto,
-                         S if s_cap is None else min(s_cap, S))
-    flash_decode_stacked.launches += 1
+                         S if s_cap is None else min(s_cap, S), lse=return_lse)
+    _count(flash_decode_stacked, return_lse)
     return out
 
 
 flash_decode_stacked.launches = 0
+flash_decode_stacked.launches_lse = 0
 
 
 def flash_decode_intervals(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, sink_end: torch.Tensor,
                            lo: torch.Tensor, hi: torch.Tensor,
-                           k_sink: torch.Tensor | None = None) -> torch.Tensor:
+                           k_sink: torch.Tensor | None = None,
+                           return_lse: bool = False):
     """Two-interval decode attention over a flat cache: q [B, T, Hq, D]
     (T*G <= 64), k/v [B, S, Hkv*D], sink_end/lo/hi [B, T] int32 — query
     (b, t) attends to slots [0, sink_end) u [lo, hi). k_sink [B, n, Hkv*D]
     (optional): the K of slots < n is read from it in place of k_cache's
     (the StreamingLLM draft's rope-twisted sink rows, so the cache layer is
-    never copied). Returns [B, T, Hq, D] in the cache dtype.
+    never copied). Returns [B, T, Hq, D] in the cache dtype; with return_lse
+    (ctx, m, l) as flash_decode_stacked's.
 
     Replaces the TPU kernel flash_decode_intervals (pallas_call at
-    magicdec_tpu/ops/pallas/flash_decode.py:370) without its return_lse
-    option. It launches flash_decode_stacked's split kernel with the two
-    intervals, so it keeps that kernel's bound (bytes), splits, tiles and
-    merge order; tiles inside every row's gap are skipped."""
+    magicdec_tpu/ops/pallas/flash_decode.py:370, return_lse :395-398). It
+    launches flash_decode_stacked's split kernel with the two intervals, so
+    it keeps that kernel's bound (bytes), splits, tiles and merge order;
+    tiles inside every row's gap are skipped."""
     if _on_cpu(q, k_cache, v_cache, sink_end, lo, hi):
-        return intervals_plain(q, k_cache, v_cache, sink_end, lo, hi, k_sink)
+        plain = intervals_plain_lse if return_lse else intervals_plain
+        return plain(q, k_cache, v_cache, sink_end, lo, hi, k_sink)
     if k_cache.dim() != 3:
         raise ValueError(f"flat cache [B, S, Hkv*D] expected, got "
                          f"{tuple(k_cache.shape)}")
@@ -325,12 +399,13 @@ def flash_decode_intervals(q: torch.Tensor, k_cache: torch.Tensor,
                              f"contiguous [B, n <= S, Hkv*D] in the cache "
                              f"dtype, 16-byte aligned, on the cache's device")
     out = _decode_launch(q, kc, vc, 0, hi, k_cache.shape[1], a=sink_end,
-                         lo=lo, k_sink=k_sink)
-    flash_decode_intervals.launches += 1
+                         lo=lo, k_sink=k_sink, lse=return_lse)
+    _count(flash_decode_intervals, return_lse)
     return out
 
 
 flash_decode_intervals.launches = 0
+flash_decode_intervals.launches_lse = 0
 
 
 def flash_decode_stacked_masked(q: torch.Tensor, k_cache: torch.Tensor,

@@ -347,3 +347,90 @@ def test_card_fused_block_matches_plain(cuda, dtype):
                        fb.fused_qkv(x, n, wqkv, b)[:8])
     assert torch.equal(fb.fused_post_attn(x[:8], ctx[:8], wo, n, gu, wd),
                        fb.fused_post_attn(x, ctx, wo, n, gu, wd)[:8])
+
+
+def _assert_lse(got, want, dtype):
+    """(ctx, m, l) of a return_lse kernel against the plain f32 (m, l): m
+    where the row is not empty, l everywhere (tfd.lse_limits); empty rows
+    give l == 0 and ctx == 0 in both."""
+    ctx, m, l = got
+    _, m_ref, l_ref = want
+    lim_m, lim_l = tfd.lse_limits(m_ref, l_ref, dtype)
+    live = l_ref > 0
+    assert bool(((m - m_ref).abs() <= lim_m)[live].all())
+    assert bool(((l - l_ref).abs() <= lim_l).all()), float((l - l_ref).abs().max())
+    assert bool((l[~live] == 0).all()) and bool((ctx.float()[~live] == 0).all())
+    assert bool(torch.isfinite(ctx.float()).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 7])
+def test_card_decode_lse_matches_plain(cuda, dtype, T):
+    """flash_decode_stacked(return_lse=True): ctx within the plain limit and
+    bit-equal to the call without the flag, (m, l) within tfd.lse_limits,
+    and an empty row (sequence 2's first query) gives l = 0 and ctx = 0."""
+    for q_scale in _Q_SCALES:
+        q, k, v = _card_inputs(cuda, dtype, T=T, q_scale=q_scale)
+        lens = torch.tensor([1000, 511, 3], dtype=torch.int32, device=cuda)
+        valid = decode_valid_upto(lens, T)
+        valid[2, 0] = 0
+        for layer in range(2):
+            got = tfd.flash_decode_stacked(q, k, v, layer, valid,
+                                           return_lse=True)
+            assert torch.equal(got[0], tfd.flash_decode_stacked(q, k, v, layer,
+                                                                valid))
+            want = tfd.attention_plain_lse(q.float(), k.float(), v.float(),
+                                           layer, valid)
+            _assert_lse(got, want, dtype)
+            # ctx of the live rows (the plain softmax of an empty row is
+            # uniform, not 0)
+            ref, limit = tfd.plain_f32_and_limit(q, k, v, layer, valid)
+            live = want[2] > 0
+            assert bool(((got[0].float() - ref).abs() <= limit)[live].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("T", [1, 4, 16])
+def test_card_intervals_lse_matches_plain(cuda, dtype, T):
+    """flash_decode_intervals(return_lse=True) over a flat own cache's
+    prefix [0, hi) (the GliDe tree draft; T=16 is the leaf level of tree
+    (4,2,2): 64 rows) and over sink + gap + window rows; one empty row."""
+    for q_scale in _Q_SCALES:
+        q, k, v, a, lo, hi = _flat_intervals(cuda, dtype, 1088, T, 5, q_scale)
+        zero = torch.zeros_like(hi)
+        base = torch.tensor([1000, 700, 0], dtype=torch.int32, device=cuda)
+        prefix = base[:, None].expand_as(hi).contiguous()
+        for rows in ((zero, zero, prefix), (a, lo, hi)):
+            got = tfd.flash_decode_intervals(q, k, v, *rows, return_lse=True)
+            assert torch.equal(got[0], tfd.flash_decode_intervals(q, k, v,
+                                                                  *rows))
+            want = tfd.intervals_plain_lse(q.float(), k.float(), v.float(),
+                                           *rows)
+            _assert_lse(got, want, dtype)
+            ref, limit = tfd.intervals_plain_f32_and_limit(q, k, v, *rows)
+            live = want[2] > 0          # the plain softmax of an empty row
+            assert bool(((got[0].float() - ref).abs() <= limit)[live].all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_chunked_stacked_lse_rows_bitexact(cuda, dtype):
+    """attention_impls.flash_stacked_lse at T=29, G=4 (tree (4,2,2)'s
+    verify: two launches of 16 and 13 rows) gives each row the bits of that
+    row launched alone."""
+    from magicdec_tpu_torch.engine.attention_impls import flash_stacked_lse
+
+    q, k, v = _card_inputs(cuda, dtype, S=2112, T=29)
+    lens = torch.tensor([1000, 511, 3], dtype=torch.int32, device=cuda)
+    hi = lens[:, None].expand(3, 29).contiguous()
+    before = tfd.flash_decode_stacked.launches_lse
+    full = flash_stacked_lse(q, k, v, 1, hi)
+    assert tfd.flash_decode_stacked.launches_lse == before + 2
+    for t in (0, 15, 16, 28):
+        one = tfd.flash_decode_stacked(q[:, t:t + 1].contiguous(), k, v, 1,
+                                       hi[:, t:t + 1].contiguous(),
+                                       return_lse=True)
+        for a, b in zip(one, full):
+            assert torch.equal(a, b[:, t:t + 1])

@@ -35,6 +35,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "magicdec_tpu_torch.quant.int8" in mods
     assert "magicdec_tpu_torch.ops.int4_matmul" in mods
     assert "magicdec_tpu_torch.ops.fused_block" in mods
+    assert "magicdec_tpu_torch.models.glide" in mods
+    assert "magicdec_tpu_torch.engine.glide_engine" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
@@ -56,7 +58,7 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
     from magicdec_tpu_torch.engine.backend import Engine
-    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models import glide, llama
     from magicdec_tpu_torch.models.config import ModelArgs
 
     cfg = ModelArgs.from_name("test-tiny")
@@ -68,6 +70,9 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
         llama.init_params(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         llama.params_from_numpy({"w": params["norm"].numpy()})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        glide.init_glide_params(cfg)
+    assert glide.init_glide_params(cfg, device="cpu")["wqkv"].device.type == "cpu"
     # an explicit CPU request is honoured
     assert Engine(cfg, params, batch_size=1, max_len=128,
                   device="cpu").device.type == "cpu"
