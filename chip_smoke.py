@@ -6,8 +6,14 @@
 Phases, each printing one line of numbers (all must pass, or the script
 exits non-zero):
   1. build      nvcc builds every kernel of csrc/ (one process per source)
-  2. decode     flash_decode_stacked vs its plain version at llama-3.2-1b
-                heads (Hq=32, Hkv=8, D=64), B=8, S=4224, ragged lengths,
+ Phases 2-4, 8 and 8c run at llama-3.2-1b's heads (Hq=32, Hkv=8, D=64) and
+ again at llama-3.1-8b's (Hq=32, Hkv=8, D=128), with the same limits,
+ planted faults and bit checks; the bf16 decode and prefill kernels are also
+ launched with their planted pipeline fault (the last tile of each split, or
+ of each prefill CTA's walk, copied into its ring stage but never computed),
+ which the limit must reject.
+  2. decode     flash_decode_stacked vs its plain version at each head dim,
+                B=8, S=4224, ragged lengths,
                 T in {1, 7}, bf16 and f32, flat and peaked softmax; then
                 bit-exact row independence (T=1 rows vs the same rows in T=7)
                 and capacity independence (caches of S=1088, 1152 (the
@@ -119,7 +125,17 @@ exits non-zero):
                 launch counts as each path implies
  12c. glide_f32 the same model in f32 weights and caches, P cut to 1024: the
                 tree (2,2) stream equals the f32 AR stream
- 13. times      each kernel at the main path's shapes: kernel, plain version,
+ 12d. llama8b   the head_dim-128 path at full width: llama-3.1-8b (32
+                layers, dim 4096, 32/8 heads, FFN 14336, vocab 128256),
+                random bf16 weights (seed 0), B=8, P=4096, 64 new tokens,
+                gamma 6: AR, SnapKV 1024 and full budget, StreamingLLM full
+                budget, Quest 1024 and a GliDe tree (2,2) generation; every
+                stream but the tree's equals the AR stream, the full budgets
+                accept exactly 1.0, launch counts as each path implies (they
+                are the launches of the head_dim-128 kernel entries); then
+                the step profile of an AR step and a SnapKV round
+ 13. times      each kernel at the main path's shapes (the attention kernels
+                at both head dims: `times` and `times_d128`): kernel, plain version,
                 bound (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s bf16, or 67
                 TFLOP/s for centroid_scores' f32 work) and one PyTorch call
                 on the same work as a yardstick where there is one (the port
@@ -180,6 +196,15 @@ RETRO_NS = RETRO_N * RETRO_CAP              # = QUEST_NS, 896 top columns
 Q_SCALES = {"flat": 1.0, "peaked": 6.0}
 # rows longer than this lose their last 64-slot tile in the planted fault
 FAULT_MIN_LEN = 1024
+# the attention kernels' head dims: llama-3.2-1b's (the main path) and
+# llama-3.1-8b's (the head_dim-128 path); both at 32 query and 8 KV heads
+HEAD_DIMS = (64, 128)
+MODEL_OF_D = {64: "llama-3.2-1b", 128: "llama-3.1-8b"}
+
+
+def _sfx(D):
+    """The suffix of a kernel entry's name at head_dim D."""
+    return "" if D == 64 else f"_d{D}"
 
 
 def line(**kw):
@@ -209,17 +234,20 @@ def main() -> int:
     from magicdec_tpu_torch.ops import _build
     line(phase="build", seconds=_build.build(), sources=list(_build.SOURCES))
 
-    errs = {"flash_decode_stacked": check_decode(torch, dev),
-            "flash_decode_intervals": check_intervals(torch, dev),
-            "flash_decode_stacked_masked": check_masked(torch, dev),
-            "page_gather": check_page_gather(torch, dev),
-            "page_gather_single": check_page_gather_single(torch, dev),
-            "centroid_scores": check_centroid_scores(torch, dev),
-            "flash_prefill": check_prefill(torch, dev),
-            "int4_matmul": check_int4(torch, dev)}
+    errs = {}
+    for D in HEAD_DIMS:
+        x = _sfx(D)
+        errs["flash_decode_stacked" + x] = check_decode(torch, dev, D)
+        errs["flash_decode_intervals" + x] = check_intervals(torch, dev, D)
+        errs["flash_decode_stacked_masked" + x] = check_masked(torch, dev, D)
+        errs["flash_prefill" + x] = check_prefill(torch, dev, D)
+        (errs["flash_decode_stacked_lse" + x],
+         errs["flash_decode_intervals_lse" + x]) = check_lse(torch, dev, D)
+    errs.update({"page_gather": check_page_gather(torch, dev),
+                 "page_gather_single": check_page_gather_single(torch, dev),
+                 "centroid_scores": check_centroid_scores(torch, dev),
+                 "int4_matmul": check_int4(torch, dev)})
     errs.update(check_fused(torch, dev))
-    errs["flash_decode_stacked_lse"], errs["flash_decode_intervals_lse"] = (
-        check_lse(torch, dev))
     check_reference(torch, dev)
     quest_small_f32(torch, dev)
     retro_small_f32(torch, dev)
@@ -232,8 +260,10 @@ def main() -> int:
     launches = _add(launches, glide_f32(torch, dev, params, prompt))
     del params
     torch.cuda.empty_cache()
+    launches128 = llama8b(torch, dev)
     kernels = (time_kernels(torch, dev, errs, launches)
-               + time_weight_kernels(torch, dev, errs, launches))
+               + time_weight_kernels(torch, dev, errs, launches)
+               + time_kernels(torch, dev, errs, launches128, D=128))
     step_profile(torch, dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -296,7 +326,23 @@ def _check_case(torch, fd, what, out, q, k, v, layer, valid, s_cap, scale,
             fail(f"{what}: the limit does not reject a missed diagonal tile")
 
 
-def check_decode(torch, dev):
+def _pipeline_fault(torch, fd, what, q, k, v, layer, valid, s_cap, faults,
+                    prefill=False):
+    """The bf16 kernel launched with its planted pipeline fault (the last
+    tile of each decode split, or of each prefill CTA's walk, copied into its
+    ring stage but never computed) must fail the limit that the kernel
+    holds; call on peaked inputs."""
+    ref, limit = fd.plain_f32_and_limit(q, k, v, layer, valid, s_cap)
+    ext = k.shape[2] if s_cap is None else min(s_cap, k.shape[2])
+    launch = fd._prefill_launch if prefill else fd._decode_launch
+    bad = launch(q, k, v, layer, valid, ext, fault=1)
+    faults[f"{what}_dropped_stage"] = not _hold(bad, ref, limit)[2]
+    if not faults[f"{what}_dropped_stage"]:
+        fail(f"{what}: the limit does not reject the kernel that drops a "
+             f"ring stage")
+
+
+def check_decode(torch, dev, D=64):
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops.attention import decode_valid_upto
 
@@ -309,15 +355,18 @@ def check_decode(torch, dev):
         for T in (1, 7):
             for scale, qs in Q_SCALES.items():
                 q, k, v = _cache_inputs(torch, dev, dtype, S, T, seed=T,
-                                        q_scale=qs)
+                                        q_scale=qs, D=D)
                 valid = decode_valid_upto(lens, T)
                 for layer in (0, 1):
                     out = fd.flash_decode_stacked(q, k, v, layer, valid)
                     _check_case(torch, fd, f"{name}_T{T}_{scale}_l{layer}", out,
                                 q, k, v, layer, valid, None, scale, errs,
                                 ratios, faults)
+                if dtype == torch.bfloat16 and scale == "peaked":
+                    _pipeline_fault(torch, fd, f"{name}_T{T}", q, k, v, 1,
+                                    valid, None, faults)
         # bit-exact: rows and capacity
-        q, k, v = _cache_inputs(torch, dev, dtype, S, 7, seed=11)
+        q, k, v = _cache_inputs(torch, dev, dtype, S, 7, seed=11, D=D)
         small_lens = torch.tensor([1000, 1081, 0, 511, 512, 7, 1024, 64],
                                   dtype=torch.int32, device=dev)
         for lens_case in (lens.clamp(max=S - 7), small_lens):
@@ -339,9 +388,9 @@ def check_decode(torch, dev):
                 fail(f"decode {name}: capacity {cap} and {S} give different "
                      f"bits")
     main_err = max(e for k_, e in errs.items() if k_.startswith("bfloat16"))
-    line(phase="decode_vs_plain", max_abs_err=errs, max_err_over_limit=ratios,
-         missed_tile_rejected=faults, rows_bitexact=True,
-         capacity_bitexact=True)
+    line(phase="decode_vs_plain", D=D, max_abs_err=errs,
+         max_err_over_limit=ratios, missed_tile_rejected=faults,
+         rows_bitexact=True, capacity_bitexact=True)
     return main_err
 
 
@@ -356,7 +405,7 @@ def _stream_rows(torch, dev, lens_after, T, sink):
     return torch.clamp(hi, max=sink), lo.contiguous(), hi
 
 
-def check_intervals(torch, dev):
+def check_intervals(torch, dev, D=64):
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops.attention import decode_valid_upto
 
@@ -372,7 +421,7 @@ def check_intervals(torch, dev):
         for T in (1, 2):
             for scale, qs in Q_SCALES.items():
                 q, k, v = _cache_inputs(torch, dev, dtype, S, T, seed=30 + T,
-                                        q_scale=qs)
+                                        q_scale=qs, D=D)
                 for rows, (sink, lens) in row_sets.items():
                     a, lo, hi = _stream_rows(torch, dev, lens, T, sink)
                     if rows == "wide_gap":
@@ -409,7 +458,7 @@ def check_intervals(torch, dev):
                             fail(f"intervals {what}: the limit does not reject "
                                  f"the planted fault {fault}")
         # bit-exact: intervals reducing to [0, hi) against the stacked kernel
-        q, k, v = _cache_inputs(torch, dev, dtype, 4224, 7, seed=12)
+        q, k, v = _cache_inputs(torch, dev, dtype, 4224, 7, seed=12, D=D)
         lens = torch.tensor([1000, 1081, 0, 511, 512, 7, 1024, 64],
                             dtype=torch.int32, device=dev)
         valid = decode_valid_upto(lens, 7)
@@ -426,7 +475,7 @@ def check_intervals(torch, dev):
                     fail(f"intervals {name}: rows {t0}..{t0 + T - 1} on a "
                          f"{cap}-slot cache differ from flash_decode_stacked")
     main_err = max(e for k_, e in errs.items() if k_.startswith("bfloat16"))
-    line(phase="intervals_vs_plain", S=S, max_abs_err=errs,
+    line(phase="intervals_vs_plain", D=D, S=S, max_abs_err=errs,
          max_err_over_limit=ratios, planted_fault_rejected=faults,
          bitexact_with_stacked=True)
     return main_err
@@ -448,7 +497,7 @@ def _quest_rows(torch, dev, T, seed, top_share=0.7, L=2):
     return cm, torch.full_like(hi, QUEST_NS), hi
 
 
-def check_masked(torch, dev):
+def check_masked(torch, dev, D=64):
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops.attention import decode_valid_upto
 
@@ -460,7 +509,7 @@ def check_masked(torch, dev):
             ones = torch.ones_like(cm)
             for scale, qs in Q_SCALES.items():
                 q, k, v = _cache_inputs(torch, dev, dtype, QUEST_R, T,
-                                        seed=50 + T, q_scale=qs)
+                                        seed=50 + T, q_scale=qs, D=D)
                 for layer in (0, 1):
                     what = f"{name}_T{T}_{scale}_l{layer}"
                     ref, limit = fd.stacked_masked_plain_f32_and_limit(
@@ -476,7 +525,7 @@ def check_masked(torch, dev):
                         fail(f"masked {what}: the limit does not reject the "
                              f"kernel run with an all-ones colmask")
         # one kernel: all-ones bits and a = lo = 0 give the stacked bits
-        q, k, v = _cache_inputs(torch, dev, dtype, QUEST_R, 7, seed=13)
+        q, k, v = _cache_inputs(torch, dev, dtype, QUEST_R, 7, seed=13, D=D)
         valid = decode_valid_upto(torch.tensor(
             [1000, 1081, 0, 511, 512, 7, 1024, 64], dtype=torch.int32,
             device=dev), 7)
@@ -490,7 +539,8 @@ def check_masked(torch, dev):
                 fail(f"masked {name}: all-ones bits with a = lo = 0 differ "
                      f"from flash_decode_stacked")
     main_err = max(e for k_, e in errs.items() if k_.startswith("bfloat16"))
-    line(phase="masked_vs_plain", R=QUEST_R, NS=QUEST_NS, max_abs_err=errs,
+    line(phase="masked_vs_plain", D=D, R=QUEST_R, NS=QUEST_NS,
+         max_abs_err=errs,
          max_err_over_limit=ratios, all_ones_colmask_rejected=faults,
          bitexact_with_stacked=True)
     return main_err
@@ -596,7 +646,7 @@ def check_centroid_scores(torch, dev):
     return max(e for k_, e in errs.items() if k_.startswith("bfloat16_T1"))
 
 
-def check_prefill(torch, dev):
+def check_prefill(torch, dev, D=64):
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops.attention import decode_valid_upto
 
@@ -611,15 +661,19 @@ def check_prefill(torch, dev):
         name = str(dtype).split(".")[1]
         for scale, qs in Q_SCALES.items():
             q, k, v = _cache_inputs(torch, dev, dtype, S, T, seed=21,
-                                    q_scale=qs)
+                                    q_scale=qs, D=D)
             for cap, starts in cases:
                 valid = decode_valid_upto(
                     torch.tensor(starts, dtype=torch.int32, device=dev), T)
                 out = fd.flash_prefill(q, k, v, 1, valid, s_cap=cap)
                 _check_case(torch, fd, f"{name}_{scale}_cap{cap}", out, q, k,
                             v, 1, valid, cap, scale, errs, ratios, faults)
+                if (dtype == torch.bfloat16 and scale == "peaked"
+                        and cap >= 1024):
+                    _pipeline_fault(torch, fd, f"{name}_cap{cap}", q, k, v,
+                                    1, valid, cap, faults, prefill=True)
     main_err = max(e for k_, e in errs.items() if k_.startswith("bfloat16"))
-    line(phase="prefill_vs_plain", max_abs_err=errs,
+    line(phase="prefill_vs_plain", D=D, max_abs_err=errs,
          max_err_over_limit=ratios, missed_tile_rejected=faults)
     return main_err
 
@@ -755,7 +809,7 @@ def _hold_lse(torch, fd, what, got, want, ctx_ref, ctx_limit, dtype, errs,
         fail(f"lse {what}: an empty row gives l != 0 or ctx != 0")
 
 
-def check_lse(torch, dev):
+def check_lse(torch, dev, D=64):
     """The return_lse forms against their plain versions at the GliDe
     shapes, bf16 and f32, flat and peaked softmax: flash_decode_stacked over
     a 4224-slot stacked cache with ragged prefixes at T=7 (tree (2,2)'s
@@ -766,7 +820,7 @@ def check_lse(torch, dev):
     one sequence with an empty prefix. ctx within plain_f32_and_limit, m
     and l within fd.lse_limits; ctx bit-equal with and without the flag
     (T=29 chunk by chunk); a planted fault (l of a merge that skips each
-    row's last 512-slot split) must fail the l limit; merge_lse of the
+    row's last split of fd.split_slots() slots) must fail the l limit; merge_lse of the
     kernel over two disjoint halves of the prefix must hold the one-pass
     attention over their union within twice its limit (each half's ctx is
     rounded to the cache dtype before the merge rounds once more)."""
@@ -785,7 +839,7 @@ def check_lse(torch, dev):
         for scale, qs in Q_SCALES.items():
             for T in (7, 29):
                 q, k, v = _cache_inputs(torch, dev, dtype, S, T, seed=90 + T,
-                                        q_scale=qs)
+                                        q_scale=qs, D=D)
                 hi = lens[:, None].expand(B, T).contiguous()
                 hi[2, 0] = 0                              # an empty row
                 what = f"stacked_{name}_T{T}_{scale}"
@@ -804,7 +858,8 @@ def check_lse(torch, dev):
                 _hold_lse(torch, fd, what, got, want, ref, limit, dtype, errs,
                           ratios)
                 # planted fault: l without each long row's last split
-                cut = torch.where(hi > 512, (hi - 1) // 512 * 512, hi)
+                split = fd.split_slots()
+                cut = torch.where(hi > split, (hi - 1) // split * split, hi)
                 _, _, l_bad = fd.attention_plain_lse(
                     q.float(), k.float(), v.float(), 1, cut.to(torch.int32))
                 _, lim_l = fd.lse_limits(want[1], want[2], dtype)
@@ -814,7 +869,7 @@ def check_lse(torch, dev):
                          f"that skips the last split")
             for T in (1, 2, 4, 8, 16):
                 q, k, v = _cache_inputs(torch, dev, dtype, S, T, seed=95 + T,
-                                        q_scale=qs, L=1)
+                                        q_scale=qs, L=1, D=D)
                 kl, vl = k[0], v[0]
                 zero = torch.zeros((B, T), dtype=torch.int32, device=dev)
                 hi = bases[:, None].expand(B, T).contiguous()
@@ -844,7 +899,7 @@ def check_lse(torch, dev):
                 if merged[what] > 1.0:
                     fail(f"lse {what}: merge_lse of two halves is "
                          f"{merged[what]} times twice the one-pass limit")
-    line(phase="lse_vs_plain", S=S, max_abs_err=errs,
+    line(phase="lse_vs_plain", D=D, S=S, max_abs_err=errs,
          max_err_over_limit=ratios, skipped_split_rejected=faults,
          merge_of_halves_over_twice_limit=merged,
          limits={"ctx": "plain_f32_and_limit",
@@ -1221,42 +1276,12 @@ def main_path(torch, dev, params, prompt):
     from magicdec_tpu_torch.models.config import ModelArgs
 
     cfg = ModelArgs.from_name("llama-3.2-1b")
-    L, prefill = cfg.n_layer, cfg.n_layer * (P // 128)
+    L = cfg.n_layer
     runs, total = {}, _zero()
 
-    def expect(spec):
-        def launches(result):
-            r = result[-1].rounds
-            decode = (L * (NEW - 1) if spec is None
-                      else L * (GAMMA + 1) * r if spec == "snapkv" else L * r)
-            draft = L * GAMMA * r
-            clustered = spec in ("retro", "squeeze")
-            return dict(_zero(), flash_prefill=prefill,
-                        flash_decode_stacked=decode,
-                        flash_decode_intervals=draft * (spec == "streaming"),
-                        flash_decode_stacked_masked=draft * (
-                            spec == "quest" or clustered),
-                        page_gather=L * r * (spec == "quest"),
-                        page_gather_single=L * r * clustered,
-                        centroid_scores=L * r * (spec == "retro"))
-        return launches
-
     def run(name, spec, budget):
-        def go():
-            eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,
-                         draft_budget=budget, window_size=WINDOW,
-                         sink_size=SINK, draft_headroom=STREAM_HEADROOM,
-                         latest_k=QUEST_TAIL, quest_page=QUEST_PAGE,
-                         retro_cap=RETRO_CAP)
-            if spec is None:
-                out, stats = generate_autoregressive(eng, prompt, NEW)
-                return out, torch.full((B,), NEW, dtype=torch.int32), stats
-            return generate_selfspec(eng, prompt, GAMMA, NEW)
-        (out, counts, stats), used, seconds = _drive(torch, name, go,
-                                                     expect(spec))
-        runs[name] = dict(out=out.cpu(), counts=counts.cpu(), stats=stats,
-                          total_s=seconds, launches=used)
-        total.update(_add(total, used))
+        runs[name] = _spec_run(torch, cfg, params, prompt, name, spec, budget)
+        total.update(_add(total, runs[name]["launches"]))
 
     run("ar", None, 0)
     run("snapkv", "snapkv", BUDGET)
@@ -1341,6 +1366,50 @@ def main_path(torch, dev, params, prompt):
          launches={k: r["launches"] for k, r in runs.items()},
          invariant1=True, invariant2=True)
     return total, ar
+
+
+def _path_launches(L, spec):
+    """The launch counts a B=8, P-token main-path run implies (AR or
+    self-speculation in mode spec), as a function of its result."""
+    def launches(result):
+        r = result[-1].rounds
+        decode = (L * (NEW - 1) if spec is None
+                  else L * (GAMMA + 1) * r if spec == "snapkv" else L * r)
+        draft = L * GAMMA * r
+        clustered = spec in ("retro", "squeeze")
+        return dict(_zero(), flash_prefill=L * (P // 128),
+                    flash_decode_stacked=decode,
+                    flash_decode_intervals=draft * (spec == "streaming"),
+                    flash_decode_stacked_masked=draft * (
+                        spec == "quest" or clustered),
+                    page_gather=L * r * (spec == "quest"),
+                    page_gather_single=L * r * clustered,
+                    centroid_scores=L * r * (spec == "retro"))
+    return launches
+
+
+def _spec_run(torch, cfg, params, prompt, name, spec, budget):
+    """One main-path run (B, P, NEW, GAMMA) of the Engine: AR when spec is
+    None, else generate_selfspec at the given draft budget; launch counts
+    held to _path_launches. Returns out, counts, stats, seconds, launches."""
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
+                                                generate_selfspec)
+
+    def go():
+        eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec=spec,
+                     draft_budget=budget, window_size=WINDOW, sink_size=SINK,
+                     draft_headroom=STREAM_HEADROOM, latest_k=QUEST_TAIL,
+                     quest_page=QUEST_PAGE, retro_cap=RETRO_CAP)
+        if spec is None:
+            out, stats = generate_autoregressive(eng, prompt, NEW)
+            return out, torch.full((B,), NEW, dtype=torch.int32), stats
+        return generate_selfspec(eng, prompt, GAMMA, NEW)
+
+    (out, counts, stats), used, seconds = _drive(
+        torch, name, go, _path_launches(cfg.n_layer, spec))
+    return dict(out=out.cpu(), counts=counts.cpu(), stats=stats,
+                total_s=seconds, launches=used)
 
 
 def longspec(torch, dev, params, prompt, ar):
@@ -1665,6 +1734,123 @@ def glide_f32(torch, dev, params, prompt):
     return _add(used_ar, used)
 
 
+def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
+    """The head_dim-128 path at full width: llama-3.1-8b (32 layers, dim
+    4096, 32/8 heads, head_dim 128, FFN 14336, vocab 128256) with random
+    bf16 weights from a seeded torch.Generator (seed 0, scale 0.3; 16 GB),
+    B=8, P=4096, 64 new tokens, gamma 6, through the main path's Engine: AR,
+    SnapKV at budget 1024 and at full budget, StreamingLLM at full budget,
+    Quest at budget 1024 (the masked kernel) and a greedy GliDe tree (2,2)
+    generation with a random glide block (the return_lse forms). Every
+    SnapKV, StreamingLLM and Quest stream must equal the AR stream, the full
+    budgets must accept exactly 1.0 and each run's launch counts (zeroed
+    before it) must be those its path implies; the tree stream's share
+    matching AR before a divergence is printed. Then the step profile of an
+    AR step and of a SnapKV round. Returns the runs' summed launch counts
+    (the launches of the head_dim-128 kernel entries)."""
+    import numpy as np
+
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.glide_engine import GlideEngine, SpecTree
+    from magicdec_tpu_torch.engine.spec import _eot_array, snapkv_round
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.models.glide import init_glide_params
+
+    cfg = ModelArgs.from_name(MODEL_OF_D[128])
+    if cfg.head_dim != 128:
+        fail(f"{MODEL_OF_D[128]}: head_dim {cfg.head_dim}, not 128")
+    L, chunks = cfg.n_layer, P // 128
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, torch.bfloat16, scale=0.3, seed=0,
+                               device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, (B, P))
+    runs, total = {}, _zero()
+    for name, spec, budget in (("ar", None, 0), ("snapkv", "snapkv", BUDGET),
+                               ("snapkv_full", "snapkv", P),
+                               ("streaming_full", "streaming", STREAM_FULL),
+                               ("quest", "quest", BUDGET)):
+        runs[name] = _spec_run(torch, cfg, params, prompt, name, spec, budget)
+        total = _add(total, runs[name]["launches"])
+    ar = runs["ar"]["out"]
+    for name in ("snapkv", "snapkv_full", "streaming_full", "quest"):
+        _check_stream(torch, f"llama8b {name}", runs[name]["out"],
+                      runs[name]["counts"], ar, cfg.vocab_size)
+    for name in ("snapkv_full", "streaming_full"):
+        acc = runs[name]["stats"].acceptance_rate
+        if acc != 1.0:
+            fail(f"llama8b {name}: full-budget acceptance {acc} != 1.0 "
+                 f"(invariant 2)")
+
+    tree = SpecTree((2, 2))
+    gp = init_glide_params(cfg, torch.bfloat16, scale=GLIDE_SCALE,
+                           seed=GLIDE_SEED, device=dev)
+
+    def go_tree():
+        return GlideEngine(Engine(cfg, params, batch_size=B, max_len=MAX_LEN),
+                           gp).generate(prompt, NEW, gamma=GAMMA, tree=tree)
+
+    (out, counts, stats), used, seconds = _drive(
+        torch, "llama8b glide tree_2_2", go_tree, _glide_expect(L, chunks, tree))
+    if out.min() < 0 or out.max() >= cfg.vocab_size:
+        fail("llama8b glide tree_2_2: token ids out of range")
+    runs["glide_tree_2_2"] = dict(out=out.cpu(), counts=counts.cpu(),
+                                  stats=stats, total_s=seconds, launches=used)
+    total = _add(total, used)
+    share = _prefix_share(torch, out, counts, ar)
+    del gp
+    torch.cuda.empty_cache()
+
+    # the step profile: an AR step and a SnapKV round at budget 1024
+    saved = _counts()
+    prof = {}
+    eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN)
+    state = {"tok": eng.encode(prompt)}
+
+    def ar_step():
+        state["tok"] = eng.inference(state["tok"])
+
+    prof["ar_step"] = _profile(torch, ar_step, profile_steps)
+    del eng, state
+    torch.cuda.empty_cache()
+    eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, spec="snapkv",
+                 draft_budget=BUDGET, window_size=WINDOW)
+    state = {"buf": eng.encode(prompt),
+             "gen": torch.zeros(B, dtype=torch.int32, device=dev)}
+    output = torch.zeros((B, NEW + GAMMA + 3), dtype=torch.int32, device=dev)
+    eot = _eot_array((), dev)
+
+    def one_round():
+        state["buf"], state["gen"], _ = snapkv_round(
+            params, cfg, eng.cache, eng.draft, state["buf"], output,
+            state["gen"], eot, GAMMA)
+
+    prof["snapkv_round"] = _profile(torch, one_round, profile_rounds)
+    _set_counts(saved)
+    del eng, state, params
+    torch.cuda.empty_cache()
+
+    def rate(r):
+        return r["stats"].generated_tokens / r["stats"].wall_time_s
+
+    spec_runs = [k for k in runs if k != "ar"]
+    line(phase="llama8b", model=MODEL_OF_D[128], dtype="bfloat16",
+         head_dim=cfg.head_dim, layers=L, dim=cfg.dim, B=B, P=P,
+         new_tokens=NEW, gamma=GAMMA, budget=BUDGET,
+         streaming_full_budget=STREAM_FULL, init_s=init_s,
+         tok_s={k: rate(r) for k, r in runs.items()},
+         acceptance={k: runs[k]["stats"].acceptance_rate for k in spec_runs},
+         rounds={k: runs[k]["stats"].rounds for k in spec_runs},
+         run_s={k: r["total_s"] for k, r in runs.items()},
+         decode_s={k: r["stats"].wall_time_s for k, r in runs.items()},
+         launches={k: r["launches"] for k, r in runs.items()},
+         tree_share_matching_ar_before_divergence=share,
+         step_profile=prof, invariant1=True, invariant2=True)
+    return total
+
+
 # ---------------------------------------------------------------------------
 # phases 13-14: times at the main path's shapes, the step and round profile
 # ---------------------------------------------------------------------------
@@ -1724,11 +1910,16 @@ def _sdpa(torch, q, k_cache, v_cache, layer, valid, ext):
                                           attn_mask=mask, enable_gqa=True)
 
 
-def time_kernels(torch, dev, errs, launches):
+def time_kernels(torch, dev, errs, launches, D=64):
+    """The attention kernels at head_dim D (both), the gathers and
+    centroid_scores (at D = 64, the main path's): device ms, eager ms, plain
+    ms, bound and library ms per kernel entry; `launches` are the main
+    path's counts of this D's model."""
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops.attention import decode_valid_upto
 
-    L, S, Hq, Hkv, D = 16, 4224, 32, 8, 64
+    L, S, Hq, Hkv = 16, 4224, 32, 8
+    x = _sfx(D)
     item = 2                                     # bf16
     g = torch.Generator(device=dev).manual_seed(5)
     k = torch.randn((L, B, S, Hkv * D), generator=g, device=dev,
@@ -1770,11 +1961,11 @@ def time_kernels(torch, dev, errs, launches):
                            plain_ms=t_p, library_ms=t_l, bound_ms=b_ms,
                            bound_by=b_by)
     ar = extra["ar"]
-    rows.append({"name": "flash_decode_stacked", "route": "cuda",
+    rows.append({"name": "flash_decode_stacked" + x, "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/flash_decode.cu",
                  "replaces": "magicdec_tpu/ops/pallas/flash_decode.py:488",
                  "launches": launches["flash_decode_stacked"],
-                 "max_abs_err": errs["flash_decode_stacked"], "ms": ar["ms"],
+                 "max_abs_err": errs["flash_decode_stacked" + x], "ms": ar["ms"],
                  "plain_ms": ar["plain_ms"], "bound_ms": ar["bound_ms"],
                  "bound_by": ar["bound_by"], "library_ms": ar["library_ms"]})
 
@@ -1821,7 +2012,7 @@ def time_kernels(torch, dev, errs, launches):
     # layer with the rotated rows written in (the JAX package's k_read)
     from magicdec_tpu_torch.models.config import ModelArgs
     from magicdec_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-    cos, sin = rope_cos_sin(ModelArgs.from_name("llama-3.2-1b"),
+    cos, sin = rope_cos_sin(ModelArgs.from_name(MODEL_OF_D[D]),
                             torch.full((B, 1), 33, device=dev))
 
     def twist(l):
@@ -1885,18 +2076,19 @@ def time_kernels(torch, dev, errs, launches):
                           ("flash_decode_intervals_lse", "intervals_T2",
                            "370")):
         r = lse_shapes[key]
-        rows.append({"name": name, "route": "cuda",
+        rows.append({"name": name + x, "route": "cuda",
                      "source": "magicdec_tpu_torch/csrc/flash_decode.cu",
                      "replaces": f"magicdec_tpu/ops/pallas/flash_decode.py:{at}",
-                     "launches": launches[name], "max_abs_err": errs[name],
+                     "launches": launches[name], "max_abs_err": errs[name + x],
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": r["library_ms"]})
-    rows.append({"name": "flash_decode_intervals", "route": "cuda",
+    rows.append({"name": "flash_decode_intervals" + x, "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/flash_decode.cu",
                  "replaces": "magicdec_tpu/ops/pallas/flash_decode.py:370",
                  "launches": launches["flash_decode_intervals"],
-                 "max_abs_err": errs["flash_decode_intervals"], "ms": t1["ms"],
+                 "max_abs_err": errs["flash_decode_intervals" + x],
+                 "ms": t1["ms"],
                  "plain_ms": t1["plain_ms"], "bound_ms": t1["bound_ms"],
                  "bound_by": t1["bound_by"], "library_ms": t1["library_ms"]})
 
@@ -1916,11 +2108,12 @@ def time_kernels(torch, dev, errs, launches):
     t_l = _time_ms(torch, lambda l: _sdpa(torch, q, k, v, l, valid, P), L,
                    graph=True)
     b_ms, b_by = bound(bytes_, flops)
-    rows.append({"name": "flash_prefill", "route": "cuda",
+    rows.append({"name": "flash_prefill" + x, "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/flash_prefill.cu",
                  "replaces": "magicdec_tpu/ops/pallas/flash_decode.py:646",
                  "launches": launches["flash_prefill"],
-                 "max_abs_err": errs["flash_prefill"], "ms": t_k, "plain_ms": t_p,
+                 "max_abs_err": errs["flash_prefill" + x], "ms": t_k,
+                 "plain_ms": t_p,
                  "bound_ms": b_ms, "bound_by": b_by, "library_ms": t_l})
     prefill = dict(ms=t_k, eager_ms=t_e, plain_ms=t_p, library_ms=t_l,
                    bound_ms=b_ms, bound_by=b_by)
@@ -1965,14 +2158,22 @@ def time_kernels(torch, dev, errs, launches):
                                    eager_ms=t_e, plain_ms=t_p, library_ms=t_l,
                                    bound_ms=b_ms, bound_by=b_by)
     m = masked_shapes["main"]
-    rows.append({"name": "flash_decode_stacked_masked", "route": "cuda",
+    rows.append({"name": "flash_decode_stacked_masked" + x, "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/flash_decode.cu",
                  "replaces": "magicdec_tpu/ops/pallas/flash_decode.py:738",
                  "launches": launches["flash_decode_stacked_masked"],
-                 "max_abs_err": errs["flash_decode_stacked_masked"],
+                 "max_abs_err": errs["flash_decode_stacked_masked" + x],
                  "ms": m["ms"], "plain_ms": m["plain_ms"],
                  "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                  "library_ms": m["library_ms"]})
+    if D != 64:     # the gathers and centroid_scores: once, at the main D
+        del k, v, bk, bv
+        torch.cuda.empty_cache()
+        _set_counts(saved)
+        line(phase="times" + x, D=D, model=MODEL_OF_D[D], decode_shapes=extra,
+             intervals_shapes=draft_shapes, lse_shapes=lse_shapes,
+             prefill_last_chunk=prefill, masked_shapes=masked_shapes)
+        return rows
 
     # page_gather: the round-opening step's gather at budget 1024 (7 of the
     # 33 pages of a 4224-slot layer, bf16) into the round buffer's top region
@@ -2089,7 +2290,7 @@ def time_kernels(torch, dev, errs, launches):
                  "library_ms": None})
     del cents, views
     _set_counts(saved)      # the timing launches are not the main path's
-    line(phase="times", decode_shapes=extra, intervals_shapes=draft_shapes,
+    line(phase="times", D=D, decode_shapes=extra, intervals_shapes=draft_shapes,
          lse_shapes=lse_shapes, lse_library="SDPA on the same work; it "
          "returns no (m, l)",
          prefill_last_chunk=prefill, masked_shapes=masked_shapes,

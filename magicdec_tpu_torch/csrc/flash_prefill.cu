@@ -1,36 +1,62 @@
 // flash_prefill for Hopper (sm_90a): causal attention of a prefill chunk
-// (T = 128 tokens) over the stacked packed cache [L, B, S, Hkv*D], bounded by
-// a static power-of-2 s_cap.
+// (T = 128 tokens) over the stacked packed cache [L, B, S, Hkv*D], D in
+// {64, 128}, bounded by a static power-of-2 s_cap.
 //
 // Replaces magicdec_tpu/ops/pallas/flash_decode.py flash_prefill
 // (pallas_call at :646). Bound on the H100: at a 128-token chunk each K/V
 // byte feeds 2*T*G*D FLOPs per slot and head against 2*D*itemsize bytes, so
 // late chunks (thousands of slots) are bound by FLOPs and early ones by
-// neither (launch-sized). Design: one CTA per (64-row query tile, KV head,
-// b), the rows being 16 consecutive tokens x G query heads of one KV head,
-// so each K/V tile loaded into shared memory serves 64 rows. Tiles are
-// triaged as the TPU kernel's blocks were: tiles past the CTA's causal
-// frontier (and s_cap) are neither loaded nor computed, tiles below every
-// row's bound run without a mask, only the diagonal tiles are masked.
-// bf16 runs on the tensor cores (mma.sync m16n8k16, f32 accumulate; each
-// warp owns 16 query rows, FlashAttention-2 style: P stays in registers
-// between the two products). f32 runs the CUDA-core tile step of
-// flash_common.cuh (exact f32 products, as the tests want). Both are simple
-// first versions: no cp.async/TMA pipelining, no wgmma.
+// neither (launch-sized). Design: tiles are triaged as the TPU kernel's
+// blocks were: tiles past the CTA's causal frontier (and s_cap) are neither
+// loaded nor computed, tiles below every row's bound run without a mask,
+// only the diagonal tiles are masked.
+//  * bf16 (every engine's cache): one CTA per (128-row query tile, KV head,
+//    b), the rows being 32 consecutive tokens x G query heads of one KV
+//    head, so each K/V tile in shared memory serves 128 rows. Eight warps,
+//    16 rows each, on the tensor cores (mma.sync m16n8k16, f32 accumulate;
+//    flash_common.cuh warp_tile: K by ldmatrix, V by ldmatrix.trans, P in
+//    registers between the two products). K and V tiles stream through a
+//    STAGES-deep cp.async ring of bf16 stages, one barrier a tile, so the
+//    copies of the next STAGES - 1 tiles are in flight while one is
+//    computed; Q passes through the last stage into registers before the
+//    ring starts. A warp skips a tile past all of its own rows' bounds (an
+//    exact identity: every slot is masked for it).
+//  * float32: the CUDA-core tile step of flash_common.cuh (exact f32
+//    products, as the tests want), 64 rows a CTA, 2*D threads.
 #include "flash_common.cuh"
 
 namespace mdt {
 
-constexpr int QROWS = 64;  // query rows per CTA
-constexpr int PMR = QROWS / NGRP;
+constexpr int QROWS = 64;   // query rows per f32 CTA
+constexpr int PQ = 128;     // query rows per bf16 CTA
+constexpr int PRE_NT = 256; // threads of a bf16 CTA: 8 warps x 16 rows
+static_assert(PQ <= 2 * TILE, "Q is staged through one ring stage");
 
-// grid (ceil(T*G / QROWS), Hkv, B)
-template <typename T, int D>
-__global__ void __launch_bounds__(NT)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
-               const T* __restrict__ v_layer, const int* __restrict__ valid,
-               T* __restrict__ out, int T_, int Hq, int Hkv, int S, int s_extent,
+// The bf16 kernel's shape per head_dim, so that two CTAs (16 warps) fit an
+// SM in registers (<= 128 a thread) and shared memory: at D = 64 Q lives in
+// registers and the ring has STAGES stages; at D = 128 Q stays in shared
+// memory (its A fragments re-read at every tile) and the ring has 2.
+template <int D>
+struct PrefillCfg {
+  static constexpr bool QS = D > 64;
+  static constexpr int RING = QS ? 2 : STAGES;
+  // the ring, Q's own region when QS, the row bounds and their min / max
+  static constexpr size_t smem() {
+    return sizeof(bf16) * (RING * stage_elems<D>() + (QS ? PQ * pitch<D>() : 0)) +
+           sizeof(int) * (PQ + 2);
+  }
+};
+
+// ---- float32: CUDA cores --------------------------------------------------
+
+// grid (ceil(T*G / QROWS), Hkv, B), F32<D>::NT threads
+template <int D>
+__global__ void __launch_bounds__(F32<D>::NT)
+prefill_kernel(const float* __restrict__ q, const float* __restrict__ k_layer,
+               const float* __restrict__ v_layer, const int* __restrict__ valid,
+               float* __restrict__ out, int T_, int Hq, int Hkv, int S, int s_extent,
                float scale) {
+  constexpr int NT = F32<D>::NT, NGRP_V = F32<D>::NGRP_V, PMR = QROWS / NGRP_V;
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv;
   const int r0 = qt * QROWS;
@@ -42,7 +68,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
     float x = 0.f;
     if (r < M) {
       const int t = (r0 + r) / G, g = (r0 + r) % G;
-      x = to_f32(q[(((int64_t)b * T_ + t) * Hq + h * G + g) * D + d]);
+      x = q[(((int64_t)b * T_ + t) * Hq + h * G + g) * D + d];
     }
     sm.q[idx] = x;
   }
@@ -59,59 +85,59 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_layer,
 #pragma unroll
   for (int i = 0; i < PMR; ++i) acc[i] = 0.f;
   const int64_t row_stride = (int64_t)Hkv * D;
-  const T* kb = k_layer + (int64_t)b * S * row_stride + h * D;
-  const T* vb = v_layer + (int64_t)b * S * row_stride + h * D;
-  attend_range<T, D, PMR>(kb, vb, nullptr, 0, nullptr, row_stride, 0, s_extent, M,
-                          scale, sm, acc);
+  const float* kb = k_layer + (int64_t)b * S * row_stride + h * D;
+  const float* vb = v_layer + (int64_t)b * S * row_stride + h * D;
+  attend_range<float, D, PMR>(kb, vb, nullptr, 0, nullptr, row_stride, 0, s_extent, M,
+                              scale, sm, acc);
 
   const int d = threadIdx.x % D, rg = threadIdx.x / D;
 #pragma unroll
   for (int i = 0; i < PMR; ++i) {
-    const int r = rg + NGRP * i;
+    const int r = rg + NGRP_V * i;
     if (r < M) {
       const int t = (r0 + r) / G, g = (r0 + r) % G;
       const float l = sm.l[r];
-      out[(((int64_t)b * T_ + t) * Hq + h * G + g) * D + d] =
-          from_f32<T>(l > 0.f ? acc[i] / l : 0.f);
+      out[(((int64_t)b * T_ + t) * Hq + h * G + g) * D + d] = l > 0.f ? acc[i] / l : 0.f;
     }
   }
 }
 
-// ---- bf16 on the tensor cores -------------------------------------------
-constexpr int PITCH = 72;  // bf16 per shared row: 64 + 8, conflict-free fragments
+// ---- bfloat16: tensor cores, cp.async ring --------------------------------
 
-// grid (ceil(T*G / QROWS), Hkv, B), 4 warps; warp w owns rows 16w..16w+15.
-// Fragment layouts (PTX m16n8k16): lane = 4*g + c; A holds rows g, g+8 and
-// k 2c, 2c+1 (+8); B holds k 2c, 2c+1 (+8) of column g; C rows g, g+8, cols
-// 2c, 2c+1.
-__global__ void __launch_bounds__(NT)
-prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                   const __nv_bfloat16* __restrict__ k_layer,
-                   const __nv_bfloat16* __restrict__ v_layer,
-                   const int* __restrict__ valid, __nv_bfloat16* __restrict__ out,
-                   int T_, int Hq, int Hkv, int S, int s_extent, float scale) {
-  constexpr int D = 64;
-  __shared__ __align__(16) __nv_bfloat16 sQ[QROWS * PITCH];
-  __shared__ __align__(16) __nv_bfloat16 sK[TILE * PITCH];
-  __shared__ __align__(16) __nv_bfloat16 sV[TILE * PITCH];
-  __shared__ int sHi[QROWS];
-  __shared__ int sHiMin, sHiMax;
+// grid (ceil(T*G / PQ), Hkv, B), PRE_NT threads; warp w owns rows
+// 16w..16w+15 of the CTA's PQ. fault = 1 plants a pipeline fault for the
+// card checks: the last tile is copied but not computed.
+template <int D>
+__global__ void __launch_bounds__(PRE_NT, 2)
+prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k_layer,
+                   const bf16* __restrict__ v_layer, const int* __restrict__ valid,
+                   bf16* __restrict__ out, int T_, int Hq, int Hkv, int S, int s_extent,
+                   float scale, int fault) {
+  constexpr int P = pitch<D>(), CPR = D / 8;
+  constexpr bool QS = PrefillCfg<D>::QS;
+  constexpr int RING = PrefillCfg<D>::RING;
+  extern __shared__ float4 smem_raw[];  // the f32 kernels' declaration too
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  // Q: its own region (QS), or the last ring stage until the loop's first issue
+  bf16* sQ = ring + (RING - (QS ? 0 : 1)) * stage_elems<D>();
+  int* sHi = reinterpret_cast<int*>(sQ + (QS ? PQ * P : stage_elems<D>()));  // [PQ]
+  int* sLim = sHi + PQ;                                                     // min, max
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
   const int G = Hq / Hkv;
-  const int r0 = qt * QROWS;
-  const int M = min(QROWS, T_ * G - r0);
+  const int r0 = qt * PQ;
+  const int M = min(PQ, T_ * G - r0);
 
-  for (int idx = tid; idx < QROWS * (D / 8); idx += NT) {
-    const int r = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
+  // 1. Q rows into shared memory
+  for (int idx = tid; idx < PQ * CPR; idx += PRE_NT) {
+    const int r = idx / CPR, c = (idx % CPR) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r < M) {
       const int t = (r0 + r) / G, g = (r0 + r) % G;
-      val = *reinterpret_cast<const uint4*>(
-          q + (((int64_t)b * T_ + t) * Hq + h * G + g) * D + c8);
+      val = *reinterpret_cast<const uint4*>(q + (((int64_t)b * T_ + t) * Hq + h * G + g) * D + c);
     }
-    *reinterpret_cast<uint4*>(sQ + r * PITCH + c8) = val;
+    *reinterpret_cast<uint4*>(sQ + r * P + c) = val;
   }
-  for (int r = tid; r < QROWS; r += NT)
+  for (int r = tid; r < PQ; r += PRE_NT)
     sHi[r] = r < M ? min(valid[b * T_ + (r0 + r) / G], s_extent) : 0;
   __syncthreads();
   if (tid == 0) {
@@ -120,151 +146,81 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       lo = min(lo, sHi[r]);
       hi = max(hi, sHi[r]);
     }
-    sHiMin = lo;
-    sHiMax = hi;
+    sLim[0] = lo;
+    sLim[1] = hi;
   }
   __syncthreads();
-
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
-  const int ra = warp * 16 + g, rb = ra + 8;
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const __nv_bfloat16* base = sQ + ra * PITCH + ks * 16 + 2 * c;
-    qa[ks][0] = ld32(base);
-    qa[ks][1] = ld32(base + 8 * PITCH);
-    qa[ks][2] = ld32(base + 8);
-    qa[ks][3] = ld32(base + 8 * PITCH + 8);
-  }
-  const int hiA = sHi[ra], hiB = sHi[rb];
-  float o[8][4];
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
-  float mA = NEG_INF, mB = NEG_INF, lA = 0.f, lB = 0.f;
+  const int hi_min = sLim[0], limit = min(s_extent, sLim[1]);
+  const int n = (limit + TILE - 1) / TILE;
 
   const int64_t row_stride = (int64_t)Hkv * D;
-  const __nv_bfloat16* kb = k_layer + (int64_t)b * S * row_stride + h * D;
-  const __nv_bfloat16* vb = v_layer + (int64_t)b * S * row_stride + h * D;
-  const int limit = min(s_extent, sHiMax), hi_min = sHiMin;
-  const unsigned short* v16 = reinterpret_cast<const unsigned short*>(sV);
+  const bf16* kb = k_layer + (int64_t)b * S * row_stride + h * D;
+  const bf16* vb = v_layer + (int64_t)b * S * row_stride + h * D;
 
-  for (int t0 = 0; t0 < limit; t0 += TILE) {
-    const int n_load = min(TILE, limit - t0);
-    const bool full = t0 + TILE <= hi_min;
-    __syncthreads();  // the previous tile is consumed
-    for (int idx = tid; idx < TILE * (D / 8); idx += NT) {
-      const int slot = idx / (D / 8), c8 = (idx % (D / 8)) * 8;
-      uint4 kv = make_uint4(0, 0, 0, 0), vv = kv;
-      if (slot < n_load) {
-        const int64_t off = (int64_t)(t0 + slot) * row_stride + c8;
-        kv = *reinterpret_cast<const uint4*>(kb + off);
-        vv = *reinterpret_cast<const uint4*>(vb + off);
-      }
-      *reinterpret_cast<uint4*>(sK + slot * PITCH + c8) = kv;
-      *reinterpret_cast<uint4*>(sV + slot * PITCH + c8) = vv;
-    }
+  // 2. the ring's prologue
+#pragma unroll
+  for (int i = 0; i < RING - 1; ++i) {
+    if (i < n)
+      load_tile<D, PRE_NT>(ring + i * stage_elems<D>(), kb, vb, kb, 0, row_stride,
+                           i * TILE, min(TILE, limit - i * TILE));
+    cp_async_commit();
+  }
+
+  // 3. this warp's Q fragments, row bounds and largest bound
+  const int warp = tid / 32, lane = tid & 31, g = lane >> 2;
+  WarpState<D, QS> ws;
+  ws.init(sQ, warp);
+  const int ra = warp * 16 + g, rb = ra + 8;
+  const RowPair rp{0, 0, sHi[ra], 0, 0, sHi[rb]};
+  int warp_hi = max(rp.hiA, rp.hiB);
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+    warp_hi = max(warp_hi, __shfl_xor_sync(0xffffffffu, warp_hi, off));
+
+  // 4. the tiles: wait for tile i, refill the stage tile i-1 used, compute i
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait<RING - 2>();
     __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 slots
-    float s[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kr = sK + (nt * 8 + g) * PITCH + 2 * c;
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks)
-        mma_bf16(s[nt], qa[ks], ld32(kr + ks * 16), ld32(kr + ks * 16 + 8));
-    }
-    // mask, row max over the quad of lanes sharing a row
-    float mxA = NEG_INF, mxB = NEG_INF;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = t0 + nt * 8 + 2 * c + e;
-        s[nt][e] = (full || col < hiA) ? s[nt][e] * scale : NEG_INF;
-        s[nt][2 + e] = (full || col < hiB) ? s[nt][2 + e] * scale : NEG_INF;
-        mxA = fmaxf(mxA, s[nt][e]);
-        mxB = fmaxf(mxB, s[nt][2 + e]);
-      }
-    }
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      mxA = fmaxf(mxA, __shfl_xor_sync(0xffffffffu, mxA, off));
-      mxB = fmaxf(mxB, __shfl_xor_sync(0xffffffffu, mxB, off));
-    }
-    const float mnA = fmaxf(mA, mxA), mnB = fmaxf(mB, mxB);
-    const float alA = expf(mA - mnA), alB = expf(mB - mnB);
-    mA = mnA;
-    mB = mnB;
-    lA *= alA;
-    lB *= alB;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      o[nt][0] *= alA;
-      o[nt][1] *= alA;
-      o[nt][2] *= alB;
-      o[nt][3] *= alB;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = t0 + nt * 8 + 2 * c + e;
-        const float pa = (full || col < hiA) ? expf(s[nt][e] - mA) : 0.f;
-        const float pb = (full || col < hiB) ? expf(s[nt][2 + e] - mB) : 0.f;
-        lA += pa;
-        lB += pb;
-        s[nt][e] = pa;
-        s[nt][2 + e] = pb;
-      }
-    }
-    // O += P V: P (rounded to bf16) is the A operand straight from registers
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const uint32_t pa[4] = {pack_bf16(s[2 * ks][0], s[2 * ks][1]),
-                              pack_bf16(s[2 * ks][2], s[2 * ks][3]),
-                              pack_bf16(s[2 * ks + 1][0], s[2 * ks + 1][1]),
-                              pack_bf16(s[2 * ks + 1][2], s[2 * ks + 1][3])};
-      const int k0 = ks * 16 + 2 * c;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int n = nt * 8 + g;
-        const uint32_t b0 = (uint32_t)v16[k0 * PITCH + n] |
-                            ((uint32_t)v16[(k0 + 1) * PITCH + n] << 16);
-        const uint32_t b1 = (uint32_t)v16[(k0 + 8) * PITCH + n] |
-                            ((uint32_t)v16[(k0 + 9) * PITCH + n] << 16);
-        mma_bf16(o[nt], pa, b0, b1);
-      }
-    }
+    const int nx = i + RING - 1;
+    if (nx < n)
+      load_tile<D, PRE_NT>(ring + (nx % RING) * stage_elems<D>(), kb, vb, kb, 0,
+                           row_stride, nx * TILE, min(TILE, limit - nx * TILE));
+    cp_async_commit();
+    const int t0 = i * TILE;
+    if (t0 >= warp_hi || (fault == 1 && i == n - 1)) continue;
+    const bf16* st = ring + (i % RING) * stage_elems<D>();
+    warp_tile(ws, st, st + TILE * P, t0, t0 + TILE <= hi_min, rp, false, ~0ull, scale);
   }
+  cp_async_wait<0>();
 
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    lA += __shfl_xor_sync(0xffffffffu, lA, off);
-    lB += __shfl_xor_sync(0xffffffffu, lB, off);
-  }
-  const float inA = lA > 0.f ? 1.f / lA : 0.f, inB = lB > 0.f ? 1.f / lB : 0.f;
+  // 5. normalise and write the warp's rows
+  ws.reduce_l();
+  const int c = lane & 3;
+  const float inA = ws.lA > 0.f ? 1.f / ws.lA : 0.f, inB = ws.lB > 0.f ? 1.f / ws.lB : 0.f;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = half ? rb : ra;
     if (r >= M) continue;
     const float inv = half ? inB : inA;
     const int t = (r0 + r) / G, gq = (r0 + r) % G;
-    __nv_bfloat16* dst = out + (((int64_t)b * T_ + t) * Hq + h * G + gq) * D + 2 * c;
+    bf16* dst = out + (((int64_t)b * T_ + t) * Hq + h * G + gq) * D + 2 * c;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < D / 8; ++nt)
       *reinterpret_cast<uint32_t*>(dst + nt * 8) =
-          pack_bf16(o[nt][2 * half] * inv, o[nt][2 * half + 1] * inv);
+          pack_bf16(ws.o[nt][2 * half] * inv, ws.o[nt][2 * half + 1] * inv);
   }
 }
 
-template <typename T>
-int launch_prefill(const void* q, const void* k, const void* v, const int* valid,
-                   void* out, int layer, int B, int T_, int Hq, int Hkv, int S,
-                   int s_extent, cudaStream_t stream) {
-  constexpr int D = 64;
+// ---- launchers ------------------------------------------------------------
+
+template <int D>
+int launch_prefill_f32(const void* q, const void* k, const void* v, const int* valid,
+                       void* out, int layer, int B, int T_, int Hq, int Hkv, int S,
+                       int s_extent, cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes(QROWS);
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(prefill_kernel<T, D>,
+    cudaError_t e = cudaFuncSetAttribute(prefill_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return (int)e;
@@ -272,42 +228,56 @@ int launch_prefill(const void* q, const void* k, const void* v, const int* valid
   }
   const int n_qt = (T_ * (Hq / Hkv) + QROWS - 1) / QROWS;
   const int64_t layer_off = (int64_t)layer * B * S * Hkv * D;
-  const float scale = 1.0f / sqrtf((float)D);
-  prefill_kernel<T, D><<<dim3(n_qt, Hkv, B), NT, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k) + layer_off,
-      static_cast<const T*>(v) + layer_off, valid, static_cast<T*>(out), T_, Hq, Hkv,
-      S, s_extent, scale);
+  prefill_kernel<D><<<dim3(n_qt, Hkv, B), F32<D>::NT, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k) + layer_off,
+      static_cast<const float*>(v) + layer_off, valid, static_cast<float*>(out), T_, Hq,
+      Hkv, S, s_extent, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
+template <int D>
 int launch_prefill_mma(const void* q, const void* k, const void* v, const int* valid,
                        void* out, int layer, int B, int T_, int Hq, int Hkv, int S,
-                       int s_extent, cudaStream_t stream) {
-  constexpr int D = 64;
-  const int n_qt = (T_ * (Hq / Hkv) + QROWS - 1) / QROWS;
+                       int s_extent, int fault, cudaStream_t stream) {
+  constexpr size_t smem = PrefillCfg<D>::smem();
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(prefill_mma_kernel<D>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  const int n_qt = (T_ * (Hq / Hkv) + PQ - 1) / PQ;
   const int64_t layer_off = (int64_t)layer * B * S * Hkv * D;
-  const float scale = 1.0f / sqrtf((float)D);
-  prefill_mma_kernel<<<dim3(n_qt, Hkv, B), NT, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k) + layer_off,
-      static_cast<const __nv_bfloat16*>(v) + layer_off, valid,
-      static_cast<__nv_bfloat16*>(out), T_, Hq, Hkv, S, s_extent, scale);
+  prefill_mma_kernel<D><<<dim3(n_qt, Hkv, B), PRE_NT, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k) + layer_off,
+      static_cast<const bf16*>(v) + layer_off, valid, static_cast<bf16*>(out), T_, Hq, Hkv,
+      S, s_extent, 1.0f / sqrtf((float)D), fault);
   return (int)cudaGetLastError();
 }
 
 }  // namespace mdt
 
-// C interface (ctypes). dtype: 0 = float32, 1 = bfloat16. Shapes: q and out
-// [B, T, Hq, 64]; k, v [L, B, S, Hkv*64]; valid [B, T] int32 causal bounds,
-// slots < min(valid, s_extent) attended. Returns the CUDA error code.
-extern "C" int mdt_flash_prefill(int dtype, const void* q, const void* k, const void* v,
-                                 const int* valid, void* out, int layer, int B, int T,
-                                 int Hq, int Hkv, int S, int s_extent, void* stream) {
+// C interface (ctypes). dtype: 0 = float32, 1 = bfloat16; D: head_dim, 64
+// or 128. Shapes: q and out [B, T, Hq, D]; k, v [L, B, S, Hkv*D]; valid
+// [B, T] int32 causal bounds, slots < min(valid, s_extent) attended. fault:
+// 0, or 1 (bf16 only) to plant the skipped-last-tile fault of the card
+// checks. Returns the CUDA error code.
+extern "C" int mdt_flash_prefill(int dtype, int D, const void* q, const void* k,
+                                 const void* v, const int* valid, void* out, int layer,
+                                 int B, int T, int Hq, int Hkv, int S, int s_extent,
+                                 int fault, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return mdt::launch_prefill<float>(q, k, v, valid, out, layer, B, T, Hq, Hkv, S,
-                                      s_extent, st);
-  if (dtype == 1)
-    return mdt::launch_prefill_mma(q, k, v, valid, out, layer, B, T, Hq, Hkv, S,
-                                   s_extent, st);
+#define MDT_ARGS q, k, v, valid, out, layer, B, T, Hq, Hkv, S, s_extent
+  if (dtype == 0 && fault == 0) {
+    if (D == 64) return mdt::launch_prefill_f32<64>(MDT_ARGS, st);
+    if (D == 128) return mdt::launch_prefill_f32<128>(MDT_ARGS, st);
+  }
+  if (dtype == 1) {
+    if (D == 64) return mdt::launch_prefill_mma<64>(MDT_ARGS, fault, st);
+    if (D == 128) return mdt::launch_prefill_mma<128>(MDT_ARGS, fault, st);
+  }
+#undef MDT_ARGS
   return (int)cudaErrorInvalidValue;
 }

@@ -72,4 +72,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// e^x by the SFU's ex2.approx (x scaled by log2 e; ~2 ulp): one multiply
+// and one MUFU op where expf takes a range reduction. e^x of x <= -1e29 is
+// 0, and of 0 is 1.
+__device__ __forceinline__ float exp_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * 1.4426950408889634f));
+  return y;
+}
+
+// ldmatrix.x4: four 8x8 b16 matrices from shared memory; lane l gives the
+// address of row l % 8 of matrix l / 8 (16 contiguous bytes, 16-byte
+// aligned), and r[i] receives this lane's pair of matrix i: row lane / 4,
+// columns 2 (lane % 4), +1. With a row-major Q tile this is the A fragment
+// of mma.m16n8k16; with K rows (slot-major) the B fragments of Q K^T.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// The same, transposed: r[i] receives rows 2 (lane % 4), +1 of column
+// lane / 4 of matrix i. With V rows (slot-major) these are the B fragments
+// of P V (k = slot, n = feature).
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
 }  // namespace mdt

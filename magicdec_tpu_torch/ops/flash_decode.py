@@ -9,9 +9,12 @@ flash_decode_intervals there (pallas_call at :370, return_lse outputs
 flash_decode_stacked_masked (pallas_call at :738), and `flash_prefill`
 replaces flash_prefill (pallas_call at :646). All are hand-written CUDA C++
 for sm_90a (csrc/flash_decode.cu, csrc/flash_prefill.cu, built by
-ops/_build.py), templated on float32 and bfloat16; the three decode wrappers
-launch one split kernel, so a sink + window draft and a ragged-causal verify
-give the same bits on the same valid slots.
+ops/_build.py), templated on float32 and bfloat16 and on head_dim 64 and
+128 (KERNEL_HEAD_DIMS); the three decode wrappers launch one split kernel, so
+a sink + window draft and a ragged-causal verify give the same bits on the
+same valid slots. bfloat16 runs on the tensor cores with K and V streamed
+through a cp.async ring of bf16 shared tiles; float32 on CUDA cores with
+exact f32 products.
 What bounds each on the H100 and what its design does about it is noted at
 the top of its source.
 
@@ -38,7 +41,7 @@ from magicdec_tpu_torch.ops.attention import (masked_attention_general,
                                               masked_attention_lse)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIMS = (64, 128)
 
 
 def _stacked_operands(q, k_cache, v_cache, layer, valid_upto, s_cap):
@@ -229,9 +232,9 @@ def _check(q, k_cache, v_cache, layer, valid_upto):
                          f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
     B, T, Hq, D = q.shape
     L, Bc, S, HD = k_cache.shape
-    if D != KERNEL_HEAD_DIM:
-        raise ValueError(f"head_dim {D}: the kernels are built for "
-                         f"{KERNEL_HEAD_DIM}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"head_dim {D}: the kernels are built for head_dim "
+                         f"{' and '.join(map(str, KERNEL_HEAD_DIMS))}")
     if Bc != B or HD % D or Hq % (HD // D):
         raise ValueError(f"q {tuple(q.shape)} does not match the cache "
                          f"{tuple(k_cache.shape)}")
@@ -275,8 +278,8 @@ def _lib_decode() -> ctypes.CDLL:
     lib = _build.load("flash_decode")
     fn = lib.mdt_flash_decode
     if fn.argtypes is None:
-        fn.argtypes = [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                       _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _P,
+                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
         fn.restype = _I
         lib.mdt_split_slots.restype = _I
     return lib
@@ -286,23 +289,32 @@ def _lib_prefill() -> ctypes.CDLL:
     lib = _build.load("flash_prefill")
     fn = lib.mdt_flash_prefill
     if fn.argtypes is None:
-        fn.argtypes = [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
+        fn.argtypes = [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                       _I, _P]
         fn.restype = _I
     return lib
 
 
+def split_slots() -> int:
+    """The decode kernel's KV split size in slots (SPLIT in
+    csrc/flash_decode.cu): one global constant, so a row's bits never depend
+    on the cache capacity."""
+    return _lib_decode().mdt_split_slots()
+
+
 def _decode_launch(q, k_cache, v_cache, layer, hi, ext, a=None, lo=None,
-                   k_sink=None, colmask=None, lse=False):
+                   k_sink=None, colmask=None, lse=False, fault=0):
     """Launch the split decode kernel on checked operands (stacked caches);
     returns [B, T, Hq, D] in the cache dtype, with lse also (m, l)
-    [B, T, Hq] f32."""
+    [B, T, Hq] f32. fault=1 (bf16 only) plants the card checks' pipeline
+    fault: each split's last tile is copied but not computed."""
     B, T, Hq, D = q.shape
     _, _, S, HD = k_cache.shape
     Hkv = HD // D
     if T * (Hq // Hkv) > 64:
         raise ValueError(f"T*G = {T * (Hq // Hkv)} > 64: use flash_prefill")
     lib = _lib_decode()
-    nsplit = -(-ext // lib.mdt_split_slots())   # the kernel's fixed split size
+    nsplit = -(-ext // split_slots())
     M = T * (Hq // Hkv)
     out = torch.empty_like(q)
     m = l = None
@@ -315,11 +327,11 @@ def _decode_launch(q, k_cache, v_cache, layer, hi, ext, a=None, lo=None,
                           device=q.device)
     ptr = (lambda t: None if t is None else t.data_ptr())
     rc = lib.mdt_flash_decode(
-        _DTYPE_CODES[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
+        _DTYPE_CODES[k_cache.dtype], D, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), ptr(a), ptr(lo), hi.data_ptr(), ptr(k_sink),
         0 if k_sink is None else k_sink.shape[1], ptr(colmask), out.data_ptr(),
         ptr(m), ptr(l), part_acc.data_ptr(), part_ml.data_ptr(), layer, B, T,
-        Hq, Hkv, S, ext, torch.cuda.current_stream(q.device).cuda_stream)
+        Hq, Hkv, S, ext, fault, torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash decode launch")
     return (out, m, l) if lse else out
 
@@ -343,10 +355,11 @@ def flash_decode_stacked(q: torch.Tensor, k_cache: torch.Tensor,
     Replaces the TPU kernel flash_decode_stacked (pallas_call at
     magicdec_tpu/ops/pallas/flash_decode.py:488, return_lse :486-499).
     Bound by bytes on the H100 (each valid K/V slot read once); the kernel
-    splits KV over CTAs in fixed 512-slot splits so B=8 fills the SMs, reads
-    nothing past a row's bound, and merges the splits in order so rows are
-    bit-exact across T and cache capacity; ctx has the same bits with and
-    without return_lse (csrc/flash_decode.cu)."""
+    splits KV over CTAs in fixed splits of split_slots() slots so B=8 fills
+    the SMs, streams bf16 tiles through a cp.async ring into tensor-core
+    products, reads nothing past a row's bound, and merges the splits in
+    order so rows are bit-exact across T and cache capacity; ctx has the
+    same bits with and without return_lse (csrc/flash_decode.cu)."""
     if _on_cpu(q, k_cache, v_cache, valid_upto):
         plain = attention_plain_lse if return_lse else attention_plain
         return plain(q, k_cache, v_cache, layer, valid_upto, s_cap)
@@ -469,20 +482,31 @@ def flash_prefill(q: torch.Tensor, k_cache: torch.Tensor,
     magicdec_tpu/ops/pallas/flash_decode.py:646). Bound by FLOPs on the
     H100 for late chunks; the kernel walks only the tiles below each query
     tile's causal frontier and s_cap, masks only the diagonal tiles, and runs
-    bf16 on tensor cores (csrc/flash_prefill.cu)."""
+    bf16 on the tensor cores, 128 query rows a CTA, K and V streamed through
+    a cp.async ring (csrc/flash_prefill.cu)."""
     if _on_cpu(q, k_cache, v_cache, valid_upto):
         return attention_plain(q, k_cache, v_cache, layer, valid_upto, s_cap)
     q = _check(q, k_cache, v_cache, layer, valid_upto)
+    S = k_cache.shape[2]
+    out = _prefill_launch(q, k_cache, v_cache, layer, valid_upto,
+                          S if s_cap is None else min(s_cap, S))
+    flash_prefill.launches += 1
+    return out
+
+
+def _prefill_launch(q, k_cache, v_cache, layer, valid_upto, ext, fault=0):
+    """Launch the prefill kernel on checked operands; fault=1 (bf16 only)
+    plants the card checks' pipeline fault (the last tile copied but not
+    computed)."""
     B, T, Hq, D = q.shape
     _, _, S, HD = k_cache.shape
-    ext = S if s_cap is None else min(s_cap, S)
     out = torch.empty_like(q)
     rc = _lib_prefill().mdt_flash_prefill(
-        _DTYPE_CODES[k_cache.dtype], q.data_ptr(), k_cache.data_ptr(),
+        _DTYPE_CODES[k_cache.dtype], D, q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), valid_upto.data_ptr(), out.data_ptr(), layer, B, T,
-        Hq, HD // D, S, ext, torch.cuda.current_stream(q.device).cuda_stream)
+        Hq, HD // D, S, ext, fault,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _raise_on(rc, "flash_prefill launch")
-    flash_prefill.launches += 1
     return out
 
 

@@ -32,8 +32,8 @@ def cuda():
 
 
 def _card_inputs(dev, dtype, L=2, B=3, S=1100, Hkv=2, G=4, T=7, seed=0,
-                 q_scale=1.0):
-    q, k, v = _mk(L, B, S, Hkv, G, 64, T, seed, q_scale)
+                 q_scale=1.0, D=64):
+    q, k, v = _mk(L, B, S, Hkv, G, D, T, seed, q_scale)
     return (torch.from_numpy(q).to(dev, dtype), torch.from_numpy(k).to(dev, dtype),
             torch.from_numpy(v).to(dev, dtype))
 
@@ -50,14 +50,17 @@ def _assert_within_limit(out, q, k, v, layer, valid, s_cap=None):
 
 # q scales: logits of std 0.5 (flat softmax) and of std 3 (peaked)
 _Q_SCALES = [1.0, 6.0]
+# the head dims the attention kernels are built for
+_HEAD_DIMS = [64, 128]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [1, 7])
-def test_card_decode_kernel_matches_plain(cuda, dtype, T):
+def test_card_decode_kernel_matches_plain(cuda, dtype, T, D):
     for q_scale in _Q_SCALES:
-        q, k, v = _card_inputs(cuda, dtype, T=T, q_scale=q_scale)
+        q, k, v = _card_inputs(cuda, dtype, T=T, q_scale=q_scale, D=D)
         lens = torch.tensor([1000, 511, 3], dtype=torch.int32, device=cuda)
         valid = decode_valid_upto(lens, T)
         for layer in range(2):
@@ -66,11 +69,12 @@ def test_card_decode_kernel_matches_plain(cuda, dtype, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_decode_rows_and_capacity_bitexact(cuda, dtype):
+def test_card_decode_rows_and_capacity_bitexact(cuda, dtype, D):
     """A T=1 row equals the same row inside T=7, and a cache of capacity
     1088 gives the bits of one of capacity 2112 holding the same prefix."""
-    q, k, v = _card_inputs(cuda, dtype, S=2112, T=7)
+    q, k, v = _card_inputs(cuda, dtype, S=2112, T=7, D=D)
     lens = torch.tensor([1000, 511, 3], dtype=torch.int32, device=cuda)
     valid = decode_valid_upto(lens, 7)
     full = tfd.flash_decode_stacked(q, k, v, 1, valid)
@@ -84,10 +88,12 @@ def test_card_decode_rows_and_capacity_bitexact(cuda, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_prefill_kernel_matches_plain(cuda, dtype):
+def test_card_prefill_kernel_matches_plain(cuda, dtype, D):
     for q_scale in _Q_SCALES:
-        q, k, v = _card_inputs(cuda, dtype, S=1024, T=128, q_scale=q_scale)
+        q, k, v = _card_inputs(cuda, dtype, S=1024, T=128, q_scale=q_scale,
+                               D=D)
         lens = torch.tensor([640, 0, 300], dtype=torch.int32, device=cuda)
         valid = decode_valid_upto(lens, 128)
         for cap in (512, 1024):
@@ -96,12 +102,12 @@ def test_card_prefill_kernel_matches_plain(cuda, dtype):
             _assert_within_limit(out, q, k, v, 1, v_cap, s_cap=cap)
 
 
-def _flat_intervals(dev, dtype, S, T, seed, q_scale, sink=128, B=3):
-    """Flat [B, S, Hkv*64] caches and the bounds of a sink + gap + window
+def _flat_intervals(dev, dtype, S, T, seed, q_scale, sink=128, B=3, D=64):
+    """Flat [B, S, Hkv*D] caches and the bounds of a sink + gap + window
     draft: a 128-slot sink (two full tiles), window starts leaving gaps of
     whole tiles, windows of 200+ slots (full tiles inside), T rows."""
     q, k, v = _card_inputs(dev, dtype, L=1, B=B, S=S, T=T, seed=seed,
-                           q_scale=q_scale)
+                           q_scale=q_scale, D=D)
     lo = torch.tensor([320, 700, 130][:B], dtype=torch.int32, device=dev)
     hi = lo[:, None] + 200 + torch.arange(T, dtype=torch.int32, device=dev)
     hi = torch.clamp(hi + torch.tensor([0, 300, 0][:B], dtype=torch.int32,
@@ -111,12 +117,14 @@ def _flat_intervals(dev, dtype, S, T, seed, q_scale, sink=128, B=3):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [1, 2])
-def test_card_intervals_kernel_matches_plain(cuda, dtype, T):
+def test_card_intervals_kernel_matches_plain(cuda, dtype, T, D):
     """Sink + gap + window rows, with and without separate sink K rows."""
     for q_scale in _Q_SCALES:
-        q, k, v, a, lo, hi = _flat_intervals(cuda, dtype, 1088, T, 3, q_scale)
+        q, k, v, a, lo, hi = _flat_intervals(cuda, dtype, 1088, T, 3, q_scale,
+                                             D=D)
         twisted = (k[:, :128].float() * -0.5).to(dtype).contiguous()
         for k_sink in (None, twisted):
             out = tfd.flash_decode_intervals(q, k, v, a, lo, hi, k_sink=k_sink)
@@ -127,14 +135,15 @@ def test_card_intervals_kernel_matches_plain(cuda, dtype, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_intervals_bitexact_with_stacked_on_a_prefix(cuda, dtype):
+def test_card_intervals_bitexact_with_stacked_on_a_prefix(cuda, dtype, D):
     """When the intervals reduce to [0, hi) — a = min(sink, hi), lo = sink,
     the full-budget StreamingLLM draft — T=1 and T=2 rows on a flat cache of
     1088 or 4224 slots give the bits of the same rows of a T=7
     flash_decode_stacked over the 4224-slot stacked cache."""
     S, sink = 4224, 16
-    q, k, v = _card_inputs(cuda, dtype, S=S, T=7)
+    q, k, v = _card_inputs(cuda, dtype, S=S, T=7, D=D)
     lens = torch.tensor([1000, 511, 3], dtype=torch.int32, device=cuda)
     valid = decode_valid_upto(lens, 7)
     full = tfd.flash_decode_stacked(q, k, v, 1, valid)
@@ -151,12 +160,13 @@ def test_card_intervals_bitexact_with_stacked_on_a_prefix(cuda, dtype):
                 assert torch.equal(out, full[:, t0:t0 + T]), (cap, t0, T)
 
 
-def _round_buffer(dev, dtype, T, q_scale, NS=896, Wcap=192, seed=4):
-    """The Quest draft's round buffer [2, 3, NS + Wcap, Hkv*64]: a 70%
+def _round_buffer(dev, dtype, T, q_scale, NS=896, Wcap=192, seed=4, D=64):
+    """The Quest draft's round buffer [2, 3, NS + Wcap, Hkv*D]: a 70%
     colmask over the top region (one page of all-zero bits, one of all-one
     bits), tail bits 1, ragged tails; rows attend [0, NS) u [NS, hi)."""
     R = NS + Wcap
-    q, k, v = _card_inputs(dev, dtype, S=R, T=T, seed=seed, q_scale=q_scale)
+    q, k, v = _card_inputs(dev, dtype, S=R, T=T, seed=seed, q_scale=q_scale,
+                           D=D)
     g = torch.Generator(device=dev).manual_seed(seed)
     cm = (torch.rand((2, 3, 1, R), generator=g, device=dev) < 0.7).to(torch.int32)
     cm[..., 128:256] = 0
@@ -169,13 +179,14 @@ def _round_buffer(dev, dtype, T, q_scale, NS=896, Wcap=192, seed=4):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [1, 2])
-def test_card_masked_kernel_matches_plain(cuda, dtype, T):
+def test_card_masked_kernel_matches_plain(cuda, dtype, T, D):
     """Within the plain version's limit; the kernel run with an all-ones
     colmask (a kernel that ignores the bits) fails it."""
     for q_scale in _Q_SCALES:
-        q, k, v, cm, ns, hi = _round_buffer(cuda, dtype, T, q_scale)
+        q, k, v, cm, ns, hi = _round_buffer(cuda, dtype, T, q_scale, D=D)
         for layer in range(2):
             ref, limit = tfd.stacked_masked_plain_f32_and_limit(
                 q, k, v, layer, cm, ns, ns, hi)
@@ -188,11 +199,12 @@ def test_card_masked_kernel_matches_plain(cuda, dtype, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_masked_all_ones_is_the_stacked_kernel(cuda, dtype):
+def test_card_masked_all_ones_is_the_stacked_kernel(cuda, dtype, D):
     """With an all-ones colmask and a = lo = 0 the masked kernel gives the
     bits of flash_decode_stacked on the same rows (one shared kernel)."""
-    q, k, v = _card_inputs(cuda, dtype, S=1088, T=2)
+    q, k, v = _card_inputs(cuda, dtype, S=1088, T=2, D=D)
     lens = torch.tensor([1000, 511, 3], dtype=torch.int32, device=cuda)
     valid = decode_valid_upto(lens, 2)
     zero = torch.zeros_like(valid)
@@ -364,14 +376,15 @@ def _assert_lse(got, want, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [1, 7])
-def test_card_decode_lse_matches_plain(cuda, dtype, T):
+def test_card_decode_lse_matches_plain(cuda, dtype, T, D):
     """flash_decode_stacked(return_lse=True): ctx within the plain limit and
     bit-equal to the call without the flag, (m, l) within tfd.lse_limits,
     and an empty row (sequence 2's first query) gives l = 0 and ctx = 0."""
     for q_scale in _Q_SCALES:
-        q, k, v = _card_inputs(cuda, dtype, T=T, q_scale=q_scale)
+        q, k, v = _card_inputs(cuda, dtype, T=T, q_scale=q_scale, D=D)
         lens = torch.tensor([1000, 511, 3], dtype=torch.int32, device=cuda)
         valid = decode_valid_upto(lens, T)
         valid[2, 0] = 0
@@ -391,14 +404,16 @@ def test_card_decode_lse_matches_plain(cuda, dtype, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("T", [1, 4, 16])
-def test_card_intervals_lse_matches_plain(cuda, dtype, T):
+def test_card_intervals_lse_matches_plain(cuda, dtype, T, D):
     """flash_decode_intervals(return_lse=True) over a flat own cache's
     prefix [0, hi) (the GliDe tree draft; T=16 is the leaf level of tree
     (4,2,2): 64 rows) and over sink + gap + window rows; one empty row."""
     for q_scale in _Q_SCALES:
-        q, k, v, a, lo, hi = _flat_intervals(cuda, dtype, 1088, T, 5, q_scale)
+        q, k, v, a, lo, hi = _flat_intervals(cuda, dtype, 1088, T, 5, q_scale,
+                                             D=D)
         zero = torch.zeros_like(hi)
         base = torch.tensor([1000, 700, 0], dtype=torch.int32, device=cuda)
         prefix = base[:, None].expand_as(hi).contiguous()
@@ -415,14 +430,15 @@ def test_card_intervals_lse_matches_plain(cuda, dtype, T):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_chunked_stacked_lse_rows_bitexact(cuda, dtype):
+def test_card_chunked_stacked_lse_rows_bitexact(cuda, dtype, D):
     """attention_impls.flash_stacked_lse at T=29, G=4 (tree (4,2,2)'s
     verify: two launches of 16 and 13 rows) gives each row the bits of that
     row launched alone."""
     from magicdec_tpu_torch.engine.attention_impls import flash_stacked_lse
 
-    q, k, v = _card_inputs(cuda, dtype, S=2112, T=29)
+    q, k, v = _card_inputs(cuda, dtype, S=2112, T=29, D=D)
     lens = torch.tensor([1000, 511, 3], dtype=torch.int32, device=cuda)
     hi = lens[:, None].expand(3, 29).contiguous()
     before = tfd.flash_decode_stacked.launches_lse
@@ -434,3 +450,28 @@ def test_card_chunked_stacked_lse_rows_bitexact(cuda, dtype):
                                        return_lse=True)
         for a, b in zip(one, full):
             assert torch.equal(a, b[:, t:t + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
+def test_card_limit_rejects_a_dropped_ring_stage(cuda, D):
+    """The bf16 kernels with a planted pipeline fault (fault=1: the last
+    tile of each decode split, and of each prefill CTA's walk, is copied
+    into its ring stage but never computed) fail the plain version's limit
+    on peaked inputs, while the same launch without the fault holds it."""
+    q, k, v = _card_inputs(cuda, torch.bfloat16, S=1100, T=7, q_scale=6.0,
+                           D=D)
+    valid = decode_valid_upto(
+        torch.tensor([1000, 511, 300], dtype=torch.int32, device=cuda), 7)
+    ref, limit = tfd.plain_f32_and_limit(q, k, v, 1, valid)
+    for fault in (0, 1):
+        out = tfd._decode_launch(q, k, v, 1, valid, k.shape[2], fault=fault)
+        assert bool(((out.float() - ref).abs() <= limit).all()) == (fault == 0)
+    q, k, v = _card_inputs(cuda, torch.bfloat16, S=1024, T=128, q_scale=6.0,
+                           D=D)
+    valid = decode_valid_upto(
+        torch.tensor([640, 200, 300], dtype=torch.int32, device=cuda), 128)
+    ref, limit = tfd.plain_f32_and_limit(q, k, v, 1, valid, 1024)
+    for fault in (0, 1):
+        out = tfd._prefill_launch(q, k, v, 1, valid, 1024, fault=fault)
+        assert bool(((out.float() - ref).abs() <= limit).all()) == (fault == 0)

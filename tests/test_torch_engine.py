@@ -153,3 +153,32 @@ def test_full_budget_draft_cache_holds_a_long_generation(tparams, prompt):
     assert stats.acceptance_rate == 1.0, stats
     ar, _ = t_ar(TEngine(TCFG, tparams, device="cpu", **ENGINE_KW), prompt, 150)
     np.testing.assert_array_equal(out[:, :150].numpy(), ar.numpy())
+
+
+# a head_dim-128 model (the attention kernels' larger build): 2 layers, 4/2
+# heads, dim 512
+CFG128_KW = dict(block_size=512, vocab_size=512, n_layer=2, n_head=4,
+                 n_kv_head=2, dim=512, intermediate_size=256)
+
+
+def test_head_dim_128_snapkv_stream_equals_jax_and_ar(prompt):
+    """At head_dim 128 the port's SnapKV stream equals the JAX package's
+    token for token and equals the port's own AR stream (invariant 1)."""
+    jcfg, tcfg = JArgs(**CFG128_KW), TArgs(**CFG128_KW)
+    assert tcfg.head_dim == jcfg.head_dim == 128
+    jp = j_init(jax.random.PRNGKey(1), jcfg, jnp.float32, scale=0.5)
+    tp = params_from_numpy(jax.tree_util.tree_map(np.asarray, jp), device="cpu")
+    ar, _ = t_ar(TEngine(tcfg, tp, device="cpu", **ENGINE_KW), prompt, MAX_NEW)
+    spec_kw = dict(spec="snapkv", draft_budget=32, window_size=8, **ENGINE_KW)
+    out, counts, stats = t_spec(TEngine(tcfg, tp, device="cpu", **spec_kw),
+                                prompt, gamma=3, max_new_tokens=MAX_NEW)
+    jout, jcounts, jstats = j_spec(JEngine(jcfg, jp, **spec_kw),
+                                   jnp.asarray(prompt), gamma=3,
+                                   max_new_tokens=MAX_NEW)
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    np.testing.assert_array_equal(out.numpy(), np.asarray(jout))
+    assert stats.rounds == jstats.rounds
+    for b in range(B):
+        n = min(int(counts[b]), MAX_NEW)
+        assert n > 0
+        np.testing.assert_array_equal(out[b, :n].numpy(), ar[b, :n].numpy())

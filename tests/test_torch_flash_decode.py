@@ -34,12 +34,15 @@ def _mk(L, B, S, Hkv, G, D, T, seed):
     return q, k, v
 
 
-@pytest.mark.parametrize("S,T,lens", [(264, 1, [200, 263, 3, 130]),
-                                      (264, 4, [200, 259, 3, 129]),
-                                      (136, 1, [135, 100, 1, 129])])
-def test_decode_plain_matches_jax_kernel(S, T, lens):
-    """Ragged lengths, partial last block (s_block=128), both layers."""
-    L, B, Hkv, G, D = 2, 4, 2, 2, 16
+@pytest.mark.parametrize("S,T,lens,D", [
+    pytest.param(264, 1, [200, 263, 3, 130], 16, id="264-1-lens0"),
+    pytest.param(264, 4, [200, 259, 3, 129], 16, id="264-4-lens1"),
+    pytest.param(136, 1, [135, 100, 1, 129], 16, id="136-1-lens2"),
+    pytest.param(264, 4, [200, 259, 3, 129], 128, id="264-4-d128")])
+def test_decode_plain_matches_jax_kernel(S, T, lens, D):
+    """Ragged lengths, partial last block (s_block=128), both layers; the
+    head dims 16 and 128 (the kernels' larger build)."""
+    L, B, Hkv, G = 2, 4, 2, 2
     q, k, v = _mk(L, B, S, Hkv, G, D, T, seed=S + T)
     valid = decode_valid_upto(torch.tensor(lens, dtype=torch.int32), T)
     for layer in range(L):
@@ -52,11 +55,14 @@ def test_decode_plain_matches_jax_kernel(S, T, lens):
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("S,T,cap,lens", [(384, 16, 256, [240, 100, 3, 235]),
-                                          (256, 32, 128, [96, 64, 0, 90])])
-def test_prefill_plain_matches_jax_kernel(S, T, cap, lens):
-    """Causal chunk attention with s_cap < S (the walk stops at the cap)."""
-    L, B, Hkv, G, D = 2, 4, 2, 2, 16
+@pytest.mark.parametrize("S,T,cap,lens,D", [
+    pytest.param(384, 16, 256, [240, 100, 3, 235], 16, id="384-16-256-lens0"),
+    pytest.param(256, 32, 128, [96, 64, 0, 90], 16, id="256-32-128-lens1"),
+    pytest.param(256, 32, 128, [96, 64, 0, 90], 128, id="256-32-128-d128")])
+def test_prefill_plain_matches_jax_kernel(S, T, cap, lens, D):
+    """Causal chunk attention with s_cap < S (the walk stops at the cap);
+    the head dims 16 and 128."""
+    L, B, Hkv, G = 2, 4, 2, 2
     q, k, v = _mk(L, B, S, Hkv, G, D, T, seed=S + T + cap)
     valid = decode_valid_upto(torch.tensor(lens, dtype=torch.int32), T)
     for layer in range(L):
@@ -110,13 +116,17 @@ def _bf16_kernel_numerics(q, k, v, layer, valid):
     return (out / p.sum(-1)[..., None]).reshape(q.shape).bfloat16()
 
 
-@pytest.mark.parametrize("q_scale", [1.0, 6.0])
-def test_bf16_limit_admits_kernel_rounding_and_rejects_a_missed_tile(q_scale):
+@pytest.mark.parametrize("q_scale,D", [
+    pytest.param(1.0, 64, id="1.0"), pytest.param(6.0, 64, id="6.0"),
+    pytest.param(1.0, 128, id="1.0-d128"), pytest.param(6.0, 128, id="6.0-d128")])
+def test_bf16_limit_admits_kernel_rounding_and_rejects_a_missed_tile(q_scale,
+                                                                     D):
     """plain_f32_and_limit admits the bf16 kernels' own rounding and rejects
     an output that misses each row's last 64-slot tile (peaked softmax: the
-    rejection must hold; flat: the limit still scales with the output)."""
+    rejection must hold; flat: the limit still scales with the output), at
+    both head dims of the kernels."""
     q, k, v = (torch.from_numpy(a).bfloat16()
-               for a in _mk(2, 2, 1100, 2, 4, 64, 7, seed=5))
+               for a in _mk(2, 2, 1100, 2, 4, D, 7, seed=5))
     q = (q.float() * q_scale).bfloat16()
     valid = decode_valid_upto(torch.tensor([1090, 700], dtype=torch.int32), 7)
     ref, limit = tfd.plain_f32_and_limit(q, k, v, 1, valid)

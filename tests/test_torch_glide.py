@@ -68,12 +68,14 @@ def _assert_lse_close(got, ref):
     np.testing.assert_allclose(ctx[live], rctx[live], **TOL)
 
 
-@pytest.mark.parametrize("T", [1, 4])
-def test_stacked_lse_plain_matches_jax_kernel(T):
+@pytest.mark.parametrize("T,D", [pytest.param(1, 16, id="1"),
+                                 pytest.param(4, 16, id="4"),
+                                 pytest.param(4, 128, id="4-d128")])
+def test_stacked_lse_plain_matches_jax_kernel(T, D):
     """attention_plain_lse (and the wrapper's CPU path) against
     flash_decode_stacked(return_lse=True) in interpret mode: ragged rows, a
-    partial last block (s_block=128), one empty row."""
-    L, Bk, S, Hkv, G, D = 2, 4, 264, 2, 2, 16
+    partial last block (s_block=128), one empty row; head_dim 16 and 128."""
+    L, Bk, S, Hkv, G = 2, 4, 264, 2, 2
     rng = np.random.default_rng(T)
     k = (rng.standard_normal((L, Bk, S, Hkv * D)) * 0.5).astype(np.float32)
     v = rng.standard_normal((L, Bk, S, Hkv * D)).astype(np.float32)
@@ -91,12 +93,15 @@ def test_stacked_lse_plain_matches_jax_kernel(T):
         _assert_lse_close(got, ref)
 
 
-@pytest.mark.parametrize("T", [1, 3])
-def test_intervals_lse_plain_matches_jax_kernel(T):
+@pytest.mark.parametrize("T,D", [pytest.param(1, 16, id="1"),
+                                 pytest.param(3, 16, id="3"),
+                                 pytest.param(3, 128, id="3-d128")])
+def test_intervals_lse_plain_matches_jax_kernel(T, D):
     """intervals_plain_lse against flash_decode_intervals(return_lse=True)
     in interpret mode: sink + gap + window rows, a prefix-only row (the
-    glide tree draft's [0, tree_base)) and one empty row."""
-    Bk, S, Hkv, G, D = 4, 300, 2, 2, 16
+    glide tree draft's [0, tree_base)) and one empty row; head_dim 16 and
+    128."""
+    Bk, S, Hkv, G = 4, 300, 2, 2
     rng = np.random.default_rng(10 + T)
     k = (rng.standard_normal((Bk, S, Hkv * D)) * 0.5).astype(np.float32)
     v = rng.standard_normal((Bk, S, Hkv * D)).astype(np.float32)

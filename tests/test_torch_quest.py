@@ -45,14 +45,14 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 L2, B4, Hkv4, G2, D16 = 2, 4, 4, 2, 16
 
 
-def _masked_inputs(S, NS, T, seed):
+def _masked_inputs(S, NS, T, seed, D=D16):
     """Stacked caches, q, a 70% colmask with tail bits 1, and the draft's
     bounds: row t of sequence b attends the top bits and tail columns
     [NS, NS + tail_len[b] + t + 1)."""
     rng = np.random.default_rng(seed)
-    k = (rng.standard_normal((L2, B4, S, Hkv4 * D16)) * 0.5).astype(np.float32)
-    v = rng.standard_normal((L2, B4, S, Hkv4 * D16)).astype(np.float32)
-    q = rng.standard_normal((B4, T, Hkv4 * G2, D16)).astype(np.float32)
+    k = (rng.standard_normal((L2, B4, S, Hkv4 * D)) * 0.5).astype(np.float32)
+    v = rng.standard_normal((L2, B4, S, Hkv4 * D)).astype(np.float32)
+    q = rng.standard_normal((B4, T, Hkv4 * G2, D)).astype(np.float32)
     colmask = (rng.random((L2, B4, 1, S)) < 0.7).astype(np.int32)
     colmask[..., NS:] = 1
     tail_len = np.asarray([40, 3, S - NS - T - 1, 17], np.int32)
@@ -61,13 +61,16 @@ def _masked_inputs(S, NS, T, seed):
     return q, k, v, colmask, ns, hi
 
 
-# the (S, NS, T) cases of tests/test_flash_decode.py
-MASKED_CASES = [(256, 128, 1), (264, 96, 2)]
+# the (S, NS, T) cases of tests/test_flash_decode.py at head_dim 16, and
+# the second at head_dim 128 (the kernels' larger build)
+MASKED_CASES = [pytest.param(256, 128, 1, D16, id="256-128-1"),
+                pytest.param(264, 96, 2, D16, id="264-96-2"),
+                pytest.param(264, 96, 2, 128, id="264-96-2-d128")]
 
 
-@pytest.mark.parametrize("S,NS,T", MASKED_CASES)
-def test_stacked_masked_plain_matches_jax_kernel(S, NS, T):
-    q, k, v, cm, ns, hi = _masked_inputs(S, NS, T, seed=S + T)
+@pytest.mark.parametrize("S,NS,T,D", MASKED_CASES)
+def test_stacked_masked_plain_matches_jax_kernel(S, NS, T, D):
+    q, k, v, cm, ns, hi = _masked_inputs(S, NS, T, seed=S + T, D=D)
     tt = [torch.from_numpy(x) for x in (q, k, v)]
     tcm, tns, thi = (torch.from_numpy(x) for x in (cm, ns, hi))
     for layer in range(L2):

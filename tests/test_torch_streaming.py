@@ -42,11 +42,11 @@ TOL = dict(rtol=2e-5, atol=2e-5)
 B4, Hkv4, G4, D16 = 4, 4, 2, 16
 
 
-def _flat_inputs(S, T, seed):
+def _flat_inputs(S, T, seed, D=D16):
     rng = np.random.default_rng(seed)
-    k = (rng.standard_normal((B4, S, Hkv4 * D16)) * 0.5).astype(np.float32)
-    v = rng.standard_normal((B4, S, Hkv4 * D16)).astype(np.float32)
-    q = rng.standard_normal((B4, T, Hkv4 * G4, D16)).astype(np.float32)
+    k = (rng.standard_normal((B4, S, Hkv4 * D)) * 0.5).astype(np.float32)
+    v = rng.standard_normal((B4, S, Hkv4 * D)).astype(np.float32)
+    q = rng.standard_normal((B4, T, Hkv4 * G4, D)).astype(np.float32)
     return q, k, v
 
 
@@ -59,23 +59,25 @@ def _bounds(sink, lo, width, T):
             (lo + width).astype(np.int32))
 
 
-# (S, sink, window starts, window width): the case of
+# (S, sink, window starts, window width, head_dim): the case of
 # tests/test_flash_decode.py (a 16-slot sink and 60-slot windows), a gap of
 # whole 64-slot tiles between a 128-slot sink and the window, a window past
-# the first 512-slot split, and windows that start inside the sink
+# the first 256-slot split of the decode kernel, windows that start inside
+# the sink, and the gap case at head_dim 128 (the kernels' larger build)
 INTERVAL_CASES = {
-    "sink16_window60": (256, 16, [64, 80, 100, 64], 60),
-    "gap_of_whole_tiles": (384, 128, [320, 256, 200, 300], 60),
-    "window_past_split": (704, 16, [520, 600, 16, 640], 62),
-    "window_inside_sink": (256, 32, [0, 10, 31, 32], 40),
+    "sink16_window60": (256, 16, [64, 80, 100, 64], 60, D16),
+    "gap_of_whole_tiles": (384, 128, [320, 256, 200, 300], 60, D16),
+    "window_past_split": (704, 16, [520, 600, 16, 640], 62, D16),
+    "window_inside_sink": (256, 32, [0, 10, 31, 32], 40, D16),
+    "gap_of_whole_tiles_d128": (384, 128, [320, 256, 200, 300], 60, 128),
 }
 
 
 @pytest.mark.parametrize("T", [1, 2])
 @pytest.mark.parametrize("case", sorted(INTERVAL_CASES))
 def test_intervals_plain_matches_jax_kernel(case, T):
-    S, sink, lo, width = INTERVAL_CASES[case]
-    q, k, v = _flat_inputs(S, T, seed=S + T)
+    S, sink, lo, width, D = INTERVAL_CASES[case]
+    q, k, v = _flat_inputs(S, T, seed=S + T, D=D)
     a, lo, hi = _bounds(sink, lo, width, T)
     ref = jfd.flash_decode_intervals(jnp.asarray(q), jnp.asarray(k),
                                      jnp.asarray(v), jnp.asarray(a),
