@@ -32,15 +32,22 @@ exits non-zero):
                 kernel run with an all-ones colmask (a kernel that ignores
                 the bits), and with an all-ones colmask and a = lo = 0 the
                 masked kernel must give flash_decode_stacked's bits
-  5. gather     page_gather bit-exact against its plain version (7 of the 33
-                pages of a 4224-slot layer, repeated and out-of-order pages),
-                bf16 and f32, into new tensors and into a round buffer's top
-                region
-  6. gather1   page_gather_single bit-exact against its plain version (28 of
-                the 130 clusters of the main path's KV-fused store, pages of
-                2cap = 64 rows, repeated and out-of-order clusters), bf16 and
-                f32, into a new tensor and split into a round buffer's K and
-                V top regions
+  5. gather     page_gather bit-exact against its plain version at head_dim
+                64 and 128 (7 of the 33 pages of 128 rows of a 4224-slot
+                layer, and 7 of 64 pages of 66 rows, which are no multiple
+                of the kernel's 16 KB chunk; repeated and out-of-order pages, the
+                last page and indices past both ends, clamped), bf16 and
+                f32, into new tensors and into a round buffer's top region;
+                every destination is first filled with 0xFF bytes (new
+                tensors: the caching allocator's freed blocks, and a launch
+                into filled tensors), and the kernel launched with its
+                planted fault (each unit's last chunk dropped) must fail
+                the same checks; a ring beyond the kernel's limits must be
+                refused
+  6. gather1   page_gather_single the same way (28 of the 130 clusters of
+                the main path's KV-fused store, pages of 2cap = 64 rows and
+                of 66), into a new tensor and split into a round buffer's K
+                and V top regions
   7. scores     centroid_scores vs its plain version in f32 (q bf16 and f32,
                 T in {1, 7}, the main path's 130 centroids as a strided view,
                 flat and peaked softmax) within 1e-5 + 1e-5 |plain|
@@ -129,9 +136,10 @@ exits non-zero):
                 layers, dim 4096, 32/8 heads, FFN 14336, vocab 128256),
                 random bf16 weights (seed 0), B=8, P=4096, 64 new tokens,
                 gamma 6: AR, SnapKV 1024 and full budget, StreamingLLM full
-                budget, Quest 1024 and a GliDe tree (2,2) generation; every
-                stream but the tree's equals the AR stream, the full budgets
-                accept exactly 1.0, launch counts as each path implies (they
+                budget, Quest 1024, RetroInfer 1024 and a GliDe tree (2,2)
+                generation; every stream but the tree's equals the AR
+                stream, the full budgets accept exactly 1.0, launch counts
+                as each path implies (they
                 are the launches of the head_dim-128 kernel entries); then
                 the step profile of an AR step and a SnapKV round
  13. times      each kernel at the main path's shapes (the attention kernels
@@ -149,7 +157,14 @@ exits non-zero):
                 torch._weight_int4pack_mm) and the fused pair at M = 8 and 56
                 (yardstick: the unfused chain, several calls); and the
                 return_lse forms at the GliDe shapes (SDPA, which returns no
-                (m, l), as the yardstick)
+                (m, l), as the yardstick). The gathers are timed at both
+                head dims (the D=128 page_gather is the llama-3.1-8b Quest
+                path's)
+ 13a. gather_variants  the gather kernel's geometries (GATHER_VARIANTS:
+                bulk async copies at several chunk sizes, ring depths and
+                CTAs an SM) on both gathers' timed shapes at both head
+                dims, each bit-checked, with index_select timed in the same
+                call
  14. profile    device-busy share, launches, top kernels and top host ops
                 of an AR step (bf16, int8, int4, fused), of a GliDe tree
                 (2,2) round and of a SnapKV, a Quest and a RetroInfer round at
@@ -243,9 +258,9 @@ def main() -> int:
         errs["flash_prefill" + x] = check_prefill(torch, dev, D)
         (errs["flash_decode_stacked_lse" + x],
          errs["flash_decode_intervals_lse" + x]) = check_lse(torch, dev, D)
-    errs.update({"page_gather": check_page_gather(torch, dev),
-                 "page_gather_single": check_page_gather_single(torch, dev),
-                 "centroid_scores": check_centroid_scores(torch, dev),
+    errs.update(check_page_gather(torch, dev))
+    errs.update(check_page_gather_single(torch, dev))
+    errs.update({"centroid_scores": check_centroid_scores(torch, dev),
                  "int4_matmul": check_int4(torch, dev)})
     errs.update(check_fused(torch, dev))
     check_reference(torch, dev)
@@ -264,6 +279,7 @@ def main() -> int:
     kernels = (time_kernels(torch, dev, errs, launches)
                + time_weight_kernels(torch, dev, errs, launches)
                + time_kernels(torch, dev, errs, launches128, D=128))
+    gather_variants(torch, dev)
     step_profile(torch, dev)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -546,72 +562,176 @@ def check_masked(torch, dev, D=64):
     return main_err
 
 
+# every gather destination holds this byte before a bit check: a NaN in bf16
+# and f32, never the right answer, so a chunk the kernel skips shows
+SENTINEL = 0xFF
+
+
+def _sentinel(torch, t):
+    t.view(torch.uint8).fill_(SENTINEL)
+    return t
+
+
+def _untouched(torch, t):
+    return bool((t.view(torch.uint8) == SENTINEL).all())
+
+
+def _same(torch, got, want):
+    return all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _from_sentinel_blocks(torch, like, call):
+    """call() (a gather without out, which allocates one output like each
+    tensor of `like`, in order) right after sentinel-filled blocks of those
+    sizes were freed: the caching allocator hands the same blocks back, so
+    the outputs start as sentinel bytes. Returns (call's outputs as a list,
+    whether they are those blocks); where they are not, the caller's launch
+    into sentinel-filled tensors of the same shapes still checks the
+    kernel."""
+    blocks = [_sentinel(torch, torch.empty_like(t)) for t in like]
+    ptrs = [t.data_ptr() for t in blocks]
+    del blocks
+    res = call()
+    res = list(res) if isinstance(res, (tuple, list)) else [res]
+    return res, [t.data_ptr() for t in res] == ptrs
+
+
+def _gather_pages(torch, dev, n_src, n, seed):
+    """[B, n] int32 page indices into n_src pages: random, one row out of
+    order, one repeated, the last page and two past it, one below 0 (the
+    kernel clamps into [0, n_src))."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    pages = torch.randint(0, n_src, (B, n), generator=g, device=dev,
+                          dtype=torch.int32)
+    pages[0] = torch.arange(n_src - 1, n_src - 1 - n, -1, device=dev)
+    pages[1] = 5
+    pages[2, :3] = torch.tensor([n_src - 1, n_src, n_src + 40], device=dev)
+    pages[3, 0] = -3
+    return pages
+
+
 def check_page_gather(torch, dev):
-    from magicdec_tpu_torch.ops.page_gather import page_gather, page_gather_plain
+    """page_gather bit-exact against its plain version at both head dims, in
+    bf16 and f32, with pages of 128 rows (the Quest page) and of 66 rows
+    (no multiple of the kernel's 16 KB chunk at either head dim or type):
+    into new tensors and into a round buffer's top region, every
+    destination sentinel-filled first; the kernel with its planted fault
+    (each unit's last chunk dropped) must fail the same checks, and the C
+    entry must refuse a ring beyond its limits (it alone holds them)."""
+    from magicdec_tpu_torch.ops import page_gather as pg
 
     S, n = 4224, QUEST_NS // QUEST_PAGE
-    g = torch.Generator(device=dev).manual_seed(60)
-    pages = torch.randint(0, S // QUEST_PAGE, (B, n), generator=g, device=dev,
-                          dtype=torch.int32)
-    pages[0] = torch.arange(n, 0, -1, device=dev)      # out of order
-    pages[1] = 5                                       # one page repeated
-    res = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
-        _, k, v = _cache_inputs(torch, dev, dtype, S, 1, seed=61)
-        bufs = torch.zeros((2, 2, B, QUEST_R, k.shape[-1]), dtype=dtype,
-                           device=dev)
-        for layer in (0, 1):
-            want = page_gather_plain(k, v, layer, pages, QUEST_PAGE)
-            got = page_gather(k, v, layer, pages, QUEST_PAGE)
-            tops = [buf[layer, :, :QUEST_NS].view(B, n, QUEST_PAGE, -1)
-                    for buf in bufs]
-            page_gather(k, v, layer, pages, QUEST_PAGE, out=tops)
-            ok = (all(torch.equal(a, b) for a, b in zip(got, want))
-                  and all(torch.equal(a, b) for a, b in zip(tops, want))
-                  and not bool(bufs[:, layer, :, QUEST_NS:].any()))
-            if not ok:
-                fail(f"page_gather {name} layer {layer}: not bit-exact")
-            res[f"{name}_l{layer}"] = True
-    line(phase="page_gather_vs_plain", pages=[B, n], page=QUEST_PAGE, S=S,
-         bitexact=res)
-    return 0.0
+    res, reused, errs = {}, {}, {}
+    for D in HEAD_DIMS:
+        for page in (QUEST_PAGE, 66):
+            pages = _gather_pages(torch, dev, S // page, n, seed=60 + page)
+            top = n * page
+            for dtype in (torch.bfloat16, torch.float32):
+                name = f"D{D}_page{page}_{str(dtype).split('.')[1]}"
+                _, k, v = _cache_inputs(torch, dev, dtype, S, 1, seed=61, D=D)
+                bufs = torch.empty((2, 2, B, top + 64, k.shape[-1]),
+                                   dtype=dtype, device=dev)
+                for layer in (0, 1):
+                    want = pg.page_gather_plain(k, v, layer, pages, page)
+                    got, reused[f"{name}_l{layer}"] = _from_sentinel_blocks(
+                        torch, want, lambda: pg.page_gather(k, v, layer, pages,
+                                                            page))
+                    fresh = [_sentinel(torch, torch.empty_like(w))
+                             for w in want]
+                    pg._gather_launch(k, v, layer, pages, page, fresh)
+                    _sentinel(torch, bufs)
+                    tops = [buf[layer, :, :top].view(B, n, page, -1)
+                            for buf in bufs]
+                    pg.page_gather(k, v, layer, pages, page, out=tops)
+                    ok = (_same(torch, got, want) and _same(torch, fresh, want)
+                          and _same(torch, tops, want)
+                          and _untouched(torch, bufs[:, layer, :, top:])
+                          and _untouched(torch, bufs[:, 1 - layer]))
+                    if not ok:
+                        fail(f"page_gather {name} layer {layer}: not "
+                             f"bit-exact")
+                    _sentinel(torch, bufs)
+                    pg._gather_launch(k, v, layer, pages, page, tops, fault=1)
+                    for t in fresh:
+                        _sentinel(torch, t)
+                    pg._gather_launch(k, v, layer, pages, page, fresh, fault=1)
+                    if _same(torch, tops, want) or _same(torch, fresh, want):
+                        fail(f"page_gather {name} layer {layer}: the bit "
+                             f"check does not reject the dropped last chunk")
+                    res[f"{name}_l{layer}"] = True
+        errs["page_gather" + _sfx(D)] = 0.0
+    for knobs in (dict(stages=1), dict(chunk_bytes=64 << 10, stages=4)):
+        try:
+            pg._gather_launch(k, v, 0, pages, page, tops, **knobs)
+        except RuntimeError:
+            continue
+        fail(f"page_gather: the C entry took a ring of {knobs}")
+    line(phase="page_gather_vs_plain", pages=[B, n], pages_rows=[QUEST_PAGE, 66],
+         S=S, head_dims=list(HEAD_DIMS), bitexact=res,
+         sentinel=f"0x{SENTINEL:02X} bytes", dropped_chunk_rejected=True,
+         ring_beyond_limits_refused=True,
+         new_tensors_from_sentinel_blocks=reused)
+    return errs
 
 
 def check_page_gather_single(torch, dev):
-    from magicdec_tpu_torch.ops.page_gather import (page_gather_single,
-                                                    page_gather_single_plain)
+    """page_gather_single bit-exact against its plain version at both head
+    dims, in bf16 and f32, with clusters of 2cap = 64 rows (the main path's
+    store) and of 66 rows (halves of 33 rows, no multiple of a chunk): whole pages
+    into a new tensor and halves into a round buffer's K and V top regions,
+    every destination sentinel-filled first; the planted fault must fail
+    the same checks."""
+    from magicdec_tpu_torch.ops import page_gather as pg
 
-    page = 2 * RETRO_CAP
-    g = torch.Generator(device=dev).manual_seed(62)
-    pages = torch.randint(0, RETRO_C, (B, RETRO_N), generator=g, device=dev,
-                          dtype=torch.int32)
-    pages[0] = torch.arange(RETRO_C - 1, RETRO_C - 1 - RETRO_N, -1,
-                            device=dev)                  # out of order
-    pages[1] = 7                                         # one repeated
-    res = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
-        _, store, _ = _cache_inputs(torch, dev, dtype, RETRO_C * page, 1,
-                                    seed=63)
-        bufs = torch.zeros((2, 2, B, QUEST_R, store.shape[-1]), dtype=dtype,
-                           device=dev)
-        for layer in (0, 1):
-            want = page_gather_single_plain(store, layer, pages, page)
-            got = page_gather_single(store, layer, pages, page)
-            tops = [buf[layer, :, :RETRO_NS].view(B, RETRO_N, RETRO_CAP, -1)
-                    for buf in bufs]
-            page_gather_single(store, layer, pages, page, out=tops)
-            ok = (torch.equal(got, want)
-                  and torch.equal(tops[0], want[:, :, :RETRO_CAP])
-                  and torch.equal(tops[1], want[:, :, RETRO_CAP:])
-                  and not bool(bufs[:, layer, :, RETRO_NS:].any()))
-            if not ok:
-                fail(f"page_gather_single {name} layer {layer}: not bit-exact")
-            res[f"{name}_l{layer}"] = True
-    line(phase="page_gather_single_vs_plain", pages=[B, RETRO_N], page=page,
-         R=RETRO_C * page, bitexact=res)
-    return 0.0
+    res, reused, errs = {}, {}, {}
+    for D in HEAD_DIMS:
+        for page in (2 * RETRO_CAP, 66):
+            cap = page // 2
+            pages = _gather_pages(torch, dev, RETRO_C, RETRO_N, seed=62 + page)
+            top = RETRO_N * cap
+            for dtype in (torch.bfloat16, torch.float32):
+                name = f"D{D}_page{page}_{str(dtype).split('.')[1]}"
+                _, store, _ = _cache_inputs(torch, dev, dtype, RETRO_C * page,
+                                            1, seed=63, D=D)
+                bufs = torch.empty((2, 2, B, top + 64, store.shape[-1]),
+                                   dtype=dtype, device=dev)
+                for layer in (0, 1):
+                    want = pg.page_gather_single_plain(store, layer, pages,
+                                                       page)
+                    halves = (want[:, :, :cap], want[:, :, cap:])
+                    (got,), reused[f"{name}_l{layer}"] = _from_sentinel_blocks(
+                        torch, [want], lambda: pg.page_gather_single(
+                            store, layer, pages, page))
+                    fresh = _sentinel(torch, torch.empty_like(want))
+                    pg._single_launch(store, layer, pages, page, (fresh,))
+                    _sentinel(torch, bufs)
+                    tops = [buf[layer, :, :top].view(B, RETRO_N, cap, -1)
+                            for buf in bufs]
+                    pg.page_gather_single(store, layer, pages, page, out=tops)
+                    ok = (torch.equal(got, want) and torch.equal(fresh, want)
+                          and _same(torch, tops, halves)
+                          and _untouched(torch, bufs[:, layer, :, top:])
+                          and _untouched(torch, bufs[:, 1 - layer]))
+                    if not ok:
+                        fail(f"page_gather_single {name} layer {layer}: not "
+                             f"bit-exact")
+                    _sentinel(torch, bufs)
+                    pg._single_launch(store, layer, pages, page, tops, fault=1)
+                    _sentinel(torch, fresh)
+                    pg._single_launch(store, layer, pages, page, (fresh,),
+                                      fault=1)
+                    if _same(torch, tops, halves) or torch.equal(fresh, want):
+                        fail(f"page_gather_single {name} layer {layer}: the "
+                             f"bit check does not reject the dropped last "
+                             f"chunk")
+                    res[f"{name}_l{layer}"] = True
+        errs["page_gather_single" + _sfx(D)] = 0.0
+    line(phase="page_gather_single_vs_plain", pages=[B, RETRO_N],
+         pages_rows=[2 * RETRO_CAP, 66], R=RETRO_C * 2 * RETRO_CAP,
+         head_dims=list(HEAD_DIMS), bitexact=res,
+         sentinel=f"0x{SENTINEL:02X} bytes", dropped_chunk_rejected=True,
+         new_tensors_from_sentinel_blocks=reused)
+    return errs
 
 
 def check_centroid_scores(torch, dev):
@@ -1740,9 +1860,11 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
     bf16 weights from a seeded torch.Generator (seed 0, scale 0.3; 16 GB),
     B=8, P=4096, 64 new tokens, gamma 6, through the main path's Engine: AR,
     SnapKV at budget 1024 and at full budget, StreamingLLM at full budget,
-    Quest at budget 1024 (the masked kernel) and a greedy GliDe tree (2,2)
-    generation with a random glide block (the return_lse forms). Every
-    SnapKV, StreamingLLM and Quest stream must equal the AR stream, the full
+    Quest at budget 1024 (the masked kernel and page_gather), RetroInfer at
+    budget 1024 (page_gather_single and centroid_scores) and a greedy GliDe
+    tree (2,2) generation with a random glide block (the return_lse forms).
+    Every SnapKV, StreamingLLM, Quest and RetroInfer stream must equal the
+    AR stream, the full
     budgets must accept exactly 1.0 and each run's launch counts (zeroed
     before it) must be those its path implies; the tree stream's share
     matching AR before a divergence is printed. Then the step profile of an
@@ -1771,11 +1893,12 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
     for name, spec, budget in (("ar", None, 0), ("snapkv", "snapkv", BUDGET),
                                ("snapkv_full", "snapkv", P),
                                ("streaming_full", "streaming", STREAM_FULL),
-                               ("quest", "quest", BUDGET)):
+                               ("quest", "quest", BUDGET),
+                               ("retro", "retro", BUDGET)):
         runs[name] = _spec_run(torch, cfg, params, prompt, name, spec, budget)
         total = _add(total, runs[name]["launches"])
     ar = runs["ar"]["out"]
-    for name in ("snapkv", "snapkv_full", "streaming_full", "quest"):
+    for name in ("snapkv", "snapkv_full", "streaming_full", "quest", "retro"):
         _check_stream(torch, f"llama8b {name}", runs[name]["out"],
                       runs[name]["counts"], ar, cfg.vocab_size)
     for name in ("snapkv_full", "streaming_full"):
@@ -1911,7 +2034,7 @@ def _sdpa(torch, q, k_cache, v_cache, layer, valid, ext):
 
 
 def time_kernels(torch, dev, errs, launches, D=64):
-    """The attention kernels at head_dim D (both), the gathers and
+    """The attention kernels and the gathers at head_dim D (both), and
     centroid_scores (at D = 64, the main path's): device ms, eager ms, plain
     ms, bound and library ms per kernel entry; `launches` are the main
     path's counts of this D's model."""
@@ -2166,15 +2289,6 @@ def time_kernels(torch, dev, errs, launches, D=64):
                  "ms": m["ms"], "plain_ms": m["plain_ms"],
                  "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                  "library_ms": m["library_ms"]})
-    if D != 64:     # the gathers and centroid_scores: once, at the main D
-        del k, v, bk, bv
-        torch.cuda.empty_cache()
-        _set_counts(saved)
-        line(phase="times" + x, D=D, model=MODEL_OF_D[D], decode_shapes=extra,
-             intervals_shapes=draft_shapes, lse_shapes=lse_shapes,
-             prefill_last_chunk=prefill, masked_shapes=masked_shapes)
-        return rows
-
     # page_gather: the round-opening step's gather at budget 1024 (7 of the
     # 33 pages of a 4224-slot layer, bf16) into the round buffer's top region
     n = QUEST_NS // QUEST_PAGE
@@ -2200,11 +2314,11 @@ def time_kernels(torch, dev, errs, launches, D=64):
     gather = dict(pages=[B, n], ms=t_k, eager_ms=t_e, plain_ms=t_p,
                   library_ms=t_l, library="2x index_select (K, V)",
                   bound_ms=b_ms, bound_by=b_by)
-    rows.append({"name": "page_gather", "route": "cuda",
+    rows.append({"name": "page_gather" + x, "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/page_gather.cu",
                  "replaces": "magicdec_tpu/ops/pallas/page_gather.py:268",
                  "launches": launches["page_gather"],
-                 "max_abs_err": errs["page_gather"], "ms": t_k,
+                 "max_abs_err": errs["page_gather" + x], "ms": t_k,
                  "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": t_l})
     del tops
@@ -2240,14 +2354,22 @@ def time_kernels(torch, dev, errs, launches, D=64):
                          eager_ms=t_e, plain_ms=t_p, library_ms=t_l,
                          library="1x index_select of whole 2cap-row pages",
                          bound_ms=b_ms, bound_by=b_by)
-    rows.append({"name": "page_gather_single", "route": "cuda",
+    rows.append({"name": "page_gather_single" + x, "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/page_gather.cu",
                  "replaces": "magicdec_tpu/ops/pallas/page_gather.py:169",
                  "launches": launches["page_gather_single"],
-                 "max_abs_err": errs["page_gather_single"], "ms": t_k,
+                 "max_abs_err": errs["page_gather_single" + x], "ms": t_k,
                  "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": t_l})
     del bk, bv, tops, store
+    if D != 64:     # centroid_scores: once, at the main D
+        torch.cuda.empty_cache()
+        _set_counts(saved)
+        line(phase="times" + x, D=D, model=MODEL_OF_D[D], decode_shapes=extra,
+             intervals_shapes=draft_shapes, lse_shapes=lse_shapes,
+             prefill_last_chunk=prefill, masked_shapes=masked_shapes,
+             page_gather=gather, page_gather_single=gather_single)
+        return rows
 
     # centroid_scores: the RetroInfer round-opening step's scoring (T=1,
     # Hq=32 over Hkv=8, the 130 float32 centroids of each layer read as a
@@ -2297,6 +2419,122 @@ def time_kernels(torch, dev, errs, launches, D=64):
          page_gather=gather, page_gather_single=gather_single,
          centroid_scores=scores)
     return rows
+
+
+# the gather kernel's geometries timed against each other (ops/page_gather.py
+# `_launch` knobs); the wrappers launch bulk_16k_x12, the fixed geometry
+GATHER_VARIANTS = {
+    "bulk_8k_x16": dict(chunk_bytes=8 << 10, stages=16),
+    "bulk_16k_x12": dict(chunk_bytes=16 << 10, stages=12),
+    "bulk_32k_x6": dict(chunk_bytes=32 << 10, stages=6),
+    "bulk_64k_x3": dict(chunk_bytes=64 << 10, stages=3),
+    "bulk_16k_x6_2cta": dict(chunk_bytes=16 << 10, stages=6, ctas_per_sm=2),
+    "bulk_32k_x3_2cta": dict(chunk_bytes=32 << 10, stages=3, ctas_per_sm=2),
+}
+
+
+def gather_variants(torch, dev, L=16):
+    """Every geometry of GATHER_VARIANTS on the `times` shapes of
+    both gathers at both head dims (bf16, 16 layers cycled): device ms from
+    a replayed CUDA graph, index_select's ms in the same call, and a bit
+    check of each variant against the plain version into sentinel-filled
+    outputs (fails if one differs). Then the kept kernel and index_select
+    into the same kinds of destination: new outputs (as `times` times
+    index_select) and 16 per-layer outputs (as the round buffer's layers)."""
+    from magicdec_tpu_torch.ops import page_gather as pg
+
+    S, n, page = 4224, QUEST_NS // QUEST_PAGE, 2 * RETRO_CAP
+    saved = _counts()
+    cpu_g = torch.Generator().manual_seed(72)
+    pages = torch.stack([torch.randperm(S // QUEST_PAGE, generator=cpu_g)[:n]
+                         for _ in range(B)]).to(dev, torch.int32)
+    clusters = torch.stack([torch.randperm(RETRO_C, generator=cpu_g)[:RETRO_N]
+                            for _ in range(B)]).to(dev, torch.int32)
+    p_idx = (torch.arange(B, device=dev)[:, None] * (S // QUEST_PAGE)
+             + pages.long()).reshape(-1)
+    c_idx = (torch.arange(B, device=dev)[:, None] * RETRO_C
+             + clusters.long()).reshape(-1)
+    res = {}
+    for D in HEAD_DIMS:
+        HD = 8 * D
+        g = torch.Generator(device=dev).manual_seed(73)
+        k, v = (torch.randn((L, B, S, HD), generator=g, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+        store = torch.randn((L, B, RETRO_C * page, HD), generator=g,
+                            device=dev, dtype=torch.bfloat16)
+        bufs = torch.empty((2, L, B, QUEST_R, HD), dtype=torch.bfloat16,
+                           device=dev)
+        q_tops = [[b_[l, :, :QUEST_NS].view(B, n, QUEST_PAGE, HD)
+                   for b_ in bufs] for l in range(L)]
+        r_tops = [[b_[l, :, :RETRO_NS].view(B, RETRO_N, RETRO_CAP, HD)
+                   for b_ in bufs] for l in range(L)]
+        want_q = pg.page_gather_plain(k, v, 0, pages, QUEST_PAGE)
+        want_r = pg.page_gather_single_plain(store, 0, clusters, page)
+        want_r = (want_r[:, :, :RETRO_CAP], want_r[:, :, RETRO_CAP:])
+        times = {"index_select": {
+            "page_gather": _time_ms(torch, lambda l: [
+                c[l].view(-1, QUEST_PAGE * HD).index_select(0, p_idx)
+                for c in (k, v)], L, graph=True),
+            "page_gather_single": _time_ms(torch, lambda l: store[l].view(
+                -1, page * HD).index_select(0, c_idx), L, graph=True)}}
+        for name, knobs in GATHER_VARIANTS.items():
+            _sentinel(torch, bufs)
+            pg._gather_launch(k, v, 0, pages, QUEST_PAGE, q_tops[0], **knobs)
+            pg._single_launch(store, 0, clusters, page, r_tops[1], **knobs)
+            if not (_same(torch, q_tops[0], want_q)
+                    and _same(torch, r_tops[1], want_r)):
+                fail(f"gather variant {name} D={D}: not bit-exact")
+            times[name] = {
+                "page_gather": _time_ms(torch, lambda l: pg._gather_launch(
+                    k, v, l, pages, QUEST_PAGE, q_tops[l], **knobs), L,
+                    graph=True),
+                "page_gather_single": _time_ms(
+                    torch, lambda l: pg._single_launch(
+                        store, l, clusters, page, r_tops[l], **knobs), L,
+                    graph=True)}
+        # the same work into the same kind of destination as index_select:
+        # new outputs (the graph's pool hands each replay the same memory),
+        # and 16 contiguous per-layer outputs for both
+        q_outs = [[torch.empty((B, n, QUEST_PAGE, HD), dtype=torch.bfloat16,
+                               device=dev) for _ in range(2)] for _ in range(L)]
+        r_outs = [torch.empty((B, RETRO_N, page, HD), dtype=torch.bfloat16,
+                              device=dev) for _ in range(L)]
+
+        def rows_of(t, width):
+            return t.view(-1, width * HD)
+
+        same = {
+            "kernel_new_output": (
+                lambda l: pg.page_gather(k, v, l, pages, QUEST_PAGE),
+                lambda l: pg.page_gather_single(store, l, clusters, page)),
+            "kernel_into_layers": (
+                lambda l: pg.page_gather(k, v, l, pages, QUEST_PAGE,
+                                         out=q_outs[l]),
+                lambda l: pg._single_launch(store, l, clusters, page,
+                                            (r_outs[l],))),
+            "index_select_into_layers": (
+                lambda l: [torch.index_select(
+                    rows_of(c[l], QUEST_PAGE), 0, p_idx,
+                    out=rows_of(o, QUEST_PAGE)) for c, o in zip((k, v),
+                                                                q_outs[l])],
+                lambda l: torch.index_select(rows_of(store[l], page), 0,
+                                             c_idx, out=rows_of(r_outs[l],
+                                                                page)))}
+        for name, (fq, fr) in same.items():
+            times[name] = {
+                "page_gather": _time_ms(torch, fq, L, graph=True),
+                "page_gather_single": _time_ms(torch, fr, L, graph=True)}
+        res[f"D{D}"] = times
+        del k, v, store, bufs, q_tops, r_tops, q_outs, r_outs
+        torch.cuda.empty_cache()
+    _set_counts(saved)
+    line(phase="gather_variants", ms=res, variants=GATHER_VARIANTS,
+         shapes={"page_gather": [B, n, QUEST_PAGE],
+                 "page_gather_single": [B, RETRO_N, page]},
+         kept=dict(chunk_bytes=pg.CHUNK_BYTES, stages=pg.STAGES,
+                   ctas_per_sm=pg.CTAS_PER_SM),
+         bitexact=True)
+    return res
 
 
 def _int4pack_mm(torch, q4, s4):

@@ -1,17 +1,20 @@
 """Page gathers: copy selected pages of one layer, with their plain PyTorch
-versions and launch counts.
+versions, launch counts and the kernel's launch geometry.
 
 `page_gather` replaces magicdec_tpu/ops/pallas/page_gather.py page_gather
 (pallas_call at :231 in DMA mode and :268 in grid mode) and
 `page_gather_single` replaces page_gather_single there (pallas_call at :142
-in DMA mode and :169 in grid mode). Both launch one hand-written CUDA C++
-kernel for sm_90a (csrc/page_gather.cu, built by ops/_build.py). The Quest
-draft runs `page_gather` once per layer at the start of each round, to fill
-the round buffer's top region with the top-scored pages of the K and V
-caches; the RetroInfer and SqueezedAttention drafts run `page_gather_single`
-there on their KV-fused cluster store (a cluster's K rows followed by its V
-rows), splitting each cluster into the K and V top regions in one launch.
-With `out` both write into the round buffer directly.
+in DMA mode and :169 in grid mode). Each call is one launch of a
+hand-written CUDA C++ kernel for sm_90a (csrc/page_gather.cu, built by
+ops/_build.py): Hopper bulk async copies of CHUNK_BYTES chunks through a
+ring of STAGES shared-memory stages, one single-warp CTA an SM. The Quest
+draft runs `page_gather` once per layer at the
+start of each round, to fill the round buffer's top region with the
+top-scored pages of the K and V caches; the RetroInfer and
+SqueezedAttention drafts run `page_gather_single` there on their KV-fused
+cluster store (a cluster's K rows followed by its V rows), splitting each
+cluster into the K and V top regions in one launch. With `out` both write
+into the round buffer directly.
 
 On tensors on the CPU the wrappers run the plain versions (indexed copies);
 on CUDA tensors they launch the kernel or raise.
@@ -20,10 +23,19 @@ on CUDA tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 from magicdec_tpu_torch.ops import _build
+
+# The kernel's fixed geometry, chosen on the card among the ones that
+# chip_smoke.py `gather_variants` times (PERF.md): bytes per bulk copy, ring
+# stages a CTA, CTAs an SM. The C entry rejects a ring beyond its limits.
+CHUNK_BYTES = 16 * 1024
+STAGES = 12
+CTAS_PER_SM = 1
 
 
 def _slots(pages: torch.Tensor, page: int, n_src_pages: int) -> torch.Tensor:
@@ -62,12 +74,50 @@ def page_gather_single_plain(store: torch.Tensor, layer: int,
     return _take_pages(store, layer, pages, page)
 
 
+class Geometry(NamedTuple):
+    """One launch's work: `units` units (part, sequence, page) of
+    unit_bytes, each cut into chunks_per_unit chunks of chunk_bytes, the
+    last one tail_bytes long; chunk i belongs to unit i // chunks_per_unit,
+    and CTA c of the `grid` walks chunks c, c + grid, ... through `stages`
+    ring stages of chunk_bytes."""
+    units: int
+    unit_bytes: int
+    chunk_bytes: int
+    chunks_per_unit: int
+    tail_bytes: int
+    grid: int
+    stages: int
+
+
+def geometry(units: int, unit_bytes: int, sms: int,
+             chunk_bytes: int = CHUNK_BYTES, stages: int = STAGES,
+             ctas_per_sm: int = CTAS_PER_SM) -> Geometry:
+    """The launch geometry of `units` units of unit_bytes (a multiple of 16)
+    on a card of `sms` SMs: chunks of at most chunk_bytes, a grid of
+    ctas_per_sm CTAs an SM (never more CTAs than chunks), `stages` ring
+    stages."""
+    if unit_bytes <= 0 or unit_bytes % 16 or chunk_bytes <= 0 or chunk_bytes % 16:
+        raise ValueError(f"unit of {unit_bytes} bytes, chunks of {chunk_bytes}:"
+                         f" both must be positive multiples of 16")
+    chunk = min(chunk_bytes, unit_bytes)
+    per_unit = -(-unit_bytes // chunk)
+    grid = min(units * per_unit, ctas_per_sm * sms)
+    return Geometry(units, unit_bytes, chunk, per_unit,
+                    unit_bytes - (per_unit - 1) * chunk, grid, stages)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("page_gather")
     fn = lib.mdt_page_gather
     if fn.argtypes is None:
         P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        fn.argtypes = [P, P, P, P, P, I, I, I, I, I, I, LL, LL, LL, LL, P]
+        fn.argtypes = [P, P, P, P, P, I, I, I, I, LL, LL, LL, LL,
+                       I, I, I, I, I, I, P]
         fn.restype = I
     return lib
 
@@ -113,23 +163,56 @@ def _check_operands(what: str, srcs, pages, layer: int, page: int, out):
 
 
 def _launch(src0, src1, pages, out, layer: int, page: int, rows: int,
-            src_page_rows: int):
-    """One launch: part z copies `rows` rows of each selected page (pages of
-    src_page_rows rows) from source z into out[z]."""
+            fault: int = 0, **knobs):
+    """One launch on checked operands: part z copies `rows` rows of each
+    selected page (pages of `page` rows) from source z (src1: a byte address,
+    or None for one part) into out[z]. fault and the geometry knobs
+    (chunk_bytes, stages, ctas_per_sm; the fixed geometry by default) are
+    chip_smoke's: its planted fault (each unit's last chunk dropped) and its
+    sweep of geometries."""
     L, B, R, HD = src0.shape
+    parts, n = len(out), pages.shape[1]
     row_bytes = HD * src0.element_size()
+    g = geometry(parts * B * n, rows * row_bytes, _sms(src0.device.index),
+                 **knobs)
     layer_bytes = layer * B * R * row_bytes
-    o_b = out[0].stride(0) * out[0].element_size()
     rc = _lib().mdt_page_gather(
         src0.data_ptr() + layer_bytes,
         None if src1 is None else src1 + layer_bytes,
         pages.data_ptr(), out[0].data_ptr(),
-        out[-1].data_ptr() if len(out) == 2 else None,
-        1 if src1 is None else 2, B, pages.shape[1], R // page, rows,
-        row_bytes, R * row_bytes, src_page_rows * row_bytes, o_b,
-        rows * row_bytes, torch.cuda.current_stream(src0.device).cuda_stream)
+        out[1].data_ptr() if parts == 2 else None, parts, B, n, R // page,
+        R * row_bytes, page * row_bytes,
+        out[0].stride(0) * out[0].element_size(), rows * row_bytes,
+        g.chunk_bytes, g.chunks_per_unit, g.tail_bytes, g.grid, g.stages,
+        fault, torch.cuda.current_stream(src0.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"page gather launch failed with cudaError_t {rc}")
+
+
+def _gather_launch(k_cache, v_cache, layer: int, pages, page: int, out,
+                   **private):
+    """page_gather's checked launch into the output pair `out`; `private`
+    as _launch's."""
+    _, B, _, HD = k_cache.shape
+    _check_operands("page_gather", (k_cache, v_cache), pages, layer, page, out)
+    for o in out:
+        _check_out(o, k_cache, (B, pages.shape[1], page, HD))
+    _launch(k_cache, v_cache.data_ptr(), pages, out, layer, page, page,
+            **private)
+
+
+def _single_launch(store, layer: int, pages, page: int, out, **private):
+    """page_gather_single's checked launch: out = (blocks,) takes whole
+    pages, out = (out_k, out_v) each page's two halves; `private` as
+    _launch's."""
+    _, B, _, HD = store.shape
+    _check_operands("page_gather_single", (store,), pages, layer, page, out)
+    rows = page // len(out)
+    for o in out:
+        _check_out(o, store, (B, pages.shape[1], rows, HD))
+    _launch(store, (store.data_ptr() + rows * HD * store.element_size()
+                    if len(out) == 2 else None),
+            pages, out, layer, page, rows, **private)
 
 
 def page_gather(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
@@ -144,10 +227,10 @@ def page_gather(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
 
     Replaces the TPU kernel page_gather (pallas_call at
     magicdec_tpu/ops/pallas/page_gather.py:231 and :268). Bound by bytes on
-    the H100 (each selected row read and written once); one CTA per page and
-    tensor copies with 16-byte vectors (csrc/page_gather.cu)."""
+    the H100 (each selected row read and written once); chunks of the pages
+    copied by bulk async copies through a shared-memory ring
+    (csrc/page_gather.cu)."""
     _, B, _, HD = k_cache.shape
-    shape = (B, pages.shape[1], page, HD)
     tensors = (k_cache, v_cache, pages) + (() if out is None else tuple(out))
     if all(t.device.type == "cpu" for t in tensors):
         k_sel, v_sel = page_gather_plain(k_cache, v_cache, layer, pages, page)
@@ -157,12 +240,10 @@ def page_gather(k_cache: torch.Tensor, v_cache: torch.Tensor, layer: int,
         out[1].copy_(v_sel)
         return out
     if out is None:
-        out = tuple(torch.empty(shape, dtype=k_cache.dtype,
-                                device=k_cache.device) for _ in range(2))
-    _check_operands("page_gather", (k_cache, v_cache), pages, layer, page, out)
-    for o in out:
-        _check_out(o, k_cache, shape)
-    _launch(k_cache, v_cache.data_ptr(), pages, out, layer, page, page, page)
+        out = tuple(torch.empty((B, pages.shape[1], page, HD),
+                                dtype=k_cache.dtype, device=k_cache.device)
+                    for _ in range(2))
+    _gather_launch(k_cache, v_cache, layer, pages, page, out)
     page_gather.launches += 1
     return out
 
@@ -184,9 +265,8 @@ def page_gather_single(store: torch.Tensor, layer: int, pages: torch.Tensor,
     Replaces the TPU kernel page_gather_single (pallas_call at
     magicdec_tpu/ops/pallas/page_gather.py:142 and :169). Bound by bytes on
     the H100; the kernel of page_gather with the store's two halves as its
-    two sources (csrc/page_gather.cu), one launch."""
+    two parts (csrc/page_gather.cu), one launch."""
     _, B, _, HD = store.shape
-    n = pages.shape[1]
     if out is not None and page % 2:
         raise ValueError(f"page_gather_single: an output pair splits a page "
                          f"in halves; page {page} is odd")
@@ -199,20 +279,12 @@ def page_gather_single(store: torch.Tensor, layer: int, pages: torch.Tensor,
         out[1].copy_(blocks[:, :, page // 2:])
         return out
     if out is None:
-        res = torch.empty((B, n, page, HD), dtype=store.dtype,
+        res = torch.empty((B, pages.shape[1], page, HD), dtype=store.dtype,
                           device=store.device)
-        _check_operands("page_gather_single", (store,), pages, layer, page,
-                        (res,))
-        _launch(store, None, pages, (res,), layer, page, page, page)
+        _single_launch(store, layer, pages, page, (res,))
     else:
-        _check_operands("page_gather_single", (store,), pages, layer, page,
-                        out)
-        half = page // 2
-        for o in out:
-            _check_out(o, store, (B, n, half, HD))
-        _launch(store, store.data_ptr() + half * HD * store.element_size(),
-                pages, out, layer, page, half, page)
         res = out
+        _single_launch(store, layer, pages, page, out)
     page_gather_single.launches += 1
     return res
 

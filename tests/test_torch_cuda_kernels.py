@@ -216,52 +216,117 @@ def test_card_masked_all_ones_is_the_stacked_kernel(cuda, dtype, D):
             tfd.flash_decode_stacked(q, k, v, layer, valid))
 
 
+def _sentinel(t):
+    """Fill t with 0xFF bytes (a NaN in bf16 and f32, never the right
+    answer), so a chunk the kernel skips shows; returns t."""
+    t.view(torch.uint8).fill_(255)
+    return t
+
+
+def _untouched(t):
+    return bool((t.view(torch.uint8) == 255).all())
+
+
+def _from_sentinel_blocks(like, call):
+    """call() (a gather without out, allocating one output like each tensor
+    of `like`) right after sentinel-filled blocks of those sizes were
+    freed, so the caching allocator hands them back as the outputs."""
+    blocks = [_sentinel(torch.empty_like(t)) for t in like]
+    ptrs = [t.data_ptr() for t in blocks]
+    del blocks
+    res = call()
+    res = list(res) if isinstance(res, (tuple, list)) else [res]
+    assert [t.data_ptr() for t in res] == ptrs, "sentinel blocks not reused"
+    return res
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("page", [128, 66])
+@pytest.mark.parametrize("D", _HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_page_gather_bitexact(cuda, dtype):
-    """Repeated and out-of-order pages, into new tensors and into a round
-    buffer's top region."""
-    from magicdec_tpu_torch.ops.page_gather import page_gather, page_gather_plain
+def test_card_page_gather_bitexact(cuda, dtype, D, page):
+    """Repeated and out-of-order pages, the last page and indices past both
+    ends (clamped), pages of 128 rows and of 66 (no multiple of the kernel's
+    16 KB chunk), into new tensors and into a round buffer's top region, every
+    destination sentinel-filled first; the planted fault (each unit's last
+    chunk dropped) fails the same checks."""
+    from magicdec_tpu_torch.ops import page_gather as pg
 
-    _, k, v = _card_inputs(cuda, dtype, S=1024, T=1)
-    pages = torch.tensor([[7, 0, 3], [2, 2, 5], [1, 0, 6]], dtype=torch.int32,
-                         device=cuda)
-    for layer in range(2):
-        want = page_gather_plain(k, v, layer, pages, 128)
-        got = page_gather(k, v, layer, pages, 128)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-        bufs = torch.zeros((2, 2, 3, 384 + 64, k.shape[-1]), dtype=dtype,
-                           device=cuda)
-        tops = [buf[layer, :, :384].view(3, 3, 128, -1) for buf in bufs]
-        page_gather(k, v, layer, pages, 128, out=tops)
-        for top, w in zip(tops, want):
-            assert torch.equal(top, w)
-        assert not bool(bufs[:, layer, :, 384:].any())
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_page_gather_single_bitexact(cuda, dtype):
-    """Whole clusters of a KV-fused store (page = 2cap = 64 rows), repeated
-    and out-of-order, into a new tensor and split into the K and V top
-    regions of a round buffer."""
-    from magicdec_tpu_torch.ops.page_gather import (page_gather_single,
-                                                    page_gather_single_plain)
-
-    _, store, _ = _card_inputs(cuda, dtype, S=10 * 64, T=1)
-    pages = torch.tensor([[9, 0, 3, 3], [2, 2, 5, 1], [1, 0, 6, 8]],
+    _, k, v = _card_inputs(cuda, dtype, S=8 * page, T=1, D=D)
+    pages = torch.tensor([[7, 0, 3], [2, 2, 8], [-1, 0, 40]],
                          dtype=torch.int32, device=cuda)
-    NS = 4 * 32
+    top = 3 * page
     for layer in range(2):
-        want = page_gather_single_plain(store, layer, pages, 64)
-        assert torch.equal(page_gather_single(store, layer, pages, 64), want)
-        bufs = torch.zeros((2, 2, 3, NS + 64, store.shape[-1]), dtype=dtype,
-                           device=cuda)
-        tops = [buf[layer, :, :NS].view(3, 4, 32, -1) for buf in bufs]
-        page_gather_single(store, layer, pages, 64, out=tops)
-        assert torch.equal(tops[0], want[:, :, :32])
-        assert torch.equal(tops[1], want[:, :, 32:])
-        assert not bool(bufs[:, layer, :, NS:].any())
+        want = pg.page_gather_plain(k, v, layer, pages, page)
+        got = _from_sentinel_blocks(
+            want, lambda: pg.page_gather(k, v, layer, pages, page))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        bufs = _sentinel(torch.empty((2, 2, 3, top + 64, k.shape[-1]),
+                                     dtype=dtype, device=cuda))
+        tops = [buf[layer, :, :top].view(3, 3, page, -1) for buf in bufs]
+        pg.page_gather(k, v, layer, pages, page, out=tops)
+        for t, w in zip(tops, want):
+            assert torch.equal(t, w)
+        assert _untouched(bufs[:, layer, :, top:])
+        assert _untouched(bufs[:, 1 - layer])
+        _sentinel(bufs)
+        pg._gather_launch(k, v, layer, pages, page, tops, fault=1)
+        assert not all(torch.equal(t, w) for t, w in zip(tops, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page", [64, 66])
+@pytest.mark.parametrize("D", _HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_page_gather_single_bitexact(cuda, dtype, D, page):
+    """Whole clusters of a KV-fused store (page = 2cap = 64 rows, and 66),
+    repeated and out-of-order, the last one and indices past both ends,
+    into a new tensor and split into the K and V top regions of a round
+    buffer, every destination sentinel-filled first; the planted fault
+    fails the same checks in both forms."""
+    from magicdec_tpu_torch.ops import page_gather as pg
+
+    cap = page // 2
+    _, store, _ = _card_inputs(cuda, dtype, S=10 * page, T=1, D=D)
+    pages = torch.tensor([[9, 0, 3, 3], [2, 2, 5, 1], [-2, 0, 6, 10]],
+                         dtype=torch.int32, device=cuda)
+    NS = 4 * cap
+    for layer in range(2):
+        want = pg.page_gather_single_plain(store, layer, pages, page)
+        (got,) = _from_sentinel_blocks(
+            [want], lambda: pg.page_gather_single(store, layer, pages, page))
+        assert torch.equal(got, want)
+        bufs = _sentinel(torch.empty((2, 2, 3, NS + 64, store.shape[-1]),
+                                     dtype=dtype, device=cuda))
+        tops = [buf[layer, :, :NS].view(3, 4, cap, -1) for buf in bufs]
+        pg.page_gather_single(store, layer, pages, page, out=tops)
+        assert torch.equal(tops[0], want[:, :, :cap])
+        assert torch.equal(tops[1], want[:, :, cap:])
+        assert _untouched(bufs[:, layer, :, NS:])
+        assert _untouched(bufs[:, 1 - layer])
+        _sentinel(bufs)
+        pg._single_launch(store, layer, pages, page, tops, fault=1)
+        assert not (torch.equal(tops[0], want[:, :, :cap])
+                    and torch.equal(tops[1], want[:, :, cap:]))
+        fresh = _sentinel(torch.empty_like(want))
+        pg._single_launch(store, layer, pages, page, (fresh,), fault=1)
+        assert not torch.equal(fresh, want)
+
+
+@pytest.mark.cuda
+def test_card_page_gather_refuses_a_ring_beyond_its_limits(cuda):
+    """The C entry alone holds the ring's limits (2 to 16 stages, at most
+    200 KB): a geometry beyond them raises instead of launching."""
+    from magicdec_tpu_torch.ops import page_gather as pg
+
+    _, k, v = _card_inputs(cuda, torch.bfloat16, S=8 * 128, T=1, D=128)
+    pages = torch.zeros((3, 2), dtype=torch.int32, device=cuda)
+    out = [torch.empty((3, 2, 128, k.shape[-1]), dtype=k.dtype, device=cuda)
+           for _ in range(2)]
+    for knobs in (dict(stages=1), dict(stages=17, chunk_bytes=4096),
+                  dict(chunk_bytes=64 * 1024, stages=4)):
+        with pytest.raises(RuntimeError):
+            pg._gather_launch(k, v, 0, pages, 128, out, **knobs)
 
 
 @pytest.mark.cuda
