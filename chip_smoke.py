@@ -142,6 +142,24 @@ exits non-zero):
                 as each path implies (they
                 are the launches of the head_dim-128 kernel entries); then
                 the step profile of an AR step and a SnapKV round
+ 12e. tensor_parallel  llama-3.1-8b at full width in a world of two ranks
+                on the one card (parallel/launch.run_world: two processes,
+                gloo over CUDA tensors, each rank drawing its shard of the
+                seeded weights a layer at a time), B=8, P=4096, 16 new
+                tokens (two ranks share the card), gamma 6: AR, SnapKV 1024
+                and full budget, StreamingLLM full budget, Quest 1024,
+                RetroInfer 1024 and two-model SD with a 2-layer draft
+                replicated on both ranks; the ranks' streams and logits
+                equal, every speculative stream equal to the tp AR stream,
+                full budgets exactly 1.0, each rank's launch counts as its
+                path implies (every launch through a per-shard form), the
+                first decode step's logits bit-equal to llama8b's (tp=1)
+                with the row-parallel partials rounded as tp=2 rounds them
+                (_TpRounding); their distance to plain tp=1's and the share
+                of the tp AR stream equal to tp=1's are printed
+ 12f. nccl_world_of_one  one rank with the nccl backend: an all-reduce, then
+                llama-3.2-1b AR (8 tokens) with the mesh bit-equal to the
+                stream without it
  13. times      each kernel at the main path's shapes (the attention kernels
                 at both head dims: `times` and `times_d128`): kernel, plain version,
                 bound (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s bf16, or 67
@@ -165,12 +183,20 @@ exits non-zero):
                 CTAs an SM) on both gathers' timed shapes at both head
                 dims, each bit-checked, with index_select timed in the same
                 call
+ 13b. sharded_kernels  each per-shard form at llama-3.1-8b's heads cut into
+                tp=2 and tp=4 shards: the shards' outputs concatenated
+                bit-equal to the kernel's on the whole tensors, each shard
+                within its plain version's limit; each form timed at the
+                tp=2 shard (graph device ms, plain, bound, SDPA or
+                index_select) beside the kernel on the whole tensors at the
+                same lengths
  14. profile    device-busy share, launches, top kernels and top host ops
                 of an AR step (bf16, int8, int4, fused), of a GliDe tree
                 (2,2) round and of a SnapKV, a Quest and a RetroInfer round at
                 budget 1024 (torch.profiler)
-Then the card's name and power limit (nvidia-smi), one JSON line of the
-kernels, and the last line {"ok": true, "device": {...}}.
+Then each phase's seconds, the card's name and power limit (nvidia-smi),
+one JSON line of the kernels, and the last line {"ok": true, "device":
+{...}}.
 
 Exits non-zero without printing a result when no GPU is available or when
 the repository's package is not beside this script.
@@ -178,6 +204,7 @@ the repository's package is not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -230,6 +257,25 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAIL: {msg}")
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip().splitlines()[0]
+
+
+class _Clock:
+    """Each phase's wall seconds: mark(name) closes the phase that began
+    at the previous mark."""
+
+    def __init__(self):
+        self.t, self.seconds = time.perf_counter(), {}
+
+    def mark(self, name):
+        now = time.perf_counter()
+        self.seconds[name], self.t = now - self.t, now
+
+
 def main() -> int:
     import torch
 
@@ -247,7 +293,9 @@ def main() -> int:
     dev = torch.device("cuda")
 
     from magicdec_tpu_torch.ops import _build
+    clock = _Clock()
     line(phase="build", seconds=_build.build(), sources=list(_build.SOURCES))
+    clock.mark("build")
 
     errs = {}
     for D in HEAD_DIMS:
@@ -263,29 +311,41 @@ def main() -> int:
     errs.update({"centroid_scores": check_centroid_scores(torch, dev),
                  "int4_matmul": check_int4(torch, dev)})
     errs.update(check_fused(torch, dev))
+    clock.mark("kernel_checks")
     check_reference(torch, dev)
     quest_small_f32(torch, dev)
     retro_small_f32(torch, dev)
     gemm_rows(torch, dev)
+    clock.mark("reference_and_gemm_rows")
     params, prompt = main_inputs(torch, dev)
     launches, ar = main_path(torch, dev, params, prompt)
+    clock.mark("main_path")
     launches = _add(launches, longspec(torch, dev, params, prompt, ar))
     launches = _add(launches, quant_and_fused(torch, dev, params, prompt))
+    clock.mark("longspec_quant_fused")
     launches = _add(launches, glide(torch, dev, params, prompt, ar))
     launches = _add(launches, glide_f32(torch, dev, params, prompt))
+    clock.mark("glide")
     del params
     torch.cuda.empty_cache()
-    launches128 = llama8b(torch, dev)
+    launches128, ref8b = llama8b(torch, dev)
+    clock.mark("llama8b")
+    launches_tp = tensor_parallel(torch, dev, ref8b)
+    del ref8b
+    clock.mark("tensor_parallel")
+    nccl_world_of_one(torch, dev)
+    clock.mark("nccl_world_of_one")
     kernels = (time_kernels(torch, dev, errs, launches)
                + time_weight_kernels(torch, dev, errs, launches)
-               + time_kernels(torch, dev, errs, launches128, D=128))
+               + time_kernels(torch, dev, errs, launches128, D=128)
+               + sharded_kernels(torch, dev, launches_tp))
+    clock.mark("times_and_sharded_kernels")
     gather_variants(torch, dev)
     step_profile(torch, dev)
+    clock.mark("gather_variants_and_profile")
+    line(phase="seconds", **clock.seconds)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    print(smi)
+    print(_card())
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1216,16 +1276,39 @@ def retro_small_f32(torch, dev):
 # two-model SD
 # ---------------------------------------------------------------------------
 
+# the per-shard forms of tensor parallelism: entry -> (module, form, the
+# kernel entry each launch of the form is also counted on)
+SHARDED = {
+    "flash_decode_stacked_sharded": ("engine.attention_impls",
+                                     "_flash_stacked", "flash_decode_stacked"),
+    "flash_prefill_sharded": ("engine.attention_impls",
+                              "_flash_prefill_dispatch", "flash_prefill"),
+    "flash_decode_intervals_sharded": ("engine.attention_impls",
+                                       "_flash_intervals",
+                                       "flash_decode_intervals"),
+    "flash_decode_stacked_masked_sharded": ("engine.retro", "_tail_attend",
+                                            "flash_decode_stacked_masked"),
+    "page_gather_sharded": ("ops.page_gather", "page_gather_sharded",
+                            "page_gather"),
+    "page_gather_single_sharded": ("ops.page_gather",
+                                   "page_gather_single_sharded",
+                                   "page_gather_single"),
+    "centroid_scores_sharded": ("ops.gemm_softmax", "centroid_scores_sharded",
+                                "centroid_scores"),
+}
 KERNELS = ("flash_decode_stacked", "flash_decode_intervals",
            "flash_decode_stacked_masked", "page_gather", "flash_prefill",
            "page_gather_single", "centroid_scores", "int4_matmul",
            "fused_qkv", "fused_post_attn", "flash_decode_stacked_lse",
-           "flash_decode_intervals_lse")
+           "flash_decode_intervals_lse") + tuple(SHARDED)
 
 
 def _counters():
     """Each kernel entry's (wrapper, count attribute): the return_lse forms
-    (name + "_lse") are counted apart, on their wrapper's launches_lse."""
+    (name + "_lse") are counted apart, on their wrapper's launches_lse; the
+    per-shard forms on their own launches."""
+    import importlib
+
     from magicdec_tpu_torch.ops import flash_decode as fd
     from magicdec_tpu_torch.ops import fused_block as fb
     from magicdec_tpu_torch.ops import gemm_softmax as gs
@@ -1236,6 +1319,11 @@ def _counters():
               "fused_post_attn": fb}
     out = {}
     for name in KERNELS:
+        if name in SHARDED:
+            mod, form, _ = SHARDED[name]
+            out[name] = (getattr(importlib.import_module(
+                f"magicdec_tpu_torch.{mod}"), form), "launches")
+            continue
         lse = name.endswith("_lse")
         base = name[:-len("_lse")] if lse else name
         out[name] = (getattr(module.get(base, fd), base),
@@ -1375,13 +1463,15 @@ def _drive(torch, name, fn, expect):
     return result, used, seconds
 
 
-def _check_stream(torch, name, out, counts, ar, vocab):
-    """Invariant 1: the emitted tokens are the AR stream."""
-    out = out.cpu()
+def _check_stream(torch, name, out, counts, ar, vocab, new=NEW):
+    """Invariant 1: the emitted tokens are the AR stream (of `new`
+    tokens)."""
+    out = torch.as_tensor(out).cpu()
+    ar = torch.as_tensor(ar)
     if out.min() < 0 or out.max() >= vocab:
         fail(f"{name}: token ids out of range")
     for b in range(out.shape[0]):
-        n = min(int(counts[b]), NEW)
+        n = min(int(counts[b]), new)
         if n <= 0 or not torch.equal(out[b, :n], ar[b, :n]):
             fail(f"{name}: stream of sequence {b} differs from the AR "
                  f"stream (invariant 1)")
@@ -1488,23 +1578,28 @@ def main_path(torch, dev, params, prompt):
     return total, ar
 
 
-def _path_launches(L, spec):
-    """The launch counts a B=8, P-token main-path run implies (AR or
-    self-speculation in mode spec), as a function of its result."""
+def _path_launches(L, spec, new=NEW, sharded=False):
+    """The launch counts a B=8, P-token main-path run of `new` tokens
+    implies (AR or self-speculation in mode spec), as a function of its
+    result; sharded: a tp rank's run, whose every launch goes through a
+    per-shard form too."""
     def launches(result):
         r = result[-1].rounds
-        decode = (L * (NEW - 1) if spec is None
+        decode = (L * (new - 1) if spec is None
                   else L * (GAMMA + 1) * r if spec == "snapkv" else L * r)
         draft = L * GAMMA * r
         clustered = spec in ("retro", "squeeze")
-        return dict(_zero(), flash_prefill=L * (P // 128),
-                    flash_decode_stacked=decode,
-                    flash_decode_intervals=draft * (spec == "streaming"),
-                    flash_decode_stacked_masked=draft * (
-                        spec == "quest" or clustered),
-                    page_gather=L * r * (spec == "quest"),
-                    page_gather_single=L * r * clustered,
-                    centroid_scores=L * r * (spec == "retro"))
+        out = dict(_zero(), flash_prefill=L * (P // 128),
+                   flash_decode_stacked=decode,
+                   flash_decode_intervals=draft * (spec == "streaming"),
+                   flash_decode_stacked_masked=draft * (
+                       spec == "quest" or clustered),
+                   page_gather=L * r * (spec == "quest"),
+                   page_gather_single=L * r * clustered,
+                   centroid_scores=L * r * (spec == "retro"))
+        if sharded:
+            out.update({k: out[base] for k, (_, _, base) in SHARDED.items()})
+        return out
     return launches
 
 
@@ -1869,9 +1964,12 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
     before it) must be those its path implies; the tree stream's share
     matching AR before a divergence is printed. Then the step profile of an
     AR step and of a SnapKV round. Returns the runs' summed launch counts
-    (the launches of the head_dim-128 kernel entries)."""
+    (the launches of the head_dim-128 kernel entries) and what
+    tensor_parallel compares with: the AR stream and the first decode
+    step's logits [B, V] (f32, on the host), plain and under _TpRounding."""
     import numpy as np
 
+    from magicdec_tpu_torch.engine import attention_impls as impls
     from magicdec_tpu_torch.engine.backend import Engine
     from magicdec_tpu_torch.engine.glide_engine import GlideEngine, SpecTree
     from magicdec_tpu_torch.engine.spec import _eot_array, snapkv_round
@@ -1906,6 +2004,19 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
         if acc != 1.0:
             fail(f"llama8b {name}: full-budget acceptance {acc} != 1.0 "
                  f"(invariant 2)")
+    # the first decode step's logits, plain and with the row-parallel
+    # partials rounded as tp=2 rounds them (tensor_parallel's references)
+    first_logits = {}
+    for name in ("plain", "tp_rounding"):
+        with (_TpRounding(llama, cfg.dim) if name == "tp_rounding"
+              else contextlib.nullcontext()):
+            eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN)
+            tok = eng.encode(prompt)
+            first_logits[name] = llama.forward(
+                params, cfg, tok, impls.target_attn(cfg, eng.cache.lengths, 1),
+                (eng.cache.k, eng.cache.v))[:, 0].cpu()
+        del eng, tok
+        torch.cuda.empty_cache()
 
     tree = SpecTree((2, 2))
     gp = init_glide_params(cfg, torch.bfloat16, scale=GLIDE_SCALE,
@@ -1971,7 +2082,641 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
          launches={k: r["launches"] for k, r in runs.items()},
          tree_share_matching_ar_before_divergence=share,
          step_profile=prof, invariant1=True, invariant2=True)
+    return total, dict(ar=ar, logits=first_logits)
+
+
+# ---------------------------------------------------------------------------
+# phases 12e-12g: tensor parallelism, its per-shard kernel forms
+# ---------------------------------------------------------------------------
+
+TP = 2                      # two ranks share the one card over gloo
+TP_NEW = 16                 # new tokens a tp run (the time two ranks take)
+TP_PATHS = (("ar", None, 0), ("snapkv", "snapkv", BUDGET),
+            ("snapkv_full", "snapkv", P),
+            ("streaming_full", "streaming", STREAM_FULL),
+            ("quest", "quest", BUDGET), ("retro", "retro", BUDGET))
+NCCL_NEW = 8
+RENDEZVOUS = ROOT / ".rendezvous"
+
+
+class _TpRounding:
+    """Within it, the model's row-parallel products (wo and w_down: the
+    2-D weights with `dim` columns) run on one card as TP tp=2 ranks run
+    them: K cut in two contiguous halves, each half's product rounded to
+    the weights' dtype, the halves added (the all-reduce of two values).
+    The other products and the attention are the same arithmetic at tp=1
+    and tp=2, so llama8b's first decode step under it must give the tp=2
+    world's logits bit for bit. Against plain tp=1 they differ by that
+    re-rounding alone, which random weights amplify layer by layer (after
+    32 layers of llama-3.1-8b the difference is as large as the logits:
+    PERF.md, the tensor-parallelism findings), so no bf16 limit against
+    plain tp=1 would tell a right tp run from a wrong one."""
+
+    def __init__(self, llama, dim):
+        self.llama, self.dim, self.orig = llama, dim, llama.qmatmul
+
+    def _qmatmul(self, x, w):
+        if not isinstance(w, dict) and w.dim() == 2 and w.shape[1] == self.dim:
+            K = w.shape[0] // TP
+            return (self.orig(x[:, :K].contiguous(), w[:K].contiguous())
+                    + self.orig(x[:, K:].contiguous(), w[K:].contiguous()))
+        return self.orig(x, w)
+
+    def __enter__(self):
+        self.llama.qmatmul = self._qmatmul
+
+    def __exit__(self, *exc):
+        self.llama.qmatmul = self.orig
+
+
+class _FirstDecodeLogits:
+    """Within it, the logits of the first forward that feeds one token a
+    sequence (an AR run's first decode step) are kept in .logits [B, V]
+    (f32, on the host); nothing else changes."""
+
+    def __init__(self, llama):
+        self.llama, self.orig, self.logits = llama, llama.forward, None
+
+    def _forward(self, params, config, tokens, *args, **kw):
+        out = self.orig(params, config, tokens, *args, **kw)
+        if self.logits is None and tokens.shape[1] == 1:
+            self.logits = out[:, 0].float().cpu()
+        return out
+
+    def __enter__(self):
+        self.llama.forward = self._forward
+        return self
+
+    def __exit__(self, *exc):
+        self.llama.forward = self.orig
+
+
+def _tp_engine_kw(mesh):
+    return dict(batch_size=B, max_len=MAX_LEN, window_size=WINDOW,
+                sink_size=SINK, draft_headroom=STREAM_HEADROOM,
+                latest_k=QUEST_TAIL, quest_page=QUEST_PAGE,
+                retro_cap=RETRO_CAP, mesh=mesh)
+
+
+def tp_rank(mesh, prompt):
+    """One rank of the tensor_parallel world: llama-3.1-8b's shard of this
+    rank (drawn a layer at a time from the seeded stream of init_params,
+    seed 0, scale 0.3, bf16), the paths of TP_PATHS and the asymmetric
+    two-model SD (the rank's target shard; a 2-layer draft of the same
+    widths, seed 1, whole on every rank), each with its launch counts
+    (zeroed before it) held to what the path implies on this rank, and the
+    AR run's first decode step's logits. Returns numpy results."""
+    import torch
+
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.longspec import LongSpecEngine
+    from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
+                                                generate_selfspec)
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelArgs.from_name(MODEL_OF_D[128])
+    L, chunks = cfg.n_layer, P // 128
+    kw = _tp_engine_kw(mesh)
+    t0 = time.perf_counter()
+    params = sharding.init_sharded_params(cfg, mesh, torch.bfloat16,
+                                          scale=0.3, seed=0)
+    torch.cuda.synchronize()
+    res = dict(rank=mesh.rank, backend=mesh.backend,
+               init_s=time.perf_counter() - t0,
+               params_gb=sum(t.numel() * t.element_size() for t in
+                             [params["tok_embeddings"], params["output"],
+                              *params["layers"].values()]) / 1e9, runs={})
+
+    def keep(name, result, used, seconds):
+        out, counts, stats = result
+        res["runs"][name] = dict(
+            out=out.cpu().numpy(), counts=counts.cpu().numpy(),
+            acceptance=stats.acceptance_rate, rounds=stats.rounds,
+            tok_s=stats.generated_tokens / stats.wall_time_s,
+            decode_s=stats.wall_time_s, run_s=seconds, launches=used)
+
+    for name, spec, budget in TP_PATHS:
+        def go():
+            eng = Engine(cfg, params, spec=spec, draft_budget=budget, **kw)
+            if spec is None:
+                with _FirstDecodeLogits(llama) as first:
+                    out, stats = generate_autoregressive(eng, prompt, TP_NEW)
+                res["logits"] = first.logits.numpy()
+                return out, torch.full((B,), TP_NEW, dtype=torch.int32), stats
+            return generate_selfspec(eng, prompt, GAMMA, TP_NEW)
+
+        keep(name, *_drive(torch, f"tp rank {mesh.rank} {name}", go,
+                           _path_launches(L, spec, TP_NEW, sharded=True)))
+
+    small = cfg.replace(n_layer=DRAFT_LAYERS)
+    sparams = llama.init_params(small, torch.bfloat16, scale=0.3, seed=1,
+                                device=mesh.device)
+
+    def go_long():
+        draft = Engine(small, sparams, replicate_tp=True, **kw)
+        return LongSpecEngine(Engine(cfg, params, **kw), draft).generate(
+            prompt, GAMMA, TP_NEW)
+
+    def expect_long(result):
+        r = result[-1].rounds
+        out = dict(_zero(), flash_prefill=(L + DRAFT_LAYERS) * chunks,
+                   flash_decode_stacked=(L + DRAFT_LAYERS * GAMMA) * r,
+                   flash_prefill_sharded=L * chunks,
+                   flash_decode_stacked_sharded=L * r)
+        return out
+
+    keep("longspec_small_full", *_drive(
+        torch, f"tp rank {mesh.rank} longspec", go_long, expect_long))
+    del sparams
+
+    res["peak_gb"] = torch.cuda.max_memory_allocated(mesh.device) / 1e9
+    return res
+
+
+def tensor_parallel(torch, dev, ref):
+    """llama-3.1-8b at full width in a world of TP=2 ranks on the one card
+    (gloo, CUDA tensors; each rank a process with its own shard), B=8,
+    P=4096, TP_NEW new tokens, gamma 6: AR, SnapKV 1024 and full budget,
+    StreamingLLM full budget, Quest 1024, RetroInfer 1024 and two-model SD
+    with a replicated 2-layer draft (tp_rank). Both ranks must return the
+    same streams and logits; every speculative stream must equal the tp AR
+    stream, the full budgets accept exactly 1.0, each rank's launch counts
+    are held in the rank; the first decode step's logits must be bit-equal
+    to llama8b's under _TpRounding (tp=1 with tp=2's rounding of the
+    row-parallel partials), and their distance to plain tp=1's and the
+    share of the tp AR stream equal to the tp=1 stream are printed (the
+    re-rounding grows through the layers; see _TpRounding). Returns the
+    launch counts summed over the ranks and runs."""
+    import numpy as np
+
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.parallel.launch import run_world
+
+    cfg = ModelArgs.from_name(MODEL_OF_D[128])
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size, (B, P))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    parent_gb = torch.cuda.memory_reserved(dev) / 1e9
+    RENDEZVOUS.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = run_world(tp_rank, tp=TP, backend="gloo", devices=[dev] * TP,
+                      args=(prompt,), rendezvous_dir=str(RENDEZVOUS),
+                      timeout_s=900)
+    world_s = time.perf_counter() - t0
+    parent_peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    r0 = ranks[0]
+    for other in ranks[1:]:
+        if not np.array_equal(other["logits"], r0["logits"]):
+            fail("tensor_parallel: the ranks' logits differ")
+        for name, run in r0["runs"].items():
+            if not np.array_equal(other["runs"][name]["out"], run["out"]):
+                fail(f"tensor_parallel {name}: the ranks' streams differ")
+    runs = r0["runs"]
+    ar = runs["ar"]["out"]
+    for name, run in runs.items():
+        if name != "ar":
+            _check_stream(torch, f"tensor_parallel {name}", run["out"],
+                          run["counts"], ar, cfg.vocab_size, new=TP_NEW)
+    for name in ("snapkv_full", "streaming_full"):
+        if runs[name]["acceptance"] != 1.0:
+            fail(f"tensor_parallel {name}: full-budget acceptance "
+                 f"{runs[name]['acceptance']} != 1.0 (invariant 2)")
+    if not np.array_equal(r0["logits"], ref["logits"]["tp_rounding"].numpy()):
+        fail("tensor_parallel: the first decode step's logits are not those "
+             "of tp=1 with the row-parallel partials rounded as tp=2 rounds "
+             "them")
+    want = ref["logits"]["plain"].numpy()
+    err = float(np.abs(r0["logits"] - want).max())
+    scale = float(np.abs(want).max())
+    tp1 = ref["ar"].numpy()[:, :TP_NEW]
+    share = float((ar[:, :TP_NEW] == tp1).mean())
+    total = _zero()
+    for rank in ranks:
+        for run in rank["runs"].values():
+            total = _add(total, run["launches"])
+    line(phase="tensor_parallel", model=MODEL_OF_D[128], dtype="bfloat16",
+         tp=TP, backend="gloo", device_per_rank=[str(dev)] * TP,
+         note="two ranks time-share one card over gloo: no deployment "
+              "tok/s", B=B, P=P, new_tokens=TP_NEW, gamma=GAMMA,
+         budget=BUDGET, draft_layers=DRAFT_LAYERS, world_s=world_s,
+         init_s=[r["init_s"] for r in ranks],
+         params_gb_per_rank=[r["params_gb"] for r in ranks],
+         peak_gb_per_rank=[r["peak_gb"] for r in ranks],
+         parent_reserved_gb=parent_gb, parent_peak_gb=parent_peak_gb,
+         tok_s={k: r["tok_s"] for k, r in runs.items()},
+         acceptance={k: r["acceptance"] for k, r in runs.items()
+                     if k != "ar"},
+         rounds={k: r["rounds"] for k, r in runs.items() if k != "ar"},
+         run_s={k: r["run_s"] for k, r in runs.items()},
+         decode_s={k: r["decode_s"] for k, r in runs.items()},
+         launches_rank0={k: {n: c for n, c in r["launches"].items() if c}
+                         for k, r in runs.items()},
+         first_step_logits=dict(
+             bit_equal_to_tp1_with_tp_rounding=True,
+             vs_plain_tp1=dict(max_abs_err=err, max_abs_ref=scale,
+                               rel=err / scale)),
+         ar_share_equal_to_tp1=share, invariant1=True, invariant2=True)
     return total
+
+
+def nccl_rank(mesh, prompt):
+    """The NCCL world of one: an all-reduce through the communicator, then
+    AR on llama-3.2-1b (seed 0) with the mesh and without it."""
+    import torch
+    import torch.distributed as dist
+
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.spec import generate_autoregressive
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ones = torch.ones(4, device=mesh.device)
+    dist.all_reduce(ones, group=mesh.group)
+    cfg = ModelArgs.from_name(MODEL_OF_D[64])
+    params = llama.init_params(cfg, torch.bfloat16, scale=0.3, seed=0,
+                               device=mesh.device)
+    outs = {}
+    for name, m in (("mesh", mesh), ("plain", None)):
+        eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN, mesh=m,
+                     device=mesh.device)
+        outs[name] = generate_autoregressive(eng, prompt,
+                                             NCCL_NEW)[0].cpu().numpy()
+    return dict(backend=mesh.backend, tp=mesh.tp,
+                all_reduce=ones.cpu().tolist(), **outs)
+
+
+def nccl_world_of_one(torch, dev):
+    """One rank with the nccl backend: its AR stream on llama-3.2-1b
+    (NCCL_NEW tokens) must be bit-equal to the mesh=None stream."""
+    import numpy as np
+
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.parallel.launch import run_world
+
+    vocab = ModelArgs.from_name(MODEL_OF_D[64]).vocab_size
+    prompt = np.random.default_rng(7).integers(0, vocab, (B, P))
+    RENDEZVOUS.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    (r,) = run_world(nccl_rank, tp=1, backend="nccl", devices=[dev],
+                     args=(prompt,), rendezvous_dir=str(RENDEZVOUS),
+                     timeout_s=600)
+    if r["backend"] != "nccl" or r["all_reduce"] != [1.0] * 4:
+        fail(f"nccl_world_of_one: backend {r['backend']}, all_reduce "
+             f"{r['all_reduce']}")
+    if not np.array_equal(r["mesh"], r["plain"]):
+        fail("nccl_world_of_one: the mesh stream differs from mesh=None's")
+    line(phase="nccl_world_of_one", model=MODEL_OF_D[64], backend="nccl",
+         tp=r["tp"], new_tokens=NCCL_NEW, seconds=time.perf_counter() - t0,
+         stream_equal=True)
+
+
+def _bit_equal(torch, got, want):
+    """Whether two tensors hold the same bits (-0.0 and 0.0 differ)."""
+    def bits(t):
+        t = t.contiguous()
+        return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+    return got.shape == want.shape and torch.equal(bits(got), bits(want))
+
+
+def sharded_kernels(torch, dev, launches, L=16):
+    """Each per-shard form of tensor parallelism at llama-3.1-8b's heads
+    (Hq=32, Hkv=8, D=128, bf16; B=8) on the main path's shapes, cut into
+    tp=2 and tp=4 head shards (each a contiguous copy of the rank's block):
+    _flash_stacked at T=1 and T=7 (ragged: 130 to 4128 cached slots of
+    4224),
+    _flash_prefill_dispatch (the last 128-token chunk of P=4096),
+    _flash_intervals (the StreamingLLM draft, 1088 slots, sink rows apart),
+    _tail_attend (the masked form over the Quest round buffer, 70% of the
+    top bits), page_gather_sharded (7 of 33 pages of 128 rows),
+    page_gather_single_sharded (28 of 130 clusters of 64 rows) and
+    centroid_scores_sharded (130 f32 centroids). The ranks' outputs
+    concatenated must be bit-equal to the kernel's output on the whole
+    tensors, and each rank's within its plain version's limit (the
+    attention forms: fd.plain_f32_and_limit's; the gathers bit-exact;
+    centroid_scores 1e-5 + 1e-5 |plain|). Then each form's device time at
+    the tp=2 shard (rank 0), from a replayed CUDA graph, beside the kernel
+    on the whole tensors at the same lengths, its plain version, its bound
+    (the shard's bytes at 3.35 TB/s or its FLOPs at 989 TFLOP/s bf16, 67
+    TFLOP/s f32 for centroid_scores, counting the slots each sequence
+    reads) and one PyTorch call on the same shard (SDPA; index_select).
+    `launches` are the
+    tensor_parallel phase's counts (both ranks). Returns the kernels-line
+    rows."""
+    import torch.nn.functional as F
+
+    from magicdec_tpu_torch.engine import attention_impls as impls
+    from magicdec_tpu_torch.engine.retro import _tail_attend
+    from magicdec_tpu_torch.ops import flash_decode as fd
+    from magicdec_tpu_torch.ops import gemm_softmax as gs
+    from magicdec_tpu_torch.ops import page_gather as pg
+    from magicdec_tpu_torch.ops.attention import decode_valid_upto
+    from magicdec_tpu_torch.parallel.sharding import Mesh
+
+    t_start = time.perf_counter()
+    Hq, Hkv, D, S = 32, 8, 128, 4224
+    HD, item = Hkv * D, 2
+    saved = _counts()
+    g = torch.Generator(device=dev).manual_seed(12)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def block(x, tp, r, axis):
+        n = x.shape[axis] // tp
+        return x.narrow(axis, r * n, n).contiguous()
+
+    def mesh(tp, r):
+        return Mesh(tp=tp, rank=r, backend="gloo", device=dev)
+
+    k, v = rnd(L, B, S, HD), rnd(L, B, S, HD)
+    lens = torch.tensor([P + 32, P + 31, P - 600, P + 32, 3000, P + 20, 130,
+                         P], dtype=torch.int32, device=dev)
+    pages = _gather_pages(torch, dev, S // QUEST_PAGE, QUEST_NS // QUEST_PAGE,
+                          73)
+    store = rnd(L, B, RETRO_C * 2 * RETRO_CAP, HD)
+    clusters = _gather_pages(torch, dev, RETRO_C, RETRO_N, 74)
+    cents = torch.randn((L, B, RETRO_C, HD), generator=g, device=dev) * 0.2
+    kf = k[L - 1, :, :DRAFT_SLOTS].contiguous()
+    vf = v[L - 1, :, :DRAFT_SLOTS].contiguous()
+    sinks = k[0, :, :SINK].contiguous()
+    a, lo, hi_s = _stream_rows(torch, dev, [1060] * B, 1, SINK)
+    bk = k[:, :, :QUEST_R].contiguous()
+    bv = v[:, :, :QUEST_R].contiguous()
+    cm, ns, hi_q = _quest_rows(torch, dev, 1, seed=75, top_share=0.7, L=L)
+    qs = {T: rnd(B, T, Hq, D) for T in (1, 7, 128)}
+    valid = {T: decode_valid_upto(lens - T, T) for T in (1, 7)}
+    valid[128] = decode_valid_upto(torch.full((B,), P - 128, dtype=torch.int32,
+                                              device=dev), 128)
+
+    def cview(c):           # [B, C, h*D] -> the kernel's [B, h, C, D] view
+        return c.view(B, RETRO_C, -1, D).transpose(1, 2)
+
+    # name -> (the form on a rank's shard, the kernel on the whole tensors,
+    # the output axis the shards concatenate along, the plain check on a
+    # shard: (ref f32, limit) or an exact output)
+    def attention(form_call, kern, plain_limit):
+        return form_call, kern, 2, plain_limit
+
+    forms = {}
+    for T in (1, 7):
+        forms[f"flash_decode_stacked_sharded_T{T}"] = attention(
+            lambda tp, r, l, T=T: impls._flash_stacked(
+                block(qs[T], tp, r, 2), block(k, tp, r, 3),
+                block(v, tp, r, 3), l, valid[T], mesh(tp, r)),
+            lambda l, T=T: fd.flash_decode_stacked(qs[T], k, v, l, valid[T]),
+            lambda tp, r, l, T=T: fd.plain_f32_and_limit(
+                block(qs[T], tp, r, 2), block(k[l:l + 1], tp, r, 3),
+                block(v[l:l + 1], tp, r, 3), 0, valid[T]))
+    forms["flash_prefill_sharded"] = attention(
+        lambda tp, r, l: impls._flash_prefill_dispatch(
+            block(qs[128], tp, r, 2), block(k, tp, r, 3), block(v, tp, r, 3),
+            l, valid[128], mesh(tp, r), s_cap=P),
+        lambda l: fd.flash_prefill(qs[128], k, v, l, valid[128], s_cap=P),
+        lambda tp, r, l: fd.plain_f32_and_limit(
+            block(qs[128], tp, r, 2), block(k[l:l + 1], tp, r, 3),
+            block(v[l:l + 1], tp, r, 3), 0, valid[128], s_cap=P))
+    forms["flash_decode_intervals_sharded"] = attention(
+        lambda tp, r, l: impls._flash_intervals(
+            block(qs[1], tp, r, 2), block(kf, tp, r, 2), block(vf, tp, r, 2),
+            a, lo, hi_s, mesh(tp, r), k_sink=block(sinks, tp, r, 2)),
+        lambda l: fd.flash_decode_intervals(qs[1], kf, vf, a, lo, hi_s,
+                                            k_sink=sinks),
+        lambda tp, r, l: fd.intervals_plain_f32_and_limit(
+            block(qs[1], tp, r, 2), block(kf, tp, r, 2), block(vf, tp, r, 2),
+            a, lo, hi_s, block(sinks, tp, r, 2)))
+    forms["flash_decode_stacked_masked_sharded"] = attention(
+        lambda tp, r, l: _tail_attend(
+            block(qs[1], tp, r, 2), block(bk, tp, r, 3), block(bv, tp, r, 3),
+            cm, l, ns, hi_q, mesh(tp, r)),
+        lambda l: fd.flash_decode_stacked_masked(qs[1], bk, bv, l, cm, ns, ns,
+                                                 hi_q),
+        lambda tp, r, l: fd.stacked_masked_plain_f32_and_limit(
+            block(qs[1], tp, r, 2), block(bk, tp, r, 3), block(bv, tp, r, 3),
+            l, cm, ns, ns, hi_q))
+    forms["page_gather_sharded"] = (
+        lambda tp, r, l: torch.stack(pg.page_gather_sharded(
+            block(k, tp, r, 3), block(v, tp, r, 3), l, pages, QUEST_PAGE,
+            mesh=mesh(tp, r))),
+        lambda l: torch.stack(pg.page_gather(k, v, l, pages, QUEST_PAGE)),
+        4,
+        lambda tp, r, l: torch.stack(pg.page_gather_plain(
+            block(k, tp, r, 3), block(v, tp, r, 3), l, pages, QUEST_PAGE)))
+    forms["page_gather_single_sharded"] = (
+        lambda tp, r, l: pg.page_gather_single_sharded(
+            block(store, tp, r, 3), l, clusters, 2 * RETRO_CAP,
+            mesh=mesh(tp, r)),
+        lambda l: pg.page_gather_single(store, l, clusters, 2 * RETRO_CAP),
+        3,
+        lambda tp, r, l: pg.page_gather_single_plain(
+            block(store, tp, r, 3), l, clusters, 2 * RETRO_CAP))
+
+    def scores_plain(tp, r, l):
+        ref = gs.centroid_scores_plain(block(qs[1], tp, r, 2),
+                                       cview(block(cents[l], tp, r, 2)))
+        return ref, 1e-5 + 1e-5 * ref.abs()
+
+    forms["centroid_scores_sharded"] = (
+        lambda tp, r, l: gs.centroid_scores_sharded(
+            block(qs[1], tp, r, 2), cview(block(cents[l], tp, r, 2)),
+            mesh=mesh(tp, r)),
+        lambda l: gs.centroid_scores(qs[1], cview(cents[l])), 1, scores_plain)
+
+    # the checks: layers 0 and L - 1
+    errs, ratios = {}, {}
+    for name, (form, kern, axis, plain) in forms.items():
+        e, rt = {}, {}
+        for l in (0, L - 1):
+            whole = kern(l)
+            for tp in (2, 4):
+                outs = [form(tp, r, l) for r in range(tp)]
+                if not _bit_equal(torch, torch.cat(outs, dim=axis), whole):
+                    fail(f"sharded_kernels {name}: the tp={tp} shards "
+                         f"concatenated are not the whole kernel's bits "
+                         f"(layer {l})")
+                for r, out in enumerate(outs):
+                    ref = plain(tp, r, l)
+                    if isinstance(ref, tuple):
+                        _check_out(torch, f"{name} tp{tp} r{r} l{l}", out,
+                                   ref[0], ref[1], e, rt)
+                    elif not _bit_equal(torch, out, ref):
+                        fail(f"sharded_kernels {name}: tp={tp} rank {r} "
+                             f"differs from its plain version (layer {l})")
+        errs[name] = max(e.values(), default=0.0)
+        ratios[name] = max(rt.values(), default=0.0)
+
+    # the times at the tp=2 shard of rank 0, and of the kernel on the whole
+    # tensors at the same lengths (the same work, all heads)
+    tp = 2
+    w = dict(q1=qs[1], q7=qs[7], q128=qs[128], k=k, v=v,
+             kf=k[:, :, :DRAFT_SLOTS].contiguous(),
+             vf=v[:, :, :DRAFT_SLOTS].contiguous(),
+             sinks=k[:, :, :SINK].contiguous(), bk=bk, bv=bv, store=store,
+             cents=cents)
+    s = {name: block(x, tp, 0, 2 if name[0] == "q" else 3)
+         for name, x in w.items()}
+    m0, hkv, hq = mesh(tp, 0), Hkv // tp, Hq // tp
+    hd = hkv * D
+    page1 = 2 * RETRO_CAP
+
+    def calls(x, m):
+        """Each form on the tensors x (the shard on mesh m, or the whole
+        tensors off-mesh: the plain kernel), cycling the layers."""
+        cv = [cview(x["cents"][l]) for l in range(L)]
+        out = {f"flash_decode_stacked_sharded_T{T}": (
+            lambda l, T=T: impls._flash_stacked(x[f"q{T}"], x["k"], x["v"],
+                                                l, valid[T], m))
+            for T in (1, 7)}
+        out.update({
+            "flash_prefill_sharded": lambda l: impls._flash_prefill_dispatch(
+                x["q128"], x["k"], x["v"], l, valid[128], m, s_cap=P),
+            "flash_decode_intervals_sharded": lambda l: impls._flash_intervals(
+                x["q1"], x["kf"][l], x["vf"][l], a, lo, hi_s, m,
+                k_sink=x["sinks"][(l + 1) % L]),
+            "flash_decode_stacked_masked_sharded": lambda l: _tail_attend(
+                x["q1"], x["bk"], x["bv"], cm, l, ns, hi_q, m),
+            "page_gather_sharded": lambda l: pg.page_gather_sharded(
+                x["k"], x["v"], l, pages, QUEST_PAGE, mesh=m),
+            "page_gather_single_sharded":
+                lambda l: pg.page_gather_single_sharded(
+                    x["store"], l, clusters, page1, mesh=m),
+            "centroid_scores_sharded": lambda l: gs.centroid_scores_sharded(
+                x["q1"], cv[l], mesh=m)})
+        return out
+
+    def bound(bytes_, flops, peak=BF16_FLOPS_PER_S):
+        tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    def sdpa_masked(q, kk, vv, mask):
+        Sx = kk.shape[1]
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), kk.view(B, Sx, hkv, D).transpose(1, 2),
+            vv.view(B, Sx, hkv, D).transpose(1, 2), attn_mask=mask,
+            enable_gqa=True)
+
+    slot_s = torch.arange(S, device=dev)
+    slot_f = torch.arange(DRAFT_SLOTS, device=dev)
+    col_q = torch.arange(QUEST_R, device=dev)
+    k_read = [torch.cat([s["sinks"][(l + 1) % L], s["kf"][l, :, SINK:]],
+                        dim=1) for l in range(L)]
+    masks_q = [((col_q < QUEST_NS) & (cm[l, :, 0] != 0)
+                | (col_q >= QUEST_NS) & (col_q < hi_q))[:, None, None, :]
+               for l in range(L)]
+    rows_idx = (torch.arange(B, device=dev)[:, None] * (S // QUEST_PAGE)
+                + pages.long().clamp(0, S // QUEST_PAGE - 1)).reshape(-1)
+    rows_1 = (torch.arange(B, device=dev)[:, None] * RETRO_C
+              + clusters.long().clamp(0, RETRO_C - 1)).reshape(-1)
+    cviews = [cview(s["cents"][l]) for l in range(L)]
+
+    def attn_bytes(read_slots, q, rows_ints):
+        return ((read_slots * hd * 2 + 2 * q.numel()) * item
+                + rows_ints * 4)
+
+    # (plain version, library call, bound) on the shard; the bounds count
+    # the K/V slots each sequence reads (its longest row's valid_upto), not
+    # the longest sequence's for all
+    timed = {}
+    for T in (1, 7):
+        q, val = s[f"q{T}"], valid[T]
+        mask = (slot_s[None, None, :] < val[:, :, None])[:, None]
+        timed[f"flash_decode_stacked_sharded_T{T}"] = (
+            lambda l, q=q, val=val: fd.attention_plain(q, s["k"], s["v"], l,
+                                                       val),
+            lambda l, q=q, mask=mask: sdpa_masked(q, s["k"][l], s["v"][l],
+                                                  mask),
+            bound(attn_bytes(int(val.amax(1).sum()), q, val.numel()),
+                  4 * int(val.sum()) * hq * D))
+    val_p = valid[128]
+    mask_p = (slot_s[None, None, :P] < val_p[:, :, None])[:, None]
+    timed["flash_prefill_sharded"] = (
+        lambda l: fd.attention_plain(s["q128"], s["k"], s["v"], l, val_p,
+                                     s_cap=P),
+        lambda l: sdpa_masked(s["q128"], s["k"][l, :, :P], s["v"][l, :, :P],
+                              mask_p),
+        bound(attn_bytes(int(val_p.amax(1).sum()), s["q128"], val_p.numel()),
+              4 * int(val_p.sum()) * hq * D))
+    mask_i = ((slot_f < a[..., None]) | ((slot_f >= lo[..., None])
+                                          & (slot_f < hi_s[..., None])))[:, None]
+    read = int((a.amax(1) + hi_s.amax(1) - lo.amin(1)).sum())
+    timed["flash_decode_intervals_sharded"] = (
+        lambda l: fd.intervals_plain(s["q1"], s["kf"][l], s["vf"][l], a, lo,
+                                     hi_s, s["sinks"][(l + 1) % L]),
+        lambda l: sdpa_masked(s["q1"], k_read[l], s["vf"][l], mask_i),
+        bound(attn_bytes(read, s["q1"], 3 * a.numel()),
+              4 * int((a + hi_s - lo).sum()) * hq * D))
+    attended = sum(int(mq.sum()) for mq in masks_q) / L   # a layer's mean
+    timed["flash_decode_stacked_masked_sharded"] = (
+        lambda l: fd.stacked_masked_plain(s["q1"], s["bk"], s["bv"], l, cm,
+                                          ns, ns, hi_q),
+        lambda l: sdpa_masked(s["q1"], s["bk"][l], s["bv"][l], masks_q[l]),
+        bound(attn_bytes(attended, s["q1"], 3 * hi_q.numel())
+              + B * QUEST_R * 4, 4 * attended * hq * D))
+    n = QUEST_NS // QUEST_PAGE
+    timed["page_gather_sharded"] = (
+        lambda l: pg.page_gather_plain(s["k"], s["v"], l, pages, QUEST_PAGE),
+        lambda l: [c[l].view(B * (S // QUEST_PAGE), -1).index_select(
+            0, rows_idx) for c in (s["k"], s["v"])],
+        bound(2 * 2 * B * n * QUEST_PAGE * hd * item + pages.numel() * 4, 0))
+    timed["page_gather_single_sharded"] = (
+        lambda l: pg.page_gather_single_plain(s["store"], l, clusters, page1),
+        lambda l: s["store"][l].view(B * RETRO_C, -1).index_select(0, rows_1),
+        bound(2 * B * RETRO_N * page1 * hd * item + clusters.numel() * 4, 0))
+    timed["centroid_scores_sharded"] = (
+        lambda l: gs.centroid_scores_plain(s["q1"], cviews[l]),
+        None,
+        bound(s["q1"].numel() * item + B * RETRO_C * hd * 4
+              + B * hkv * RETRO_C * 4,
+              2 * B * hq * RETRO_C * D + 4 * B * hq * RETRO_C,
+              F32_FLOPS_PER_S))
+    on_shard, on_whole = calls(s, m0), calls(w, None)
+    times = {}
+    for name, (plain, lib, (b_ms, b_by)) in timed.items():
+        t = dict(ms=_time_ms(torch, on_shard[name], L, graph=True),
+                 whole_ms=_time_ms(torch, on_whole[name], L, graph=True),
+                 plain_ms=_time_ms(torch, plain, L, graph=True),
+                 library_ms=None if lib is None else _time_ms(torch, lib, L,
+                                                              graph=True),
+                 bound_ms=b_ms, bound_by=b_by)
+        times[name] = dict(t, shard_over_whole=t["ms"] / t["whole_ms"])
+    _set_counts(saved)      # the checks' and timings' launches
+    line(phase="sharded_kernels", model=MODEL_OF_D[128], Hq=Hq, Hkv=Hkv, D=D,
+         tps=[2, 4], shards="contiguous copies of each rank's head block",
+         bit_equal_to_whole=True, max_abs_err=errs, max_err_over_limit=ratios,
+         times_tp2_rank0=times, seconds=time.perf_counter() - t_start)
+
+    src = {"page_gather": "page_gather.cu",
+           "page_gather_single": "page_gather.cu",
+           "centroid_scores": "centroid_scores.cu",
+           "flash_prefill": "flash_prefill.cu"}
+    at = {"flash_decode_stacked_sharded":
+          "magicdec_tpu/engine/attention_impls.py:62",
+          "flash_prefill_sharded": "magicdec_tpu/engine/attention_impls.py:99",
+          "flash_decode_intervals_sharded":
+          "magicdec_tpu/engine/attention_impls.py:117",
+          "flash_decode_stacked_masked_sharded":
+          "magicdec_tpu/engine/retro.py:305",
+          "page_gather_sharded": "magicdec_tpu/ops/pallas/page_gather.py:193",
+          "page_gather_single_sharded":
+          "magicdec_tpu/ops/pallas/page_gather.py:178",
+          "centroid_scores_sharded":
+          "magicdec_tpu/ops/pallas/gemm_softmax.py:69"}
+    rows = []
+    for name, (_, _, base) in SHARDED.items():
+        key = name + "_T1" if name == "flash_decode_stacked_sharded" else name
+        t = times[key]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "magicdec_tpu_torch/csrc/"
+                               + src.get(base, "flash_decode.cu"),
+                     "replaces": at[name], "launches": launches[name],
+                     "max_abs_err": errs[key], "ms": t["ms"],
+                     "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                     "bound_by": t["bound_by"],
+                     "library_ms": t["library_ms"]})
+    return rows
 
 
 # ---------------------------------------------------------------------------

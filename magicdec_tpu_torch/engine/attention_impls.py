@@ -9,6 +9,15 @@ through the port's kernels (ops/flash_decode.py) straight out of the stacked
 cache. Small query blocks (T*G <= 64) take the decode kernel, prefill chunks
 the prefill kernel, and the StreamingLLM draft the two-interval decode
 kernel; on the CPU each runs its plain version.
+
+Tensor parallelism: under a tp mesh (config.mesh, the rank's local config)
+q holds the rank's Hq/tp heads and the caches its (Hkv/tp)*D columns, whole
+KV heads, and the kernels run through their per-shard forms (_flash_stacked,
+flash_stacked_lse, _flash_prefill_dispatch, _flash_intervals: the JAX
+package's shard_map wrappers, with its names). Attention is per KV head, so
+a shard needs no collective; each form launches the same kernel on the
+rank's shard (sharding.local_config checks the partition once). Off-mesh
+each is the plain kernel.
 """
 
 from __future__ import annotations
@@ -28,34 +37,79 @@ from magicdec_tpu_torch.ops.rope import apply_rope, rope_cos_sin
 FLASH_MAX_TG = 64
 
 
+def _counted(form, mesh, q, out):
+    """Count a launch on the card of a per-shard form on a tp shard (a mesh
+    of tp > 1); returns out."""
+    if mesh is not None and mesh.tp > 1 and q.is_cuda:
+        form.launches += 1
+    return out
+
+
+def _flash_stacked(q, ck, cv, l: int, valid, mesh=None,
+                   s_cap: int | None = None):
+    """flash_decode_stacked on the rank's head shard (q [B, T, Hq/tp, D],
+    caches [L, B, S, (Hkv/tp)*D]). Replaces the shard_map wrapper
+    _flash_stacked (magicdec_tpu/engine/attention_impls.py:62)."""
+    return _counted(_flash_stacked, mesh, q,
+                    flash_decode_stacked(q, ck, cv, l, valid, s_cap=s_cap))
+
+
+def _flash_prefill_dispatch(q, ck, cv, l: int, valid, mesh=None,
+                            s_cap: int | None = None):
+    """flash_prefill on the rank's head shard (as _flash_stacked's).
+    Replaces the shard_map wrapper _flash_prefill_dispatch
+    (magicdec_tpu/engine/attention_impls.py:99)."""
+    return _counted(_flash_prefill_dispatch, mesh, q,
+                    flash_prefill(q, ck, cv, l, valid, s_cap=s_cap))
+
+
+def _flash_intervals(q, k, v, sink_end, lo, hi, mesh=None, k_sink=None):
+    """flash_decode_intervals on the rank's head shard (flat k/v [B, S,
+    (Hkv/tp)*D]). Replaces the shard_map wrapper _flash_intervals
+    (magicdec_tpu/engine/attention_impls.py:117)."""
+    return _counted(_flash_intervals, mesh, q, flash_decode_intervals(
+        q, k, v, sink_end, lo, hi, k_sink=k_sink))
+
+
+for _form in (_flash_stacked, _flash_prefill_dispatch, _flash_intervals):
+    _form.launches = 0
+
+
 def _attend_stacked(config: ModelArgs, q, ck, cv, l: int, valid,
                     cap: int | None = None) -> torch.Tensor:
     """Ragged prefix attention against stacked caches, kernel-dispatched.
     `cap` bounds the attended slots (chunked prefill's power-of-2 bucket)."""
     T = q.shape[1]
     if T * (config.n_head // config.n_kv_head) <= FLASH_MAX_TG:
-        return flash_decode_stacked(q, ck, cv, l, valid, s_cap=cap)
-    return flash_prefill(q, ck, cv, l, valid, s_cap=cap)
+        return _flash_stacked(q, ck, cv, l, valid, config.mesh, s_cap=cap)
+    return _flash_prefill_dispatch(q, ck, cv, l, valid, config.mesh,
+                                   s_cap=cap)
 
 
-def flash_stacked_lse(q, ck, cv, l: int, valid, s_cap: int | None = None):
+def flash_stacked_lse(q, ck, cv, l: int, valid, s_cap: int | None = None, *,
+                      mesh=None):
     """flash_decode_stacked with the online-softmax state (m, l) returned,
     for a merge with another partial attention (ops/attention.merge_lse):
     the GliDe tree verify's prefix part. The decode kernel holds at most
     FLASH_MAX_TG rows per KV head, so larger query blocks (tree (4,2,2): 29
     nodes x G=4) run as chunks of FLASH_MAX_TG // G rows, one launch each;
-    rows are independent, so the chunks give the bits of one launch."""
+    rows are independent, so the chunks give the bits of one launch. On a
+    tp shard (mesh as _flash_stacked's) each launch counts on this form;
+    it replaces the shard_map wrapper flash_stacked_lse
+    (magicdec_tpu/engine/attention_impls.py:81)."""
     T = q.shape[1]
     G = q.shape[2] // (ck.shape[-1] // q.shape[-1])
     step = max(FLASH_MAX_TG // G, 1)
-    if T <= step:
-        return flash_decode_stacked(q, ck, cv, l, valid, s_cap=s_cap,
-                                    return_lse=True)
-    parts = [flash_decode_stacked(q[:, i:i + step].contiguous(), ck, cv, l,
-                                  valid[:, i:i + step].contiguous(),
-                                  s_cap=s_cap, return_lse=True)
-             for i in range(0, T, step)]
+    parts = [_counted(flash_stacked_lse, mesh, q, flash_decode_stacked(
+        q[:, i:i + step].contiguous(), ck, cv, l,
+        valid[:, i:i + step].contiguous(), s_cap=s_cap, return_lse=True))
+        for i in range(0, T, step)]
+    if len(parts) == 1:
+        return parts[0]
     return tuple(torch.cat(p, dim=1) for p in zip(*parts))
+
+
+flash_stacked_lse.launches = 0
 
 
 def _flat(ctx: torch.Tensor) -> torch.Tensor:
@@ -222,8 +276,9 @@ def streaming_draft_attn(config: ModelArgs, draft_lengths_before: torch.Tensor,
         slots.write(dk, k, l)
         slots.write(dv, v, l)
         k_sink = apply_rope(dk[l, :, :sink].reshape(B, sink, Hkv, D), cos, sin)
-        ctx = flash_decode_intervals(q, dk[l], dv[l], sink_end, lo, hi,
-                                     k_sink=k_sink.reshape(B, sink, Hkv * D))
+        ctx = _flash_intervals(q, dk[l], dv[l], sink_end, lo, hi,
+                               config.mesh,
+                               k_sink=k_sink.reshape(B, sink, Hkv * D))
         return _flat(ctx)
 
     return impl

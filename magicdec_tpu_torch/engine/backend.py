@@ -1,5 +1,5 @@
 """Engine: the runtime layer owning KV state and the step functions (port of
-magicdec_tpu/engine/backend.py without its mesh).
+magicdec_tpu/engine/backend.py).
 
 The caches are preallocated tensors that every step writes in place;
 raggedness lives in length vectors, so rollback is length arithmetic.
@@ -18,6 +18,13 @@ Public surface:
 Speculation modes: spec=None (baseline), "snapkv", "streaming", and
 "quest", "retro" and "squeeze", which draft out of the target cache through
 a round buffer that generate_selfspec allocates (no draft cache).
+
+Tensor parallelism: Engine(..., mesh=parallel.sharding.make_mesh(...)) in
+every rank of a world (parallel/launch.run_world) shards the params and
+runs the rank's layers with sharding.local_config, so its caches hold the
+rank's KV heads; replicate_tp=True keeps the model whole on every rank (the
+asymmetric-TP draft of engine/longspec.py). mesh=None is the single-device
+path.
 """
 
 from __future__ import annotations
@@ -36,6 +43,7 @@ from magicdec_tpu_torch.engine.retro import build_retro_state
 from magicdec_tpu_torch.engine.sampling import argmax_tokens
 from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.models.config import ModelArgs
+from magicdec_tpu_torch.parallel import sharding
 from magicdec_tpu_torch.quant.int8 import is_quantized
 
 # ---------------------------------------------------------------------------
@@ -171,7 +179,12 @@ class Engine:
     attends the selected pages or clusters plus a tail of the latest_k
     newest rows. retro_clusters=0 means max(max_len // 32, 8), the JAX
     package's sizing (max_len before rounding); squeeze_threshold is the
-    normalised mass a cluster needs to be attended."""
+    normalised mass a cluster needs to be attended.
+
+    mesh: a tensor-parallel mesh (parallel/sharding.make_mesh); the params
+    may be the whole tree or the rank's shards (init_sharded_params), and
+    self.config is the rank's local config. replicate_tp keeps every weight
+    and cache whole on every rank."""
 
     def __init__(self, config: ModelArgs, params, *, batch_size: int,
                  max_len: int, spec: Optional[str] = None,
@@ -181,12 +194,27 @@ class Engine:
                  retro_clusters: int = 0, retro_cap: int = 32,
                  squeeze_threshold: float = 0.01,
                  prefill_chunk: int = 128,
-                 kv_dtype=None, device=None):
+                 kv_dtype=None, device=None, mesh=None,
+                 replicate_tp: bool = False):
         if spec not in (None, "snapkv", "streaming", "quest", "retro",
                         "squeeze"):
             raise ValueError(f"unknown spec mode {spec!r}")
         if spec and draft_budget <= 0:
             raise ValueError("speculation needs draft_budget > 0")
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's "
+                                 f"{mesh.device}")
+            device = mesh.device
+            sharded = mesh.tp > 1 and not replicate_tp
+            if sharded and spec == "squeeze":
+                raise NotImplementedError(
+                    "SqueezedAttention under tensor parallelism is not ported "
+                    "(ROADMAP A14b)")
+            params = sharding.shard_params(params, mesh, config, replicate_tp)
+            if not replicate_tp:
+                config = sharding.local_config(config, mesh)
         self.device = resolve_device(device)
         emb = params["tok_embeddings"]      # quantization leaves it as it is
         if emb.device != self.device:
@@ -296,7 +324,8 @@ class Engine:
             t0 = time.perf_counter()
             self.spec_index = build_retro_state(self.cache,
                                                 self.retro_clusters,
-                                                self.retro_cap)
+                                                self.retro_cap,
+                                                mesh=self.config.mesh)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.index_build_s = time.perf_counter() - t0

@@ -556,6 +556,9 @@ class GlideEngine:
             raise ValueError(f"own_capacity {cap} < the target's max_len "
                              f"{target.max_len}: the glide cache would drop "
                              f"verified tokens")
+        if target.config.mesh is not None and target.config.mesh.tp > 1:
+            raise NotImplementedError("GliDe under tensor parallelism is not "
+                                      "ported (ROADMAP A14b)")
         if glide_params["wqkv"].device != target.device:
             raise ValueError(f"glide params lie on "
                              f"{glide_params['wqkv'].device}, the target on "

@@ -11,6 +11,13 @@ input, so the first draft step always has T=2 (the reference's ragged
 double-advance made uniform). Where the JAX package runs every round inside
 one lax.while_loop, the port runs a Python loop over rounds with one host
 read per round, as engine/spec.py does.
+
+Asymmetric tensor parallelism: the target Engine sharded over a tp mesh,
+the draft Engine on the same mesh with replicate_tp=True (the whole draft
+and its whole-head kernels on every rank). Each round the drafted tokens
+are broadcast from tp rank 0, as the reference does
+(tests/SnapKV/longspec_benchmark.py:54-64), so the ranks feed one verify
+with the same tokens whatever their draft computed.
 """
 
 from __future__ import annotations
@@ -26,6 +33,7 @@ from magicdec_tpu_torch.engine.sampling import argmax_tokens
 from magicdec_tpu_torch.engine.spec import (SpecStats, _accept_and_update,
                                             _eot_array, _sync)
 from magicdec_tpu_torch.models import llama
+from magicdec_tpu_torch.parallel.collectives import broadcast_tp
 
 
 def _draft_step_fn(dconfig, mode: str, budget: int, sink: int):
@@ -55,11 +63,12 @@ def _draft_step_fn(dconfig, mode: str, budget: int, sink: int):
 @torch.inference_mode()
 def longspec_round(tparams, tconfig, dparams, step, tcache: KVCache, dcache,
                    buffer0, last_acc, stale, output, gen_counts, eot,
-                   gamma: int):
+                   gamma: int, mesh=None):
     """One two-model round. At entry dcache.lengths is the slot of last_acc
     (the newest accepted token). The re-feed writes that slot only when it
     is stale (after a fully accepted round): a prefill-written slot keeps its
-    bits (see spec.streaming_round). Caches and output are written in place;
+    bits (see spec.streaming_round). mesh: the target's tp mesh, whose rank
+    0 broadcasts the drafted tokens. Caches and output are written in place;
     returns (bonus, last_acc, stale, gen_counts, info)."""
     lenT0, lenD0 = tcache.lengths, dcache.lengths
     mask0 = torch.stack([stale, torch.ones_like(stale)], dim=1)
@@ -71,7 +80,7 @@ def longspec_round(tparams, tconfig, dparams, step, tcache: KVCache, dcache,
         nxt = step(dparams, dcache, nxt, tlen)
         tlen = tlen + 1
         drafted.append(nxt)
-    buffer = torch.cat([buffer0] + drafted, dim=1)          # [B, gamma+1]
+    buffer = broadcast_tp(torch.cat([buffer0] + drafted, dim=1), mesh)
 
     # target verify: plain decode over the gamma+1 tokens
     impl = impls.target_attn(tconfig, lenT0, gamma + 1)
@@ -97,7 +106,8 @@ class LongSpecEngine:
     target and draft are Engines on one device: the draft Engine carries the
     compression mode (spec=None -> "full"). Its budget cache is built by its
     own encode(), after which the compressed modes free its full prefill
-    cache.
+    cache. Under tensor parallelism both Engines take the same mesh (the
+    draft typically with replicate_tp=True).
     """
 
     def __init__(self, target: Engine, draft: Engine):
@@ -107,6 +117,8 @@ class LongSpecEngine:
         if target.device != draft.device:
             raise ValueError(f"target on {target.device}, draft on "
                              f"{draft.device}")
+        if target.mesh != draft.mesh:
+            raise ValueError("target and draft must run on the same mesh")
         self.target = target
         self.draft = draft
         self.mode = draft.spec or "full"
@@ -153,7 +165,7 @@ class LongSpecEngine:
             buffer0, last_acc, stale, gen_counts, info = longspec_round(
                 self.target.params, self.target.config, d.params, step,
                 tcache, dcache, buffer0, last_acc, stale, output, gen_counts,
-                eot, gamma)
+                eot, gamma, self.target.mesh)
             stats.rounds += 1
             accepted = accepted + info["accepted_drafts"]
             terminal = terminal | info["terminal"]

@@ -26,7 +26,8 @@ import torch
 from magicdec_tpu_torch.cache import KVCache
 from magicdec_tpu_torch.engine import retro
 from magicdec_tpu_torch.models.config import ModelArgs
-from magicdec_tpu_torch.ops.page_gather import page_gather
+from magicdec_tpu_torch.ops.page_gather import page_gather_sharded
+from magicdec_tpu_torch.parallel.collectives import all_reduce_tp
 
 NEG_INF = -1e30
 _BIG = 3e38     # the neutral box bound of slots past a sequence's length
@@ -84,9 +85,12 @@ def quest_select_gather_fn(config: ModelArgs, kmin, kmax, tail_base, *,
     holds entirely are excluded; a straddling page stays scoreable, its
     covered rows deduped by the colmask. Pages that could only be picked
     with a NEG_INF score (fewer scoreable pages than n_pages) are marked
-    invalid (slot -1), whatever index the tie gave."""
+    invalid (slot -1), whatever index the tie gave. Under a tp mesh the
+    head sum of the scores is all-reduced over the ranks before the top-k,
+    so every rank picks the same pages, and each gathers its own columns."""
     Hkv, Dh = config.n_kv_head, config.head_dim
     G = config.n_head // Hkv
+    mesh = config.mesh
     first_covered = -(-tail_base // page)                              # [B]
 
     def select_gather(q, ck, cv, l, out_k, out_v):
@@ -97,7 +101,8 @@ def quest_select_gather_fn(config: ModelArgs, kmin, kmax, tail_base, *,
         mx = kmax[l].reshape(B, P, Hkv, Dh)
         lo = torch.einsum("bthgd,bphd->bthgp", qg, mn)
         hi = torch.einsum("bthgd,bphd->bthgp", qg, mx)
-        scores = torch.maximum(lo, hi).sum(dim=(2, 3))[:, -1]         # [B, P]
+        scores = all_reduce_tp(                                       # [B, P]
+            torch.maximum(lo, hi).sum(dim=(2, 3))[:, -1].contiguous(), mesh)
         pid = torch.arange(P, device=q.device)
         scores = torch.where(pid[None, :] < first_covered[:, None], scores,
                              NEG_INF)
@@ -105,9 +110,9 @@ def quest_select_gather_fn(config: ModelArgs, kmin, kmax, tail_base, *,
                                            sorted=True)
         top_pages = top_pages.to(torch.int32)
         HD = ck.shape[3]
-        page_gather(ck, cv, l, top_pages, page,
-                    out=(out_k.view(B, n_pages, page, HD),
-                         out_v.view(B, n_pages, page, HD)))
+        page_gather_sharded(ck, cv, l, top_pages, page, mesh=mesh,
+                            out=(out_k.view(B, n_pages, page, HD),
+                                 out_v.view(B, n_pages, page, HD)))
         rows = torch.arange(page, dtype=torch.int32, device=q.device)
         slot = top_pages[:, :, None] * page + rows
         ok = (top_scores > NEG_INF / 2)[:, :, None]
@@ -151,10 +156,11 @@ class QuestState(retro.RoundBuffer):
                                       self.tail_base, n_pages=self.n_pages,
                                       page=self.page)
 
-    def compact(self, cache: KVCache) -> None:
+    def compact(self, cache: KVCache, mesh=None) -> None:
         """Shift the tail window and refresh the boxes of the pages that
         aged out of it (they are unselectable while the tail holds them):
-        the tail_base moved, which is when the JAX package refreshes them."""
+        the tail_base moved, which is when the JAX package refreshes them.
+        The boxes are per column, so a tp mesh needs no collective here."""
         old_base = self.shift()
         update_page_meta(cache, self.kmin, self.kmax, old_base, self.Wcap,
                          self.page)

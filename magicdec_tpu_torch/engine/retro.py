@@ -26,6 +26,11 @@ Generations of at most TAIL_COVERS_MAX tokens widen the tail to hold every
 generated row; longer ones fold the rows that age out of the tail into the
 cluster index at each compaction (update_cluster_index).
 
+Under a tp mesh (config.mesh) every buffer, the store and the centroids hold
+the rank's KV-head columns; the cluster slot tables and counts are the same
+on every rank: the k-means distances and the centroid scores are sums over
+all heads, all-reduced before their argmin and top-k.
+
 As elsewhere in the port, the buffers, the index and the store are written
 in place. Where the JAX package runs the rounds inside one lax.while_loop,
 the port runs a Python loop over rounds (engine/spec.py) with one host read
@@ -46,9 +51,10 @@ from magicdec_tpu_torch.engine.sampling import argmax_tokens
 from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.models.config import ModelArgs
 from magicdec_tpu_torch.ops.flash_decode import flash_decode_stacked_masked
-from magicdec_tpu_torch.ops.gemm_softmax import centroid_scores
+from magicdec_tpu_torch.ops.gemm_softmax import centroid_scores_sharded
 from magicdec_tpu_torch.ops.kmeans import kmeans
-from magicdec_tpu_torch.ops.page_gather import page_gather_single
+from magicdec_tpu_torch.ops.page_gather import page_gather_single_sharded
+from magicdec_tpu_torch.parallel.collectives import all_reduce_tp
 
 # generations up to this many tokens keep every generated row in the tail
 # window (no index maintenance); longer ones fold aged rows into the cluster
@@ -108,18 +114,34 @@ def tail_compact(bufk, bufv, tail_len, tail_base, *, NS: int, keep: int):
     return tail_len - shift, tail_base + shift
 
 
+def _tail_attend(q, bufk, bufv, colmask, l: int, ns, hi, mesh=None):
+    """flash_decode_stacked_masked over [top region | causal tail] of the
+    round buffer, on the rank's head shard under a tp mesh (q [B, 1, Hq/tp,
+    D], buffers [L, B, R, (Hkv/tp)*D]); the colmask is the same on every
+    rank. Replaces the shard_map wrapper of the masked
+    kernel in _tail_attend (magicdec_tpu/engine/retro.py:305-330). Off-mesh
+    it is the plain kernel."""
+    return impls._counted(_tail_attend, mesh, q, flash_decode_stacked_masked(
+        q, bufk, bufv, l, colmask, ns, ns, hi))
+
+
+_tail_attend.launches = 0
+
+
 class _TailRows:
     """Row bounds of one draft step (one token) over the round buffer: it
     attends the top region's set bits and tail columns [NS, NS +
     tail_len_before + 1)."""
 
-    def __init__(self, tail_len_before: torch.Tensor, NS: int):
+    def __init__(self, config: ModelArgs, tail_len_before: torch.Tensor,
+                 NS: int):
         self.hi = NS + 1 + tail_len_before.to(torch.int32)[:, None]
         self.ns = torch.full_like(self.hi, NS)
+        self.mesh = config.mesh
 
     def attend(self, q, bufk, bufv, colmask, l):
-        return flash_decode_stacked_masked(q, bufk, bufv, l, colmask, self.ns,
-                                           self.ns, self.hi)
+        return _tail_attend(q, bufk, bufv, colmask, l, self.ns, self.hi,
+                            self.mesh)
 
 
 def roundtail_select_attn(config: ModelArgs, lengths_before: torch.Tensor,
@@ -137,7 +159,7 @@ def roundtail_select_attn(config: ModelArgs, lengths_before: torch.Tensor,
     and returns their absolute cache slots [B, NS] (-1 invalid)."""
     rot = _Rotary(config, _positions(lengths_before, 1))
     slots = _Slots(NS + tail_len_before, 1)
-    rows = _TailRows(tail_len_before, NS)
+    rows = _TailRows(config, tail_len_before, NS)
 
     def impl(q, k, v, caches, l):
         ck, cv, bufk, bufv, colmask = caches
@@ -161,7 +183,7 @@ def roundtail_draft_attn(config: ModelArgs, lengths_before: torch.Tensor,
     caches = (ck, cv, bufk, bufv, colmask)."""
     rot = _Rotary(config, _positions(lengths_before, 1))
     slots = _Slots(NS + tail_len_before, 1)
-    rows = _TailRows(tail_len_before, NS)
+    rows = _TailRows(config, tail_len_before, NS)
 
     def impl(q, k, v, caches, l):
         _, _, bufk, bufv, colmask = caches
@@ -299,12 +321,15 @@ def member_slot_table(assign: torch.Tensor, valid: torch.Tensor,
     return table[..., :-1].reshape(*assign.shape[:-1], n_clusters, cap)
 
 
-def build_cluster_index(cache: KVCache, n_clusters: int, cap: int):
+def build_cluster_index(cache: KVCache, n_clusters: int, cap: int,
+                        mesh=None):
     """Cluster each (layer, sequence)'s keys over the full packed [Hkv*D]
     rows (all KV heads jointly, so a selected slot moves as one row).
     Returns (centroids [L, B, C, HD] float32, slots [L, B, C, cap] int32,
     -1 padding). One layer at a time, so the [B, S, C] transients of the
-    Lloyd distances and the one-hot exist for one layer only."""
+    Lloyd distances and the one-hot exist for one layer only. Under a tp
+    mesh the keys and centroids are the rank's columns and each distance
+    is all-reduced over the ranks, so every rank assigns alike."""
     L, B, S, HD = cache.k.shape
     dev = cache.k.device
     valid = torch.arange(S, device=dev)[None, :] < cache.lengths[:, None]
@@ -313,7 +338,8 @@ def build_cluster_index(cache: KVCache, n_clusters: int, cap: int):
     slots = torch.empty((L, B, n_clusters, cap), dtype=torch.int32,
                         device=dev)
     for l in range(L):
-        cent[l], assign = kmeans(cache.k[l], valid, n_clusters)
+        cent[l], assign = kmeans(cache.k[l], valid, n_clusters,
+                                 reduce=lambda d: all_reduce_tp(d, mesh))
         slots[l] = member_slot_table(assign, valid, n_clusters, cap)
     return cent, slots
 
@@ -337,12 +363,13 @@ def build_clustered_store(cache: KVCache, cluster_slots: torch.Tensor,
     return store.view(L, B, C * 2 * cap, HD)
 
 
-def build_retro_state(cache: KVCache, n_clusters: int, cap: int):
+def build_retro_state(cache: KVCache, n_clusters: int, cap: int, mesh=None):
     """The retrieval index, built after prefill (RetroInfer clusters inside
     its prefill too): (centroids, cluster_slots, kv_store, counts [L, B, C]
     int32 live member counts, indexed_upto [B] = the prefill lengths the
-    index was built from)."""
-    centroids, cluster_slots = build_cluster_index(cache, n_clusters, cap)
+    index was built from); mesh: as build_cluster_index's."""
+    centroids, cluster_slots = build_cluster_index(cache, n_clusters, cap,
+                                                   mesh)
     kv_store = build_clustered_store(cache, cluster_slots, cap)
     counts = (cluster_slots >= 0).sum(-1, dtype=torch.int32)
     return (centroids, cluster_slots, kv_store, counts,
@@ -374,14 +401,15 @@ def _scatter_rows(dst: torch.Tensor, target: torch.Tensor, val: torch.Tensor,
 
 def update_cluster_index(cache: KVCache, centroids, cluster_slots, kv_store,
                          counts, old_base, new_base, indexed_upto, *,
-                         age_max: int, cap: int) -> None:
+                         age_max: int, cap: int, mesh=None) -> None:
     """Fold the rows [old_base, new_base) per sequence (just compacted out
     of the tail window) into the index, in place: each joins its nearest
     centroid (the k-means metric, centroids fixed) and is appended to that
     cluster's member slots and its rows of the store; counts [L, B, C]
     advance. Rows below indexed_upto are members already and are skipped (a
     duplicate key would be attended twice); rows landing in a full cluster
-    are dropped, like build_cluster_index's overflow."""
+    are dropped, like build_cluster_index's overflow. Under a tp mesh the
+    distances are all-reduced over the ranks, as build_cluster_index's."""
     L, B, S, HD = cache.k.shape
     C = cluster_slots.shape[2]
     dev = cache.k.device
@@ -395,6 +423,7 @@ def update_cluster_index(cache: KVCache, centroids, cluster_slots, kv_store,
     v_rows = cache.v[:, b_idx, src]
     d = (-2.0 * torch.einsum("lbad,lbcd->lbac", k_rows.float(), centroids)
          + (centroids * centroids).sum(-1)[:, :, None, :])
+    all_reduce_tp(d, mesh)
     assign = torch.argmin(d, dim=-1)                              # [L, B, A]
     onehot = (torch.nn.functional.one_hot(assign, C).to(torch.int32)
               * valid[None, :, :, None].to(torch.int32))
@@ -418,19 +447,22 @@ def update_cluster_index(cache: KVCache, centroids, cluster_slots, kv_store,
 def retro_select_gather_fn(config: ModelArgs, centroids, cluster_slots,
                            kv_store, *, nprobe: int, select_fn=None):
     """select_gather_fn for roundtail_select_attn: rank the clusters of
-    layer l (centroid_scores summed over KV heads, top nprobe; or a custom
+    layer l (centroid_scores summed over KV heads, all-reduced over the tp
+    ranks, top nprobe; or a custom
     select_fn(q, l) -> (top_c [B, n] int32, keep [B, n] bool or None), the
     SqueezedAttention rule), then page_gather_single the whole clusters (K
     and V halves of each 2cap-row store page) into the top region. Returns
     the gathered rows' cache slots [B, n * cap] (-1 for pad members and for
     clusters not kept)."""
     Hkv, Dh = config.n_kv_head, config.head_dim
+    mesh = config.mesh
     cap = cluster_slots.shape[3]
 
     def default_select(q, l):
         B, C = q.shape[0], centroids.shape[2]
         cent = centroids[l].view(B, C, Hkv, Dh).transpose(1, 2)  # no copy
-        scores = centroid_scores(q, cent).sum(dim=1)              # [B, C]
+        scores = centroid_scores_sharded(q, cent, mesh=mesh).sum(dim=1)
+        all_reduce_tp(scores, mesh)                               # [B, C]
         return torch.topk(scores, nprobe, dim=1).indices.to(torch.int32), None
 
     select = select_fn or default_select
@@ -443,9 +475,9 @@ def retro_select_gather_fn(config: ModelArgs, centroids, cluster_slots,
         slots = cluster_slots[l][b_idx, top_c.long()]             # [B,n,cap]
         if keep is not None:
             slots = torch.where(keep[..., None], slots, -1)
-        page_gather_single(kv_store, l, top_c, 2 * cap,
-                           out=(out_k.view(B, n, cap, HD),
-                                out_v.view(B, n, cap, HD)))
+        page_gather_single_sharded(kv_store, l, top_c, 2 * cap, mesh=mesh,
+                                   out=(out_k.view(B, n, cap, HD),
+                                        out_v.view(B, n, cap, HD)))
         return slots.reshape(B, -1)
 
     return select_gather
@@ -490,12 +522,14 @@ class RetroState(RoundBuffer):
                                       self.cluster_slots, self.kv_store,
                                       nprobe=self.nprobe)
 
-    def compact(self, cache: KVCache) -> None:
+    def compact(self, cache: KVCache, mesh=None) -> None:
         """Shift the tail window and, on the long-generation path, fold the
-        rows that aged out of it into the index."""
+        rows that aged out of it into the index (mesh: the tp mesh, whose
+        ranks all-reduce the fold's distances)."""
         old_base = self.shift()
         if self.age_max:
             update_cluster_index(cache, self.centroids, self.cluster_slots,
                                  self.kv_store, self.counts, old_base,
                                  self.tail_base, self.indexed_upto,
-                                 age_max=self.age_max, cap=self.cap)
+                                 age_max=self.age_max, cap=self.cap,
+                                 mesh=mesh)

@@ -301,7 +301,7 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
             break
         if st is not None:
             if need:
-                st.compact(engine.cache)
+                st.compact(engine.cache, engine.config.mesh)
                 stats.compactions += 1
             buffer0, gen_counts, info = retro_lib.roundtail_round(
                 engine.params, engine.config, engine.cache, st, buffer0,

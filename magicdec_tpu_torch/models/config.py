@@ -45,6 +45,11 @@ class ModelArgs:
     original_max_position_embeddings: Optional[int] = None
     qkv_bias: bool = False       # Qwen2.5
     tie_word_embeddings: bool = False
+    # not a field, so a config compares and prints as the JAX package's: the
+    # tp mesh a rank's local config carries (parallel/sharding.local_config
+    # sets it on the instance), which the model and the drafts read; None
+    # off-mesh
+    mesh = None
 
     def __post_init__(self):
         if self.n_kv_head == -1:

@@ -50,6 +50,8 @@ from magicdec_tpu_torch.device import resolve_device
 from magicdec_tpu_torch.models.config import ModelArgs
 from magicdec_tpu_torch.ops.fused_block import fused_post_attn, fused_qkv
 from magicdec_tpu_torch.ops.norms import rms_norm
+from magicdec_tpu_torch.parallel.collectives import (all_gather_tp,
+                                                     all_reduce_tp)
 from magicdec_tpu_torch.quant.int8 import Int4ColWeight, is_quantized, qmatmul
 
 Params = dict[str, Any]
@@ -62,10 +64,13 @@ ROW_BUCKET = 64
 DECODE_ROWS_PER_SEQ = 32
 
 
-def init_params(config: ModelArgs, dtype=torch.float32, scale: float = 0.02,
-                seed: int = 0, device=None) -> Params:
-    """Random-normal params from a seeded torch.Generator on `device` (for
-    tests and runs without checkpoints)."""
+def init_pieces(config: ModelArgs, dtype=torch.float32, scale: float = 0.02,
+                seed: int = 0, device=None):
+    """init_params's weights in the order they are drawn from one seeded
+    torch.Generator on `device`: (leaf name, layer, tensor), a stacked
+    weight one layer at a time (layer None for a whole leaf: the embedding,
+    the norms, the output, None when tied). parallel/sharding's
+    init_sharded_params keeps each rank's slice of the same stream."""
     device = resolve_device(device)
     c = config
     L, D, I = c.n_layer, c.dim, c.intermediate_size
@@ -77,24 +82,35 @@ def init_params(config: ModelArgs, dtype=torch.float32, scale: float = 0.02,
         return (torch.randn(shape, generator=gen, device=device,
                             dtype=torch.float32) * scale).to(dtype)
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=device)
-
-    params: Params = {
-        "tok_embeddings": rnd(c.vocab_size, D),
-        "layers": {
-            "attn_norm": ones(L, D),
-            "wqkv": rnd(L, D, qkv_out),
-            "wo": rnd(L, Hq * Dh, D),
-            "ffn_norm": ones(L, D),
-            "w_gate_up": rnd(L, D, 2, I),
-            "w_down": rnd(L, I, D),
-        },
-        "norm": ones(D),
-        "output": None if c.tie_word_embeddings else rnd(D, c.vocab_size),
-    }
+    yield "tok_embeddings", None, rnd(c.vocab_size, D)
+    for name, shape in (("wqkv", (D, qkv_out)), ("wo", (Hq * Dh, D)),
+                        ("w_gate_up", (D, 2, I)), ("w_down", (I, D))):
+        for l in range(L):
+            yield name, l, rnd(*shape)
+    for name, shape in (("attn_norm", (L, D)), ("ffn_norm", (L, D)),
+                        ("norm", (D,))):
+        yield name, None, torch.ones(shape, dtype=dtype, device=device)
+    yield "output", None, (None if c.tie_word_embeddings
+                           else rnd(D, c.vocab_size))
     if c.qkv_bias:
-        params["layers"]["bqkv"] = rnd(L, qkv_out)
+        for l in range(L):
+            yield "bqkv", l, rnd(qkv_out)
+
+
+def init_params(config: ModelArgs, dtype=torch.float32, scale: float = 0.02,
+                seed: int = 0, device=None) -> Params:
+    """Random-normal params from a seeded torch.Generator on `device` (for
+    tests and runs without checkpoints), drawn by init_pieces."""
+    params: Params = {"layers": {}}
+    for name, layer, t in init_pieces(config, dtype, scale, seed, device):
+        if layer is None:
+            top = name in ("tok_embeddings", "norm", "output")
+            (params if top else params["layers"])[name] = t
+            continue
+        if layer == 0:
+            params["layers"][name] = torch.empty(
+                (config.n_layer, *t.shape), dtype=t.dtype, device=t.device)
+        params["layers"][name][layer] = t
     return params
 
 
@@ -198,13 +214,24 @@ def _block(x: torch.Tensor, params: Params, config: ModelArgs,
         qkv = qkv + bqkv
     q, k, v = _split_qkv(qkv[:B * T].reshape(B, T, -1), config)
     ctx = attn_impl(q, k, v, caches, l)
-    x = x + qmatmul(_pad_rows(ctx.reshape(B * T, -1), x.shape[0]),
-                    _layer(lp["wo"], l))
+    o = qmatmul(_pad_rows(ctx.reshape(B * T, -1), x.shape[0]),
+                _layer(lp["wo"], l))
+    x = x + _reduce_rows(o, B * T, config)
 
     h = rms_norm(x, lp["ffn_norm"][l], config.norm_eps)
     gate_up = qmatmul(h, _layer(lp["w_gate_up"], l))
     act = F.silu(gate_up[:, 0]) * gate_up[:, 1]
-    return x + qmatmul(act, _layer(lp["w_down"], l))
+    return x + _reduce_rows(qmatmul(act, _layer(lp["w_down"], l)), B * T,
+                            config)
+
+
+def _reduce_rows(y: torch.Tensor, rows: int, config: ModelArgs):
+    """A row-parallel product's partial sums [Mp, dim] all-reduced over the
+    tp ranks (a no-op off-mesh). Only the `rows` token rows travel: the pad
+    rows of every rank's partial are zero (zero rows stay zero through the
+    norms and products), so their sum is too."""
+    all_reduce_tp(y[:rows], config.mesh)
+    return y
 
 
 _FUSED_MODE = "off"  # "auto" | "off": see set_fused_mode
@@ -244,6 +271,13 @@ def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
     stacked [L, ...] tensors, which attn_impl writes in place at layer l.
     fused: see _fused_auto. The fused block runs the B*T token rows
     unpadded; they are padded to Mp again for the unembedding."""
+    if config.mesh is not None and config.mesh.tp > 1:
+        # off under tensor parallelism, as the JAX package's fused_for_mesh:
+        # the fused kernels take whole weights and hold no collective
+        if fused:
+            raise ValueError("the fused decode block does not run on a "
+                             "tensor-parallel mesh (ROADMAP A14b)")
+        fused = False
     use_fused = _fused_auto(params, x, T, fused)
     rows = x.shape[0]
     if use_fused:
@@ -253,9 +287,26 @@ def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
     return _pad_rows(x, rows) if use_fused else x
 
 
+def embed(params: Params, config: ModelArgs, ids: torch.Tensor) -> torch.Tensor:
+    """Token ids [N] -> embeddings [N, dim]. Under a tp mesh the table is
+    vocab-parallel (the rank's contiguous block of V/tp rows): each rank
+    looks up the ids in its block, zeros the others and the ranks'
+    results are all-reduced, which is exact (one nonzero term a token)."""
+    emb = params["tok_embeddings"]
+    mesh = config.mesh
+    if mesh is None or mesh.tp == 1:
+        return F.embedding(ids.long(), emb)
+    n = emb.shape[0]
+    local = ids.long() - mesh.rank * n
+    hit = ((local >= 0) & (local < n)).to(emb.dtype)[:, None]
+    x = F.embedding(local.clamp(0, n - 1), emb) * hit
+    return all_reduce_tp(x, mesh)
+
+
 def unembed(params: Params, config: ModelArgs, x: torch.Tensor) -> torch.Tensor:
     """Final norm + lm_head; logits in float32. x's rows are padded to a
-    multiple of ROW_BUCKET, which keeps row_bucket's count as it is."""
+    multiple of ROW_BUCKET, which keeps row_bucket's count as it is. Under a
+    tp mesh these are the rank's vocab columns (forward gathers them)."""
     x = rms_norm(x, params["norm"], config.norm_eps)
     w_out = (params["tok_embeddings"].t() if config.tie_word_embeddings
              else params["output"])
@@ -267,12 +318,14 @@ def forward(params: Params, config: ModelArgs, tokens: torch.Tensor,
             fused: bool | None = None) -> torch.Tensor:
     """tokens [B, T] -> logits float32 [B, T, V] ([B, 1, V] with last_only);
     the caches are written in place. fused: the fused decode block switch
-    (None = auto; see _fused_auto)."""
+    (None = auto; see _fused_auto). Under a tp mesh (config.mesh) every
+    rank returns the same full logits: the vocab columns are gathered in
+    rank order, so every rank takes the same argmax."""
     B, T = tokens.shape
-    x = _pad_rows(F.embedding(tokens.reshape(-1).long(),
-                              params["tok_embeddings"]), row_bucket(B, T))
+    x = _pad_rows(embed(params, config, tokens.reshape(-1)), row_bucket(B, T))
     x = run_layers(params, config, x, attn_impl, caches, B, T, fused)
     if last_only:
         x = _pad_rows(x[:B * T].reshape(B, T, -1)[:, -1], row_bucket(B, 1))
         T = 1
-    return unembed(params, config, x)[:B * T].reshape(B, T, -1)
+    logits = unembed(params, config, x)[:B * T]
+    return all_gather_tp(logits, config.mesh, dim=1).reshape(B, T, -1)

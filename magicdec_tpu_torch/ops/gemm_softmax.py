@@ -101,3 +101,22 @@ def centroid_scores(q: torch.Tensor, centroids: torch.Tensor) -> torch.Tensor:
 
 
 centroid_scores.launches = 0
+
+
+def centroid_scores_sharded(q: torch.Tensor, centroids: torch.Tensor, *,
+                            mesh=None) -> torch.Tensor:
+    """centroid_scores on one tp rank's heads: q [B, T, Hq/tp, D] and
+    centroids [B, Hkv/tp, C, D] -> the rank's [B, Hkv/tp, C]. The per-head
+    scores need no collective; the caller's sum over heads does
+    (engine/retro.py all-reduces it). Off-mesh it is centroid_scores.
+
+    Replaces centroid_scores_sharded (the shard_map of the TPU kernel,
+    magicdec_tpu/ops/pallas/gemm_softmax.py:69): one launch of
+    centroid_scores' kernel on the shard, counted on both wrappers."""
+    out = centroid_scores(q, centroids)
+    if mesh is not None and mesh.tp > 1 and q.is_cuda:
+        centroid_scores_sharded.launches += 1
+    return out
+
+
+centroid_scores_sharded.launches = 0

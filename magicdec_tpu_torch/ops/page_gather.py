@@ -290,3 +290,42 @@ def page_gather_single(store: torch.Tensor, layer: int, pages: torch.Tensor,
 
 
 page_gather_single.launches = 0
+
+
+def page_gather_sharded(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                        layer: int, pages: torch.Tensor, page: int = 128, *,
+                        mesh=None,
+                        out: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """page_gather on one tp rank's shard: k/v_cache [L, B, S, (Hkv/tp)*D],
+    the rank's whole KV heads (parallel/sharding.local_config checks the
+    partition). The ranks gather the same pages, each its own columns, with
+    no collective. Off-mesh (mesh None or tp 1) it is page_gather.
+
+    Replaces page_gather_sharded (the shard_map of the TPU kernel,
+    magicdec_tpu/ops/pallas/page_gather.py:193): one launch of page_gather's
+    kernel on the shard, counted on both wrappers."""
+    res = page_gather(k_cache, v_cache, layer, pages, page, out=out)
+    if mesh is not None and mesh.tp > 1 and k_cache.is_cuda:
+        page_gather_sharded.launches += 1
+    return res
+
+
+page_gather_sharded.launches = 0
+
+
+def page_gather_single_sharded(store: torch.Tensor, layer: int,
+                               pages: torch.Tensor, page: int, *, mesh=None,
+                               out: tuple[torch.Tensor, torch.Tensor] | None = None):
+    """page_gather_single on one tp rank's shard of the KV-fused store
+    [L, B, R, (Hkv/tp)*D]. Off-mesh it is page_gather_single.
+
+    Replaces page_gather_single_sharded (magicdec_tpu/ops/pallas/
+    page_gather.py:178): one launch of page_gather_single's kernel on the
+    shard, counted on both wrappers."""
+    res = page_gather_single(store, layer, pages, page, out=out)
+    if mesh is not None and mesh.tp > 1 and store.is_cuda:
+        page_gather_single_sharded.launches += 1
+    return res
+
+
+page_gather_single_sharded.launches = 0

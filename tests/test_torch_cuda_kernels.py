@@ -540,3 +540,113 @@ def test_card_limit_rejects_a_dropped_ring_stage(cuda, D):
     for fault in (0, 1):
         out = tfd._prefill_launch(q, k, v, 1, valid, 1024, fault=fault)
         assert bool(((out.float() - ref).abs() <= limit).all()) == (fault == 0)
+
+
+# the per-shard forms of tensor parallelism: each on every rank's contiguous
+# head shard, the shards concatenated against the kernel on the whole tensors
+_SHARDED_FORMS = ["_flash_stacked", "_flash_prefill_dispatch",
+                  "_flash_intervals", "_tail_attend", "flash_stacked_lse",
+                  "page_gather_sharded", "page_gather_single_sharded",
+                  "centroid_scores_sharded"]
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view({2: torch.int16, 4: torch.int32}[t.element_size()])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", _HEAD_DIMS)
+@pytest.mark.parametrize("form", _SHARDED_FORMS)
+def test_card_sharded_form_bitequal_to_whole(cuda, form, D):
+    """At tp = 2 and 4 (Hkv=4 KV heads, G=2, bf16), each rank's form on its
+    contiguous head shard, concatenated, gives the whole kernel's bits:
+    attention, the gathers and the scores are per head."""
+    from magicdec_tpu_torch.engine import attention_impls as impls
+    from magicdec_tpu_torch.engine.retro import _tail_attend
+    from magicdec_tpu_torch.ops import gemm_softmax as gs
+    from magicdec_tpu_torch.ops import page_gather as pg
+    from magicdec_tpu_torch.parallel.sharding import Mesh
+
+    Hkv, S, T = 4, 1152, 7
+    q, k, v = _card_inputs(cuda, torch.bfloat16, S=S, T=T, Hkv=Hkv, G=2, D=D)
+    q128 = _card_inputs(cuda, torch.bfloat16, S=S, T=128, Hkv=Hkv, G=2,
+                        D=D, seed=1)[0]
+    Bk = q.shape[0]
+    valid = decode_valid_upto(
+        torch.tensor([1000, 511, 300], dtype=torch.int32, device=cuda), T)
+    valid128 = decode_valid_upto(
+        torch.tensor([512, 600, 130], dtype=torch.int32, device=cuda), 128)
+    a = torch.full_like(valid, 4)
+    lo = torch.full_like(valid, 200)
+    q1, hi1 = q[:, :1].contiguous(), valid[:, :1].contiguous()
+    ns = torch.full_like(hi1, 256)
+    cm = (torch.rand((2, Bk, 1, S), device=cuda) < 0.7).to(torch.int32)
+    pages = torch.tensor([[3, 0, 8], [7, 7, 1], [8, 2, 5]], dtype=torch.int32,
+                         device=cuda)
+    cents = torch.randn((Bk, 9, Hkv * D), device=cuda)
+
+    def cut(x, tp, r, axis):
+        n = x.shape[axis] // tp
+        return x.narrow(axis, r * n, n).contiguous()
+
+    def cview(c):
+        return c.view(Bk, 9, -1, D).transpose(1, 2)
+
+    calls = {   # form -> (on rank r of tp, on the whole tensors, out axis)
+        "_flash_stacked": (
+            lambda m, tp, r: impls._flash_stacked(
+                cut(q, tp, r, 2), cut(k, tp, r, 3), cut(v, tp, r, 3), 1,
+                valid, m),
+            lambda: tfd.flash_decode_stacked(q, k, v, 1, valid), 2),
+        "_flash_prefill_dispatch": (
+            lambda m, tp, r: impls._flash_prefill_dispatch(
+                cut(q128, tp, r, 2), cut(k, tp, r, 3), cut(v, tp, r, 3), 0,
+                valid128, m, s_cap=768),
+            lambda: tfd.flash_prefill(q128, k, v, 0, valid128, s_cap=768), 2),
+        "_flash_intervals": (
+            lambda m, tp, r: impls._flash_intervals(
+                cut(q, tp, r, 2), cut(k[1], tp, r, 2), cut(v[1], tp, r, 2), a,
+                lo, valid, m, k_sink=cut(k[0, :, :4], tp, r, 2)),
+            lambda: tfd.flash_decode_intervals(
+                q, k[1], v[1], a, lo, valid, k_sink=k[0, :, :4].contiguous()),
+            2),
+        "_tail_attend": (
+            lambda m, tp, r: _tail_attend(
+                cut(q1, tp, r, 2), cut(k, tp, r, 3), cut(v, tp, r, 3), cm, 1,
+                ns, hi1, m),
+            lambda: tfd.flash_decode_stacked_masked(q1, k, v, 1, cm, ns, ns,
+                                                    hi1), 2),
+        "flash_stacked_lse": (
+            lambda m, tp, r: torch.cat([x.float().reshape(Bk, T, -1) for x in
+                                        impls.flash_stacked_lse(
+                cut(q, tp, r, 2), cut(k, tp, r, 3), cut(v, tp, r, 3), 1,
+                valid, mesh=m)], dim=2),
+            None, 2),
+        "page_gather_sharded": (
+            lambda m, tp, r: torch.stack(pg.page_gather_sharded(
+                cut(k, tp, r, 3), cut(v, tp, r, 3), 1, pages, 128, mesh=m)),
+            lambda: torch.stack(pg.page_gather(k, v, 1, pages, 128)), 4),
+        "page_gather_single_sharded": (
+            lambda m, tp, r: pg.page_gather_single_sharded(
+                cut(k, tp, r, 3), 1, pages, 128, mesh=m),
+            lambda: pg.page_gather_single(k, 1, pages, 128), 3),
+        "centroid_scores_sharded": (
+            lambda m, tp, r: gs.centroid_scores_sharded(
+                cut(q, tp, r, 2), cview(cut(cents, tp, r, 2)), mesh=m),
+            lambda: gs.centroid_scores(q, cview(cents)), 1),
+    }
+    on_rank, whole, axis = calls[form]
+    for tp in (2, 4):
+        outs = [on_rank(Mesh(tp, r, "gloo", cuda), tp, r) for r in range(tp)]
+        if form == "flash_stacked_lse":     # (ctx, m, l) per head, by head
+            ctx, m_, l_ = tfd.flash_decode_stacked(q, k, v, 1, valid,
+                                                   return_lse=True)
+            hq = q.shape[2] // tp
+            for r, o in enumerate(outs):
+                heads = slice(r * hq, (r + 1) * hq)
+                want = torch.cat([ctx[:, :, heads].float().reshape(Bk, T, -1),
+                                  m_[:, :, heads], l_[:, :, heads]], dim=2)
+                assert torch.equal(_bits(o), _bits(want))
+            continue
+        assert torch.equal(_bits(torch.cat(outs, dim=axis)), _bits(whole()))
