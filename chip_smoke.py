@@ -58,11 +58,13 @@ exits non-zero):
                 (the same bound for the intervals and masked forms), and
                 check that the limit rejects an output that misses each long
                 row's last 64-slot tile.
-  8a. int4      int4_matmul vs its plain version at llama-3.2-1b's four
-                product shapes, M in {8, 56, 64, 1024}, bf16 and f32 x,
-                within int4_matmul_plain_f32_and_limit; M=8 rows bit-equal to
-                the same rows inside M=56; the limit must reject the output
-                with one group's -8 rowsum correction left out
+  8a. int4      int4_matmul vs its plain version at llama-3.2-1b's and
+                llama-3.1-8b's four product shapes, M in {8, 56, 64, 256,
+                1024}, bf16 and f32 x, within
+                int4_matmul_plain_f32_and_limit; M=8 rows bit-equal to the
+                same rows inside M = 56, 256 and 1024; the limit must reject
+                the output with one group's -8 rowsum correction left out
+                and the output with the last K split's partial left out
   8b. fused     fused_qkv (with and without a bias) and fused_post_attn vs
                 their plain versions at llama-3.2-1b's widths, M in {8, 56},
                 bf16 and f32: every element within fused_*_plain_f32_and_limit
@@ -170,9 +172,11 @@ exits non-zero):
                 replayed from a CUDA graph); the kernel also launched from
                 Python (eager_ms, the host's launch pace included); the
                 StreamingLLM sink twist against a whole-layer copy; then
-                int4_matmul at the four decode shapes (M=64) and w_gate_up at
-                M=1024 (yardsticks: bf16 mm of the dequantized weight and
-                torch._weight_int4pack_mm) and the fused pair at M = 8 and 56
+                int4_matmul at both models' four products, M in {8, 64, 256,
+                512, 1024} and 56 (yardsticks: torch._weight_int4pack_mm and
+                the bf16 mm of the dequantized weight; a layer's four
+                products summed at 64 and at the B=8 bucket, 256) and the
+                fused pair at M = 8 and 56
                 (yardstick: the unfused chain, several calls); and the
                 return_lse forms at the GliDe shapes (SDPA, which returns no
                 (m, l), as the yardstick). The gathers are timed at both
@@ -336,6 +340,7 @@ def main() -> int:
     nccl_world_of_one(torch, dev)
     clock.mark("nccl_world_of_one")
     kernels = (time_kernels(torch, dev, errs, launches)
+               + time_int4(torch, dev, errs, launches)
                + time_weight_kernels(torch, dev, errs, launches)
                + time_kernels(torch, dev, errs, launches128, D=128)
                + sharded_kernels(torch, dev, launches_tp))
@@ -858,50 +863,74 @@ def check_prefill(torch, dev, D=64):
     return main_err
 
 
-# llama-3.2-1b's weight products: (name, K, N)
+# the weight products (name, K, N) of llama-3.2-1b (the main path) and of
+# llama-3.1-8b (the head_dim-128 path)
 GEMM_SHAPES = (("wqkv", 2048, 3072), ("wo", 2048, 2048),
                ("w_gate_up", 2048, 16384), ("w_down", 8192, 2048))
+GEMM_SHAPES_8B = (("wqkv", 4096, 6144), ("wo", 4096, 4096),
+                  ("w_gate_up", 4096, 28672), ("w_down", 14336, 4096))
+GEMM_MODELS = {"1b": GEMM_SHAPES, "8b": GEMM_SHAPES_8B}
+# int4_matmul's row counts: an AR step's 8 rows unpadded, a verify's 56, the
+# model's padded decode rows (llama.row_bucket: 64 at B <= 2, 256 at B=8, 512
+# at B=16) and a 1024-row prefill chunk
+INT4_ROWS = (8, 56, 64, 256, 512, 1024)
+INT4_CHECK_ROWS = (8, 56, 64, 256, 1024)
 
 
 def check_int4(torch, dev):
-    """int4_matmul against its plain version at llama-3.2-1b's four product
-    shapes, M in {8, 56, 64 (decode, padded), 1024 (a prefill chunk)}, bf16
-    and f32 x, within int4_matmul_plain_f32_and_limit's per-element limit
-    (f32 sums in another order; one bf16 rounding of the output); rows at
-    M=8 bit-equal to the same rows inside M=56; and the limit rejects the
-    output with one group's -8 rowsum correction left out (M=1024, bf16)."""
+    """int4_matmul against its plain version at both models' four product
+    shapes, M in INT4_CHECK_ROWS, bf16 and f32 x, within
+    int4_matmul_plain_f32_and_limit's per-element limit (f32 sums in
+    another order; one bf16 rounding of the output); rows at M=8 bit-equal
+    to the same rows inside M = 56, 256 and 1024; and, at M=1024, the limit
+    rejects the output with one group's -8 rowsum correction left out and
+    the output with the last K split's partial (of im.launch_plan) left
+    out."""
     from magicdec_tpu_torch.ops import int4_matmul as im
 
     g = torch.Generator(device=dev).manual_seed(80)
-    errs, ratios, faults, bits = {}, {}, {}, {}
-    for name, K, N in GEMM_SHAPES:
-        q4, s4 = im.pack_int4_cols(
-            torch.randn((K, N), generator=g, device=dev) * 0.02)
-        for dtype in (torch.bfloat16, torch.float32):
-            dn = str(dtype).split(".")[1]
-            x = torch.randn((1024, K), generator=g, device=dev).to(dtype)
-            for M in (8, 56, 64, 1024):
-                what = f"{name}_{dn}_M{M}"
-                out = im.int4_matmul(x[:M], q4, s4)
-                ref, limit = im.int4_matmul_plain_f32_and_limit(x[:M], q4, s4)
-                _check_out(torch, what, out, ref, limit, errs, ratios)
-                if M == 56:
-                    bits[f"{name}_{dn}"] = torch.equal(
-                        im.int4_matmul(x[:8], q4, s4), out[:8])
-                    if not bits[f"{name}_{dn}"]:
-                        fail(f"int4 {name} {dn}: rows at M=8 differ from the "
-                             f"same rows inside M=56")
-            faulty = out.float() + 8.0 * x[:, :128].float().sum(
-                1, keepdim=True) * s4[0]
-            faults[f"{name}_{dn}"] = not _hold(faulty, ref, limit)[2]
-            if not faults[f"{name}_{dn}"]:
-                fail(f"int4 {name} {dn}: the limit does not reject a missed "
-                     f"group correction")
-            del x, ref, limit, out, faulty
-        torch.cuda.empty_cache()
-    line(phase="int4_vs_plain", max_abs_err=errs, max_err_over_limit=ratios,
-         rows_bitexact=bits, missed_correction_rejected=faults)
-    return max(e for k_, e in errs.items() if "bfloat16_M64" in k_)
+    errs, ratios, faults, bits, splits = {}, {}, {}, {}, {}
+    for model, shapes in GEMM_MODELS.items():
+        for name, K, N in shapes:
+            q4, s4 = im.pack_int4_cols(
+                torch.randn((K, N), generator=g, device=dev) * 0.02)
+            plan = im.launch_plan(K, N // 2)
+            splits[f"{model}_{name}"] = len(plan)
+            for dtype in (torch.bfloat16, torch.float32):
+                dn = str(dtype).split(".")[1]
+                x = torch.randn((max(INT4_CHECK_ROWS), K), generator=g,
+                                device=dev).to(dtype)
+                first = im.int4_matmul(x[:8], q4, s4)
+                for M in INT4_CHECK_ROWS:
+                    what = f"{model}_{name}_{dn}_M{M}"
+                    out = im.int4_matmul(x[:M], q4, s4)
+                    ref, limit = im.int4_matmul_plain_f32_and_limit(
+                        x[:M], q4, s4)
+                    _check_out(torch, what, out, ref, limit, errs, ratios)
+                    if M in (56, 256, 1024):
+                        bits[what] = torch.equal(first, out[:8])
+                        if not bits[what]:
+                            fail(f"int4 {what}: rows at M=8 differ from the "
+                                 f"same rows inside M={M}")
+                k0, k1 = plan[-1]
+                for fault, faulty in (
+                        ("correction", out.float() + 8.0 * x[:, :128].float(
+                        ).sum(1, keepdim=True) * s4[0]),
+                        ("split", out.float() - im.int4_matmul_plain(
+                            x[:, k0:k1].float(), q4[k0:k1],
+                            s4[k0 // 128:k1 // 128]))):
+                    key = f"{model}_{name}_{dn}_{fault}"
+                    faults[key] = not _hold(faulty, ref, limit)[2]
+                    if not faults[key]:
+                        fail(f"int4 {key}: the limit does not reject the "
+                             f"output with the fault")
+                del x, ref, limit, out, faulty, first
+                torch.cuda.empty_cache()
+    line(phase="int4_vs_plain", splits=splits, max_abs_err=errs,
+         max_err_over_limit=ratios, rows_bitexact=bits,
+         faults_rejected=faults)
+    return max(e for k_, e in errs.items()
+               if k_.startswith("1b") and "bfloat16_M256" in k_)
 
 
 def check_fused(torch, dev):
@@ -3297,73 +3326,95 @@ def _int4pack_mm(torch, q4, s4):
     return lambda x: torch._weight_int4pack_mm(x, packed, 128, sz)
 
 
-def time_weight_kernels(torch, dev, errs, launches, L=16):
-    """int4_matmul at llama-3.2-1b's four products at the decode shape (M =
-    64 padded rows) and w_gate_up at M = 1024 (a prefill chunk); the fused
-    pair at M = 8 (AR and draft steps) and 56 (the verify). Each with 16
-    layers of weights cycled (they do not fit the 50 MB L2 together): device
-    ms (CUDA graph), eager ms, the plain version and the bound (weights and
-    activations read once, outputs written once, over 3.35 TB/s; 2 M K N
-    over 989 TFLOP/s). Yardsticks, which the port never calls: for int4 the
-    bf16 product with the dequantized weight (torch.mm) and
-    torch._weight_int4pack_mm where the card's torch has it; for the fused
-    pair the unfused chain of the bf16 path (rms_norm, cuBLAS products and
-    the elementwise ops: several calls)."""
-    import torch.nn.functional as F
+def _bound(bytes_, flops):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    3.35 TB/s and the bf16 operations over 989 TFLOP/s."""
+    tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
 
-    from magicdec_tpu_torch.ops import fused_block as fb
+
+def time_int4(torch, dev, errs, launches, L=16):
+    """int4_matmul at both models' four products (GEMM_MODELS) at every row
+    count of INT4_ROWS, bf16 x, with 16 layers of weights cycled (they do not
+    fit the 50 MB L2 together): device ms (CUDA graph), eager ms, the plain
+    version and the bound (the packed weight, its scales and x read once,
+    the output written once, over 3.35 TB/s; 2 M K N over 989 TFLOP/s).
+    Yardsticks, which the port never calls: torch._weight_int4pack_mm where
+    the card's torch has it, and the bf16 product with the dequantized
+    weight (torch.mm). The sum of a layer's four products is taken at 256
+    rows, the bucket of a B=8 decode step."""
     from magicdec_tpu_torch.ops import int4_matmul as im
-    from magicdec_tpu_torch.ops.norms import rms_norm
 
     saved = _counts()
     g = torch.Generator(device=dev).manual_seed(90)
-    rows, int4 = [], {}
-
-    def bound(bytes_, flops):
-        tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-        return (tb, "bytes") if tb >= tf else (tf, "operations")
-
-    for (name, K, N), Ms in zip(GEMM_SHAPES, ((64,), (64,), (64, 1024), (64,))):
-        packs = [im.pack_int4_cols(torch.randn((K, N), generator=g, device=dev)
-                                   * 0.02) for _ in range(L)]
-        deq = [((im.unpack_int4_cols(q).float() - 8.0)
-                * s.repeat_interleave(128, 0)).to(torch.bfloat16)
-               for q, s in packs]
-        for M in Ms:
-            x = torch.randn((M, K), generator=g, device=dev, dtype=torch.bfloat16)
-            t_k, t_e = _device_and_eager_ms(
-                torch, lambda l: im.int4_matmul(x, *packs[l]), L)
-            t_p = _time_ms(torch, lambda l: im.int4_matmul_plain(x, *packs[l]),
-                           L, graph=True)
-            t_mm = _time_ms(torch, lambda l: x @ deq[l], L, graph=True)
-            t_pack = None
+    int4 = {}
+    for model, shapes in GEMM_MODELS.items():
+        for name, K, N in shapes:
+            packs = [im.pack_int4_cols(torch.randn(
+                (K, N), generator=g, device=dev) * 0.02) for _ in range(L)]
+            deq = [((im.unpack_int4_cols(q).float() - 8.0)
+                    * s.repeat_interleave(128, 0)).to(torch.bfloat16)
+                   for q, s in packs]
             try:
                 fns = [_int4pack_mm(torch, q, s) for q, s in packs]
-                if fns[0] is not None:
-                    t_pack = _time_ms(torch, lambda l: fns[l](x), L, graph=True)
+                if fns[0] is None:
+                    fns = "unavailable: no torch._weight_int4pack_mm"
             except (RuntimeError, NotImplementedError) as e:
-                t_pack = f"unavailable: {str(e).splitlines()[0][:120]}"
-            bytes_ = (K * N // 2 + K // 128 * N * 4) + 2 * M * (K + N)
-            b_ms, b_by = bound(bytes_, 2 * M * K * N)
-            int4[f"{name}_M{M}"] = dict(
-                ms=t_k, eager_ms=t_e, plain_ms=t_p, bound_ms=b_ms,
-                bound_by=b_by, bf16_mm_dequantized_ms=t_mm,
-                weight_int4pack_mm_ms=t_pack)
-        del packs, deq
-        torch.cuda.empty_cache()
-    step = sum(int4[f"{n}_M64"]["ms"] for n, _, _ in GEMM_SHAPES)
-    step_bound = sum(int4[f"{n}_M64"]["bound_ms"] for n, _, _ in GEMM_SHAPES)
-    gu = int4["w_gate_up_M64"]
+                fns = f"unavailable: {str(e).splitlines()[0][:120]}"
+            for M in INT4_ROWS:
+                x = torch.randn((M, K), generator=g, device=dev,
+                                dtype=torch.bfloat16)
+                t_k, t_e = _device_and_eager_ms(
+                    torch, lambda l: im.int4_matmul(x, *packs[l]), L)
+                t_p = _time_ms(torch, lambda l: im.int4_matmul_plain(
+                    x, *packs[l]), L, graph=True)
+                t_mm = _time_ms(torch, lambda l: x @ deq[l], L, graph=True)
+                t_pack = fns if isinstance(fns, str) else _time_ms(
+                    torch, lambda l: fns[l](x), L, graph=True)
+                bytes_ = (K * N // 2 + K // 128 * N * 4) + 2 * M * (K + N)
+                b_ms, b_by = _bound(bytes_, 2 * M * K * N)
+                int4[f"{model}_{name}_M{M}"] = dict(
+                    ms=t_k, eager_ms=t_e, plain_ms=t_p, bound_ms=b_ms,
+                    bound_by=b_by, splits=len(im.launch_plan(K, N // 2)),
+                    weight_int4pack_mm_ms=t_pack,
+                    bf16_mm_dequantized_ms=t_mm)
+            del packs, deq, fns
+            torch.cuda.empty_cache()
+    steps = {f"{model}_M{M}": {k: sum(int4[f"{model}_{n}_M{M}"][k]
+                                      for n, _, _ in shapes)
+                               for k in ("ms", "bound_ms")}
+             for model, shapes in GEMM_MODELS.items() for M in (64, 256)}
+    _set_counts(saved)
+    line(phase="times_int4", int4=int4, products_per_layer=steps,
+         library="weight_int4pack_mm where available, else bf16 mm of the "
+                 "dequantized weight")
+    gu = int4["1b_w_gate_up_M256"]
     lib = gu["weight_int4pack_mm_ms"]
-    rows.append({"name": "int4_matmul", "route": "cuda",
-                 "source": "magicdec_tpu_torch/csrc/int4_matmul.cu",
-                 "replaces": "magicdec_tpu/ops/pallas/int4_matmul.py:131",
-                 "launches": launches["int4_matmul"],
-                 "max_abs_err": errs["int4_matmul"], "ms": gu["ms"],
-                 "plain_ms": gu["plain_ms"], "bound_ms": gu["bound_ms"],
-                 "bound_by": gu["bound_by"],
-                 "library_ms": lib if isinstance(lib, float)
-                 else gu["bf16_mm_dequantized_ms"]})
+    return [{"name": "int4_matmul", "route": "cuda",
+             "source": "magicdec_tpu_torch/csrc/int4_matmul.cu",
+             "replaces": "magicdec_tpu/ops/pallas/int4_matmul.py:131",
+             "launches": launches["int4_matmul"],
+             "max_abs_err": errs["int4_matmul"], "ms": gu["ms"],
+             "plain_ms": gu["plain_ms"], "bound_ms": gu["bound_ms"],
+             "bound_by": gu["bound_by"],
+             "library_ms": lib if isinstance(lib, float)
+             else gu["bf16_mm_dequantized_ms"]}]
+
+
+def time_weight_kernels(torch, dev, errs, launches, L=16):
+    """The fused pair at M = 8 (AR and draft steps) and 56 (the verify),
+    with 16 layers of weights cycled: device ms (CUDA graph), eager ms, the
+    plain version and the bound. Yardstick, which the port never calls:
+    the unfused chain of the bf16 path (rms_norm, cuBLAS products and the
+    elementwise ops: several calls)."""
+    import torch.nn.functional as F
+
+    from magicdec_tpu_torch.ops import fused_block as fb
+    from magicdec_tpu_torch.ops.norms import rms_norm
+
+    saved = _counts()
+    g = torch.Generator(device=dev).manual_seed(91)
+    rows = []
 
     D, HqD, I, O = 2048, 2048, 8192, 3072
     w = dict(n=[torch.ones(D, device=dev, dtype=torch.bfloat16)] * L,
@@ -3412,7 +3463,7 @@ def time_weight_kernels(torch, dev, errs, launches, L=16):
             t_p = _time_ms(torch, plain, L, graph=True)
             t_c = _time_ms(torch, chain, L, graph=True)
             act = 2 * M * ((D + O) if what == "fused_qkv" else (2 * D + HqD))
-            b_ms, b_by = bound(wbytes + act, 2 * M * K_N)
+            b_ms, b_by = _bound(wbytes + act, 2 * M * K_N)
             fused[f"{what}_M{M}"] = dict(ms=t_k, eager_ms=t_e, plain_ms=t_p,
                                          unfused_chain_ms=t_c, bound_ms=b_ms,
                                          bound_by=b_by)
@@ -3429,11 +3480,7 @@ def time_weight_kernels(torch, dev, errs, launches, L=16):
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": None})
     _set_counts(saved)
-    line(phase="times_weights", int4=int4,
-         int4_decode_products_per_layer_ms=step,
-         int4_decode_products_per_layer_bound_ms=step_bound, fused=fused,
-         int4_library="weight_int4pack_mm where available, else bf16 mm of "
-                      "the dequantized weight",
+    line(phase="times_weights", fused=fused,
          fused_library="none: the unfused chain is several calls")
     return rows
 

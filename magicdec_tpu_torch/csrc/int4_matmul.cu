@@ -5,71 +5,424 @@
 // Replaces magicdec_tpu/ops/pallas/int4_matmul.py int4_matmul (pallas_call at
 // :131). What it computes (int4_matmul.py:60-99): byte q4[k, n] holds column n
 // in its low nibble and column n + N/2 in its high one, each the code q + 8 in
-// [0, 15]; per 128-row group g of K the product is
-//     s_g * (x_g . Qu_g - 8 * rowsum(x_g)),
-// summed over the groups in f32 and rounded to x's dtype. The TPU kernel's
-// tiling (n_block/k_block, the interleaved scale rows, the split-halves output
-// and its concatenate) is not carried over: the kernel writes [M, N] directly.
+// [0, 15]; per 128-row group g of K the product is s_g * (x_g . (Qu_g - 8)),
+// summed over the groups in f32 and rounded once to x's dtype. The TPU
+// kernel's tiling (n_block/k_block, the interleaved scale rows, the
+// split-halves output and its concatenate) is not carried over: the kernel
+// writes [M, N] directly.
 //
-// Bound on the H100: at decode (M = 64 padded rows) by the packed weight's
-// bytes, K*N/2 + 4*K*N/128 (llama-3.2-1b: wqkv 3.34 MB, 1.0 us at 3.35 TB/s;
-// w_gate_up 17.8 MB, 5.3 us; 0.154 ms for the four products of 16 layers); in
-// prefill (M = 1024) by the tensor cores, 2*M*K*N operations.
+// Bound on the H100: by the packed weight's bytes, K*N/2 + 4*K*N/128, at up
+// to ~64 rows (llama-3.2-1b w_gate_up: 17.8 MB, 5.3 us at 3.35 TB/s), and by
+// the tensor cores' 2*M*K*N operations from about 128 rows on: the decode
+// buckets the model pads to (256 rows at B=8, 512 at B=16) and the 1024-row
+// prefill chunks.
 //
-// Design: one CTA of 4 warps per (16 packed columns = 32 outputs, 64 rows). It
-// walks K in order, one 128-row group per stage of a cp.async ring (the x
-// tile, the q4 tile and the group's 32 scales), and chooses no tile from M, so
-// a row's bits do not depend on how many rows share the call. bf16 x runs on
-// mma.sync m16n8k16 with f32 accumulation: warp w owns 8 output columns of the
-// low (w < 2) or high (w >= 2) nibbles for all 64 rows; the nibbles (0..15,
-// exact in bf16) are unpacked into B fragments in registers, and each group's
-// row sums come from the same tensor cores as the product with a B of ones.
-// f32 x (the exact tests) runs on CUDA cores: each thread one output column of
-// 16 rows, sequential f32 FMAs. A simple first version: no wgmma or TMA, and
-// at decode only N/32 CTAs (32 to 512) stream the weight.
-#include <type_traits>
+// bf16 x (int4_bf16_kernel). A CTA of 8 warps owns 64 rows and 128 packed
+// columns, both nibble halves (256 outputs), and walks one split's range of
+// K groups through a ring of STAGES groups in shared memory. One thread
+// fills a stage with four TMA loads on the stage's mbarrier: the x tile
+// (loaded once and used for all 256 outputs), the q4 tile and the 256
+// scales; x and q4 land 128-byte swizzled, so the ldmatrix and word reads
+// below meet no bank conflicts. A stage is refilled as soon as every warp
+// is done with it, so STAGES groups are in flight without spending
+// registers or instructions per byte. Warp w computes all 64 rows of the 32
+// outputs of packed columns [32 (w % 4), +32) in nibble half w / 4 on
+// mma.sync m16n8k16 with f32 accumulation. The weight is unpacked in
+// registers from 32-bit shared loads with bit arithmetic: prmt pairs the
+// bytes of rows k and k + 1 of one packed column, a mask keeps a nibble in
+// each half, OR-ing in 0x4300 makes the bf16 128 + nibble, and one bf16x2
+// fma subtracts 136: the signed code q - 8 in [-8, 7], exact in bf16, so
+// there is no row-sum term. Lane (g, c) of a warp holds the B fragments of
+// packed columns 4g + t, t = 0..3: one 32-bit load serves four n8 tiles.
+// Each group's product is kept apart in f32 and folded as acc += s_g * p
+// once per group.
+//
+// Splits: the K groups are cut into S contiguous ranges (S from K and N/2
+// only, by the wrapper's launch plan, ops/int4_matmul.py `launch_plan`),
+// one CTA each, the S CTAs of a column block and row tile forming one
+// thread-block cluster. Each CTA leaves its f32 partial tile in its shared
+// memory; after a cluster barrier CTA r sums the rows r, r + S, ... of all S
+// partials in split order 0..S-1 through distributed shared memory, rounds
+// once and writes them. Nothing of the launch (tile, splits, order) is
+// chosen from M, and a row's products never mix with another row's, so a
+// row's bits do not depend on how many rows share the call. Rows past M and
+// packed columns past N/2 arrive from the TMA as zeros without being read;
+// the m16 tiles past M are skipped and the columns past N/2 not written.
+//
+// f32 x (int4_f32_kernel, the exact checks): CUDA cores, one CTA of 4 warps
+// per (64 rows, 16 packed columns = 32 outputs) walking all of K in order;
+// each thread one output column of 16 rows, sequential f32 FMAs, each group
+// as s_g * (x_g . Qu_g - 8 * rowsum(x_g)).
+#include <cooperative_groups.h>
+#include <cuda.h>
 
 #include "mma.cuh"
 
 namespace mdt {
 
 constexpr int GROUP = 128;  // K rows per scale group
+
+// ---------------------------------------------------------------------------
+// bf16 x: tensor cores, split K over a thread-block cluster
+// ---------------------------------------------------------------------------
+
+namespace i4 {
+constexpr int BM = 64;                 // rows per CTA
+constexpr int BN2 = 128;               // packed columns per CTA (256 outputs)
+constexpr int WARPS = 8;
+constexpr int NTH = 32 * WARPS;
+constexpr int STAGES = 5;              // groups in the ring
+constexpr int MAX_SPLITS = 8;          // the portable cluster size
+// a stage: the x tile as two 128-byte-swizzled boxes [64 rows][64 k], the q4
+// tile as one 128-byte-swizzled box [128 k][128 bytes], and the scales
+// [2 halves][128] (dense); each box 1024-byte aligned, as the swizzle needs
+constexpr int X_BOX = BM * 128;        // bytes of one x box
+constexpr int X_BYTES = 2 * X_BOX;
+constexpr int Q_BYTES = GROUP * BN2;
+constexpr int S_BYTES = 2 * BN2 * 4;
+constexpr int TX = X_BYTES + Q_BYTES + S_BYTES;      // bytes a stage receives
+constexpr int STAGE = (TX + 1023) / 1024 * 1024;
+constexpr int BYTES = STAGES * STAGE + 1024;        // + the base's alignment
+constexpr int PP = 2 * BN2 + 4;        // the partial tile's row pitch, f32
+static_assert(BM * PP * 4 <= STAGES * STAGE, "the partial tile reuses the ring");
+}  // namespace i4
+
+// group boundaries of the splits: split s walks groups [g[s], g[s + 1])
+struct Splits {
+  int g[i4::MAX_SPLITS + 1];
+};
+
+// the TMA's views: x [M, K] bf16 in boxes of [64 rows][64 k]; q4 [K, N2]
+// bytes in boxes of [128 k][128 bytes]; s4 as [2 G, N2] f32 (row 2 g the
+// low nibbles' scales of group g, 2 g + 1 the high ones') in boxes of
+// [2][128]. Rows past M and columns past N2 arrive as zeros.
+struct Maps {
+  CUtensorMap x, q4, s4;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// wait for the phase of parity `parity` of the mbarrier to complete; a wait
+// that outlasts ~2^32 cycles (seconds) traps, so a lost copy fails the
+// launch instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long start = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred P1;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, P1;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1LL << 32)) __trap();
+  }
+}
+
+__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                       int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// stage <- group gi (one thread): x rows [m0, m0 + 64), q4 rows of the group
+// at packed columns [n0, n0 + 128), and the group's 2 x 128 scales
+__device__ __forceinline__ void load_bf16_stage(uint32_t st, uint32_t bar, const Maps& maps,
+                                                int m0, int n0, int gi) {
+  using namespace i4;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(TX)
+               : "memory");
+  tma_2d(st, &maps.x, bar, gi * GROUP, m0);
+  tma_2d(st + X_BOX, &maps.x, bar, gi * GROUP + 64, m0);
+  tma_2d(st + X_BYTES, &maps.q4, bar, n0, gi * GROUP);
+  tma_2d(st + X_BYTES + Q_BYTES, &maps.s4, bar, n0, 2 * gi);
+}
+
+// bytes T of a (row k) and b (row k + 1), low nibbles, as the bf16x2 signed
+// codes (q_k - 8, q_k+1 - 8): 0x4300 | v is the bf16 128 + v, exact, and
+// the fma subtracts 136 exactly
+template <int T>
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t a, uint32_t b) {
+  constexpr uint32_t sel = T | (T << 4) | ((T + 4) << 8) | ((T + 4) << 12);
+  uint32_t u, r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(u) : "r"(a), "r"(b), "n"(sel));
+  u = (u & 0x000F000Fu) | 0x43004300u;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;"
+      : "=r"(r)
+      : "r"(u), "r"(0x3F803F80u) /* 1, 1 */, "r"(0xC308C308u) /* -136, -136 */);
+  return r;
+}
+
+// the 32-bit word at byte b (a multiple of 4) of row k of the swizzled q4
+// tile: 16-byte chunk j of row k sits at chunk j ^ (k % 8)
+__device__ __forceinline__ uint32_t q4_word(const uint8_t* qs, int k, int b) {
+  return *reinterpret_cast<const uint32_t*>(qs + k * i4::BN2 +
+                                            ((((b >> 4) ^ k) & 7) << 4) + (b & 15));
+}
+
+// acc += s_g * (x_g . (q_g - 8)) for this warp's 64 rows x 32 outputs.
+// acc[mt][t][e] is the C fragment element e of m16 tile mt and n8 tile t,
+// whose column g is packed column 32 sub + 4 g + t of nibble half hi.
+__device__ __forceinline__ void bf16_group(const char* st, float (&acc)[4][4][4], int rows,
+                                           int warp, int lane) {
+  using namespace i4;
+  const uint8_t* qs = reinterpret_cast<const uint8_t*>(st + X_BYTES);
+  const float* ss = reinterpret_cast<const float*>(st + X_BYTES + Q_BYTES);
+  const int g = lane / 4, c = lane % 4, sub = warp % 4, hi = warp / 4;
+  const int sh = 4 * hi, qb = 32 * sub + 4 * g;
+  float p[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p[mt][t][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < GROUP / 16; ++ks) {
+    const int k = ks * 16 + 2 * c;
+    const uint32_t w0 = q4_word(qs, k, qb) >> sh, w1 = q4_word(qs, k + 1, qb) >> sh;
+    const uint32_t w2 = q4_word(qs, k + 8, qb) >> sh, w3 = q4_word(qs, k + 9, qb) >> sh;
+    const uint32_t b[4][2] = {{nibble_pair<0>(w0, w1), nibble_pair<0>(w2, w3)},
+                              {nibble_pair<1>(w0, w1), nibble_pair<1>(w2, w3)},
+                              {nibble_pair<2>(w0, w1), nibble_pair<2>(w2, w3)},
+                              {nibble_pair<3>(w0, w1), nibble_pair<3>(w2, w3)}};
+    // ldmatrix rows: lane l gives row l % 16 of the m16 tile at k chunk
+    // 2 ks + l / 16 (8 k each): box chunk / 8, swizzled chunk (chunk % 8) ^ (row % 8)
+    const int kc = 2 * ks + lane / 16, r = lane % 16;
+    const char* xa = st + (kc / 8) * X_BOX + r * 128 + (((kc % 8) ^ (r % 8)) << 4);
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      if (mt * 16 < rows) {
+        uint32_t a[4];
+        ldmatrix_x4(a, xa + mt * 16 * 128);
+#pragma unroll
+        for (int t = 0; t < 4; ++t) mma_bf16(p[mt][t], a, b[t][0], b[t][1]);
+      }
+    }
+  }
+  // C columns 2c, 2c + 1 of n8 tile t: packed columns 32 sub + 8c + t, + 4
+  const float* sw = ss + hi * BN2 + 32 * sub + 8 * c;
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    const float s0 = sw[t], s1 = sw[4 + t];
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt) {
+      acc[mt][t][0] += p[mt][t][0] * s0;
+      acc[mt][t][1] += p[mt][t][1] * s1;
+      acc[mt][t][2] += p[mt][t][2] * s0;
+      acc[mt][t][3] += p[mt][t][3] * s1;
+    }
+  }
+}
+
+// grid (S, ceil(N2 / 128), ceil(M / 64)), clusters of (S, 1, 1), NTH threads,
+// i4::BYTES of dynamic shared memory
+__global__ void __launch_bounds__(i4::NTH, 1)
+int4_bf16_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ out, int M,
+                 int N2, Splits splits) {
+  using namespace i4;
+  namespace cg = cooperative_groups;
+  extern __shared__ __align__(16) char smem_raw[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  char* smem = smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  const uint32_t ring = smem_u32(smem);
+  const int S = gridDim.x, split = blockIdx.x;
+  const int n0 = blockIdx.y * BN2, m0 = blockIdx.z * BM, tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int rows = M - m0;  // rows of this tile that exist (>= 1)
+  // the split's groups, read by constant index (a dynamic index into the
+  // parameter block would go through local memory)
+  int g0 = 0, g1 = 0;
+#pragma unroll
+  for (int s = 0; s < MAX_SPLITS; ++s)
+    if (s == split) g0 = splits.g[s], g1 = splits.g[s + 1];
+  const int NG = g1 - g0;
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&full[s])));
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    for (int s = 0; s < STAGES && s < NG; ++s)
+      load_bf16_stage(ring + s * STAGE, smem_u32(&full[s]), maps, m0, n0, g0 + s);
+  }
+  __syncthreads();
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
+  const bool active = n0 + 32 * (warp % 4) < N2;  // this warp's columns exist
+  for (int gi = 0; gi < NG; ++gi) {
+    const int st = gi % STAGES;
+    mbar_wait(smem_u32(&full[st]), (gi / STAGES) & 1);  // group gi has landed
+    if (active) bf16_group(smem + st * STAGE, acc, rows, warp, lane);
+    __syncthreads();  // every warp is done with group gi: its stage is free
+    const int nx = gi + STAGES;
+    if (tid == 0 && nx < NG)
+      load_bf16_stage(ring + st * STAGE, smem_u32(&full[st]), maps, m0, n0, g0 + nx);
+  }
+
+  // partial tile [64 rows][256 outputs: low nibbles' 128, then high], in
+  // the ring, which holds no load in flight now
+  float* part = reinterpret_cast<float*>(smem);
+  {
+    const int g = lane / 4, c = lane % 4, sub = warp % 4, hi = warp / 4;
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int t = 0; t < 4; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int row = mt * 16 + g + 8 * (e / 2);
+          const int col = hi * BN2 + 32 * sub + 4 * (2 * c + e % 2) + t;
+          part[row * PP + col] = acc[mt][t][e];
+        }
+  }
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every split's partial is in its CTA's shared memory
+
+  // CTA `split` sums rows split, split + S, ... of the S partials in split
+  // order; each thread 4 adjacent outputs of a row at a time
+  const int64_t N = 2 * (int64_t)N2;
+  const int nrows = (BM - split + S - 1) / S;
+  for (int i = tid; i < nrows * (2 * BN2 / 4); i += NTH) {
+    const int row = split + S * (i / (2 * BN2 / 4)), col = 4 * (i % (2 * BN2 / 4));
+    const int half = col / BN2, pc = n0 + col % BN2;
+    if (row >= rows || pc >= N2) continue;
+    float4 sum = *reinterpret_cast<const float4*>(
+        cluster.map_shared_rank(part + row * PP + col, 0));
+    for (int s = 1; s < S; ++s) {
+      const float4 v = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part + row * PP + col, s));
+      sum.x += v.x, sum.y += v.y, sum.z += v.z, sum.w += v.w;
+    }
+    uint2 packed = {pack_bf16(sum.x, sum.y), pack_bf16(sum.z, sum.w)};
+    *reinterpret_cast<uint2*>(out + (int64_t)(m0 + row) * N + half * N2 + pc) = packed;
+  }
+  cluster.sync();  // no CTA leaves while another still reads its partial
+}
+
+// cuTensorMapEncodeTiled from the driver, through the runtime (no link to
+// libcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+static EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                           cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                                  cudaEnableDefault, &q);
+#endif
+    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 2-D map of rows x cols elements (cols contiguous, rows `pitch` bytes
+// apart) in boxes of box_rows x box_cols
+static bool map_2d(CUtensorMap* m, EncodeTiled enc, CUtensorMapDataType type, const void* base,
+                   uint64_t cols, uint64_t rows, uint64_t pitch, uint32_t box_cols,
+                   uint32_t box_rows, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {pitch};
+  const cuuint32_t box[2] = {box_cols, box_rows}, unit[2] = {1, 1};
+  return enc(m, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int launch_bf16(const void* x, const void* q4, const void* s4, void* out, int M, int K, int N2,
+                const Splits& splits, int S, cudaStream_t stream) {
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        int4_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, i4::BYTES);
+    if (e != cudaSuccess) return (int)e;
+    attr_set = true;
+  }
+  EncodeTiled enc = encode_tiled();
+  Maps maps;
+  if (!enc ||
+      !map_2d(&maps.x, enc, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, x, K, M, 2 * (uint64_t)K, 64,
+              i4::BM, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_2d(&maps.q4, enc, CU_TENSOR_MAP_DATA_TYPE_UINT8, q4, N2, K, N2, i4::BN2, GROUP,
+              CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !map_2d(&maps.s4, enc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s4, N2, 2 * (K / GROUP),
+              4 * (uint64_t)N2, i4::BN2, 2, CU_TENSOR_MAP_SWIZZLE_NONE))
+    return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, (N2 + i4::BN2 - 1) / i4::BN2, (M + i4::BM - 1) / i4::BM);
+  cfg.blockDim = dim3(i4::NTH);
+  cfg.dynamicSmemBytes = i4::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, int4_bf16_kernel, maps,
+                                     static_cast<__nv_bfloat16*>(out), M, N2, splits);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// f32 x: CUDA cores, all of K in one CTA
+// ---------------------------------------------------------------------------
+
+namespace f4 {
 constexpr int BM = 64;      // rows per CTA
 constexpr int BN2 = 16;     // packed columns per CTA (32 outputs)
-constexpr int NTH = 128;    // threads per CTA
-
-template <typename T>
-struct I4 {
-  static constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int STAGES = MMA ? 4 : 2;
-  static constexpr int VEC = 16 / sizeof(T);          // elements per 16 bytes
-  static constexpr int XP = GROUP + VEC;              // x row pitch (elements)
-  static constexpr int X_BYTES = BM * XP * sizeof(T);
-  static constexpr int Q_BYTES = GROUP * BN2;
-  static constexpr int S_BYTES = 2 * BN2 * 4;
-  static constexpr int STAGE = X_BYTES + Q_BYTES + S_BYTES;  // a multiple of 16
-  static constexpr int BYTES = STAGES * STAGE;
-};
+constexpr int NTH = 128;
+constexpr int STAGES = 2;
+constexpr int XP = GROUP + 4;                 // x row pitch (f32)
+constexpr int X_BYTES = BM * XP * 4;
+constexpr int Q_BYTES = GROUP * BN2;
+constexpr int S_BYTES = 2 * BN2 * 4;
+constexpr int STAGE = X_BYTES + Q_BYTES + S_BYTES;  // a multiple of 16
+constexpr int BYTES = STAGES * STAGE;
+}  // namespace f4
 
 // stage <- group gi: x rows [m0, m0 + 64) (rows >= M zero), q4 rows of the
 // group at packed columns [n0, n0 + 16), and the group's scales of output
 // columns n0.. (low nibbles) and N2 + n0.. (high nibbles)
-template <typename T>
-__device__ __forceinline__ void load_group(char* st, const T* __restrict__ x,
-                                           const int8_t* __restrict__ q4,
-                                           const float* __restrict__ s4, int M, int K,
-                                           int N2, int m0, int n0, int gi, int tid) {
-  using C = I4<T>;
-  T* xs = reinterpret_cast<T*>(st);
-  char* qs = st + C::X_BYTES;
-  float* ss = reinterpret_cast<float*>(st + C::X_BYTES + C::Q_BYTES);
-  constexpr int CPR = GROUP / C::VEC;  // 16-byte chunks per x row
+__device__ __forceinline__ void load_f32_stage(char* st, const float* __restrict__ x,
+                                               const int8_t* __restrict__ q4,
+                                               const float* __restrict__ s4, int M, int K,
+                                               int N2, int m0, int n0, int gi, int tid) {
+  using namespace f4;
+  float* xs = reinterpret_cast<float*>(st);
+  char* qs = st + X_BYTES;
+  float* ss = reinterpret_cast<float*>(st + X_BYTES + Q_BYTES);
+  constexpr int CPR = GROUP / 4;  // 16-byte chunks per x row
   const int k0 = gi * GROUP;
   for (int i = tid; i < BM * CPR; i += NTH) {
     const int r = i / CPR, cc = i % CPR;
     const bool ok = m0 + r < M;
-    const T* src = ok ? x + (int64_t)(m0 + r) * K + k0 + cc * C::VEC : x;
-    cp_async16(xs + r * C::XP + cc * C::VEC, src, ok);
+    const float* src = ok ? x + (int64_t)(m0 + r) * K + k0 + cc * 4 : x;
+    cp_async16(xs + r * XP + cc * 4, src, ok);
   }
   for (int i = tid; i < GROUP; i += NTH)
     cp_async16(qs + i * BN2, q4 + (int64_t)(k0 + i) * N2 + n0, true);
@@ -79,59 +432,13 @@ __device__ __forceinline__ void load_group(char* st, const T* __restrict__ x,
   }
 }
 
-// acc += this group's term, tensor cores (bf16 x). acc[4 * mt + e] is the C
-// fragment element e of m-tile mt.
-__device__ __forceinline__ void group_mma(const char* st, float (&acc)[16], int tid) {
-  using C = I4<__nv_bfloat16>;
-  const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(st);
-  const uint8_t* qs = reinterpret_cast<const uint8_t*>(st + C::X_BYTES);
-  const float* ss = reinterpret_cast<const float*>(st + C::X_BYTES + C::Q_BYTES);
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
-  const int hi = warp >> 1, sub = warp & 1;
-  const int bcol = sub * 8 + g;  // packed column of this lane's B fragment
-  const int shift = hi * 4;
-  constexpr uint32_t ONES = 0x3F803F80u;  // bf16 1.0, twice
-  float p[4][4], rs[4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) p[mt][e] = rs[mt][e] = 0.f;
-#pragma unroll
-  for (int ks = 0; ks < GROUP / 16; ++ks) {
-    const int k = ks * 16 + 2 * c;
-    const float q0 = (float)((qs[k * BN2 + bcol] >> shift) & 15);
-    const float q1 = (float)((qs[(k + 1) * BN2 + bcol] >> shift) & 15);
-    const float q8 = (float)((qs[(k + 8) * BN2 + bcol] >> shift) & 15);
-    const float q9 = (float)((qs[(k + 9) * BN2 + bcol] >> shift) & 15);
-    const uint32_t b0 = pack_bf16(q0, q1), b1 = pack_bf16(q8, q9);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const __nv_bfloat16* base = xs + (mt * 16 + g) * C::XP + ks * 16 + 2 * c;
-      const uint32_t a[4] = {ld32(base), ld32(base + 8 * C::XP), ld32(base + 8),
-                             ld32(base + 8 * C::XP + 8)};
-      mma_bf16(p[mt], a, b0, b1);
-      mma_bf16(rs[mt], a, ONES, ONES);
-    }
-  }
-  // C columns 2c, 2c+1 of this warp's n8 tile
-  const float s0 = ss[hi * BN2 + sub * 8 + 2 * c], s1 = ss[hi * BN2 + sub * 8 + 2 * c + 1];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    acc[4 * mt + 0] += (p[mt][0] - 8.f * rs[mt][0]) * s0;
-    acc[4 * mt + 1] += (p[mt][1] - 8.f * rs[mt][1]) * s1;
-    acc[4 * mt + 2] += (p[mt][2] - 8.f * rs[mt][2]) * s0;
-    acc[4 * mt + 3] += (p[mt][3] - 8.f * rs[mt][3]) * s1;
-  }
-}
-
-// acc += this group's term, CUDA cores (f32 x): thread t owns output column
-// t % 32 of the CTA (16 low-nibble columns, then 16 high) for rows
-// 16 * (t / 32) .. + 15
-__device__ __forceinline__ void group_f32(const char* st, float (&acc)[16], int tid) {
-  using C = I4<float>;
+// acc += this group's term: thread t owns output column t % 32 of the CTA
+// (16 low-nibble columns, then 16 high) for rows 16 * (t / 32) .. + 15
+__device__ __forceinline__ void f32_group(const char* st, float (&acc)[16], int tid) {
+  using namespace f4;
   const float* xs = reinterpret_cast<const float*>(st);
-  const uint8_t* qs = reinterpret_cast<const uint8_t*>(st + C::X_BYTES);
-  const float* ss = reinterpret_cast<const float*>(st + C::X_BYTES + C::Q_BYTES);
+  const uint8_t* qs = reinterpret_cast<const uint8_t*>(st + X_BYTES);
+  const float* ss = reinterpret_cast<const float*>(st + X_BYTES + Q_BYTES);
   const int j = tid % 32, shift = (j / BN2) * 4, jb = j % BN2, r0 = (tid / 32) * 16;
   float p[16], rs[16];
 #pragma unroll
@@ -140,7 +447,7 @@ __device__ __forceinline__ void group_f32(const char* st, float (&acc)[16], int 
     const float w = (float)((qs[k * BN2 + jb] >> shift) & 15);
 #pragma unroll
     for (int r = 0; r < 16; ++r) {
-      const float xv = xs[(r0 + r) * C::XP + k];
+      const float xv = xs[(r0 + r) * XP + k];
       p[r] = fmaf(xv, w, p[r]);
       rs[r] += xv;
     }
@@ -150,77 +457,54 @@ __device__ __forceinline__ void group_f32(const char* st, float (&acc)[16], int 
   for (int r = 0; r < 16; ++r) acc[r] += (p[r] - 8.f * rs[r]) * s;
 }
 
-// grid (N2 / 16, ceil(M / 64)), NTH threads, I4<T>::BYTES of dynamic shared memory
-template <typename T>
-__global__ void __launch_bounds__(NTH)
-int4_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ q4,
-                   const float* __restrict__ s4, T* __restrict__ out, int M, int K,
-                   int N2) {
-  using C = I4<T>;
+// grid (N2 / 16, ceil(M / 64)), f4::NTH threads, f4::BYTES of dynamic shared memory
+__global__ void __launch_bounds__(f4::NTH)
+int4_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q4,
+                const float* __restrict__ s4, float* __restrict__ out, int M, int K, int N2) {
+  using namespace f4;
   extern __shared__ __align__(16) char smem[];
   const int n0 = blockIdx.x * BN2, m0 = blockIdx.y * BM, tid = threadIdx.x;
   const int NG = K / GROUP;
 #pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < NG) load_group<T>(smem + s * C::STAGE, x, q4, s4, M, K, N2, m0, n0, s, tid);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < NG) load_f32_stage(smem + s * STAGE, x, q4, s4, M, K, N2, m0, n0, s, tid);
     cp_async_commit();
   }
   float acc[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = 0.f;
   for (int gi = 0; gi < NG; ++gi) {
-    cp_async_wait<C::STAGES - 2>();  // group gi has landed
-    __syncthreads();                 // ... for every thread; gi - 1 is consumed
-    const int nx = gi + C::STAGES - 1;
+    cp_async_wait<STAGES - 2>();  // group gi has landed
+    __syncthreads();              // ... for every thread; gi - 1 is consumed
+    const int nx = gi + STAGES - 1;
     if (nx < NG)
-      load_group<T>(smem + (nx % C::STAGES) * C::STAGE, x, q4, s4, M, K, N2, m0, n0,
-                    nx, tid);
+      load_f32_stage(smem + (nx % STAGES) * STAGE, x, q4, s4, M, K, N2, m0, n0, nx, tid);
     cp_async_commit();
-    const char* st = smem + (gi % C::STAGES) * C::STAGE;
-    if constexpr (C::MMA)
-      group_mma(st, acc, tid);
-    else
-      group_f32(st, acc, tid);
+    f32_group(smem + (gi % STAGES) * STAGE, acc, tid);
   }
   cp_async_wait<0>();
 
   const int64_t N = 2 * (int64_t)N2;
-  if constexpr (C::MMA) {
-    const int warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
-    const int col = (warp >> 1) * N2 + n0 + (warp & 1) * 8 + 2 * c;
+  const int j = tid % 32, r0 = (tid / 32) * 16;
+  const int col = (j / BN2) * N2 + n0 + j % BN2;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + mt * 16 + g + 8 * half;
-        if (row < M)
-          *reinterpret_cast<uint32_t*>(out + row * N + col) =
-              pack_bf16(acc[4 * mt + 2 * half], acc[4 * mt + 2 * half + 1]);
-      }
-  } else {
-    const int j = tid % 32, r0 = (tid / 32) * 16;
-    const int col = (j / BN2) * N2 + n0 + j % BN2;
-#pragma unroll
-    for (int r = 0; r < 16; ++r)
-      if (m0 + r0 + r < M) out[(m0 + r0 + r) * N + col] = from_f32<T>(acc[r]);
-  }
+  for (int r = 0; r < 16; ++r)
+    if (m0 + r0 + r < M) out[(m0 + r0 + r) * N + col] = acc[r];
 }
 
-template <typename T>
-int launch_int4(const void* x, const void* q4, const void* s4, void* out, int M, int K,
-                int N2, cudaStream_t stream) {
+int launch_f32(const void* x, const void* q4, const void* s4, void* out, int M, int K, int N2,
+               cudaStream_t stream) {
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(int4_matmul_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         I4<T>::BYTES);
+    cudaError_t e = cudaFuncSetAttribute(
+        int4_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f4::BYTES);
     if (e != cudaSuccess) return (int)e;
     attr_set = true;
   }
-  const dim3 grid(N2 / BN2, (M + BM - 1) / BM);
-  int4_matmul_kernel<T><<<grid, NTH, I4<T>::BYTES, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(q4),
-      static_cast<const float*>(s4), static_cast<T*>(out), M, K, N2);
+  const dim3 grid(N2 / f4::BN2, (M + f4::BM - 1) / f4::BM);
+  int4_f32_kernel<<<grid, f4::NTH, f4::BYTES, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(q4),
+      static_cast<const float*>(s4), static_cast<float*>(out), M, K, N2);
   return (int)cudaGetLastError();
 }
 
@@ -229,12 +513,22 @@ int launch_int4(const void* x, const void* q4, const void* s4, void* out, int M,
 // C interface (ctypes). dtype: 0 = float32, 1 = bfloat16 (x and out). x [M, K]
 // with K a multiple of 128; q4 [K, N2] int8 with N2 a multiple of 16; s4
 // [K / 128, 2 * N2] f32; out [M, 2 * N2]. All contiguous, 16-byte aligned.
-// Returns the CUDA error code of the launch.
+// bf16: nsplit in [1, 8] and bounds[0..nsplit] the splits' group boundaries
+// (0 = bounds[0] < bounds[1] < ... < bounds[nsplit] = K / 128); f32 ignores
+// them. Returns the CUDA error code of the launch.
 extern "C" int mdt_int4_matmul(int dtype, const void* x, const void* q4, const void* s4,
-                               void* out, int M, int K, int N2, void* stream) {
+                               void* out, int M, int K, int N2, int nsplit,
+                               const int* bounds, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (K % mdt::GROUP || N2 % mdt::BN2 || M <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return mdt::launch_int4<float>(x, q4, s4, out, M, K, N2, st);
-  if (dtype == 1) return mdt::launch_int4<__nv_bfloat16>(x, q4, s4, out, M, K, N2, st);
-  return (int)cudaErrorInvalidValue;
+  if (K % mdt::GROUP || N2 % 16 || M <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return mdt::launch_f32(x, q4, s4, out, M, K, N2, st);
+  if (dtype != 1 || nsplit < 1 || nsplit > mdt::i4::MAX_SPLITS)
+    return (int)cudaErrorInvalidValue;
+  mdt::Splits splits = {};
+  if (bounds[0] != 0 || bounds[nsplit] != K / mdt::GROUP) return (int)cudaErrorInvalidValue;
+  for (int s = 0; s <= nsplit; ++s) {
+    if (s > 0 && bounds[s] <= bounds[s - 1]) return (int)cudaErrorInvalidValue;
+    splits.g[s] = bounds[s];
+  }
+  return mdt::launch_bf16(x, q4, s4, out, M, K, N2, splits, nsplit, st);
 }

@@ -15,7 +15,8 @@ s_g * (x_g @ Qu_g - 8 * rowsum(x_g)), Qu the biased nibbles, summed over the
 groups in float32 and returned in x's dtype.
 
 On tensors on the CPU the wrapper runs the plain version; on CUDA tensors it
-launches the kernel or raises.
+launches the kernel or raises. `launch_plan` is the bf16 kernel's cut of K
+into splits, from K and N/2 alone.
 """
 
 from __future__ import annotations
@@ -28,7 +29,28 @@ from magicdec_tpu_torch.ops import _build
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_GROUP = 128      # K rows per scale group of the kernel's build
-KERNEL_COLS = 16        # packed columns per CTA: N/2 must be a multiple
+KERNEL_COLS = 16        # N/2 must be a multiple (the f32 kernel's CTA width)
+TILE_COLS = 128         # packed columns per CTA of the bf16 kernel
+MAX_SPLITS = 8          # the splits of a tile form one thread-block cluster
+CARD_SMS = 132          # the H100's SMs; the bf16 kernel runs one CTA an SM
+
+
+def launch_plan(K: int, N2: int) -> tuple[tuple[int, int], ...]:
+    """The K ranges [k0, k1) of the bf16 kernel's splits, in the order
+    their partials are summed: whole 128-row groups, tiling K. Chosen from
+    K and N/2 alone, never from the row count, so a row's bits do not
+    depend on how many rows share the call. S splits give each 64-row tile
+    ceil(N2 / 128) * S CTAs of ceil(G / S) groups each, and summing the
+    partials costs a CTA about one more group; S is the count that takes
+    the fewest group steps on CARD_SMS SMs (waves of CTAs times steps a
+    CTA), the smaller on a tie."""
+    G = K // KERNEL_GROUP
+    blocks = -(-N2 // TILE_COLS)
+    S = min(range(1, min(MAX_SPLITS, G) + 1),
+            key=lambda s: ((-(-G // s) + (s > 1)) * -(-blocks * s // CARD_SMS),
+                           s))
+    return tuple((KERNEL_GROUP * (i * G // S), KERNEL_GROUP * ((i + 1) * G // S))
+                 for i in range(S))
 
 
 def pack_int4_cols(w: torch.Tensor, group_size: int = 128):
@@ -105,7 +127,7 @@ def _lib() -> ctypes.CDLL:
     fn = lib.mdt_int4_matmul
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [I, P, P, P, P, I, I, I, P]
+        fn.argtypes = [I, P, P, P, P, I, I, I, I, P, P]
         fn.restype = I
     return lib
 
@@ -117,12 +139,15 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
 
     Replaces the TPU kernel int4_matmul (pallas_call at
     magicdec_tpu/ops/pallas/int4_matmul.py:131). Bound by the packed weight's
-    bytes at decode (0.5 byte per weight plus the scales) and by the tensor
-    cores' operations in prefill; bf16 x runs on mma.sync tensor cores with
-    the nibbles unpacked in registers, f32 x on CUDA cores. Each CTA owns 64
-    rows and 16 packed columns (32 outputs), walks all of K in order and
-    never chooses a tile from M, so a row's bits do not depend on how many
-    rows share the call (csrc/int4_matmul.cu)."""
+    bytes up to ~64 rows (0.5 byte per weight plus the scales) and by the
+    tensor cores' operations from ~128 rows on (the model's padded decode
+    rows, prefill chunks). bf16 x runs on mma.sync tensor cores, the
+    nibbles unpacked in registers to signed codes, each CTA 64 rows and 256
+    outputs of one K split of `launch_plan`, the splits' partials summed in
+    order in a thread-block cluster; f32 x on CUDA cores, each CTA 64 rows
+    and 32 outputs over all of K. Nothing is chosen from M, so a row's bits
+    do not depend on how many rows share the call (csrc/int4_matmul.cu).
+    One call is one launch of one kernel."""
     if x.device.type == "cpu" and q4.device.type == "cpu" \
             and scales.device.type == "cpu":
         return int4_matmul_plain(x, q4, scales)
@@ -151,9 +176,13 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
         if not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte aligned")
     out = torch.empty((M, 2 * N2), dtype=x.dtype, device=x.device)
+    plan = launch_plan(K, N2)
+    bounds = (ctypes.c_int * (len(plan) + 1))(
+        0, *(k1 // KERNEL_GROUP for _, k1 in plan))
     rc = _lib().mdt_int4_matmul(
         _DTYPE_CODES[x.dtype], x.data_ptr(), q4.data_ptr(), scales.data_ptr(),
-        out.data_ptr(), M, K, N2, torch.cuda.current_stream(x.device).cuda_stream)
+        out.data_ptr(), M, K, N2, len(plan), bounds,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int4_matmul launch failed with cudaError_t {rc}")
     int4_matmul.launches += 1

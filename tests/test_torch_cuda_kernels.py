@@ -367,26 +367,36 @@ def _rand(rng, dev, dtype, *shape, s=1.0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K,N2", [(256, 2816), (2048, 1536)])
+@pytest.mark.parametrize("K,N2", [(256, 2816), (2048, 1536), (1024, 1040),
+                                  (4096, 3072), (4096, 2048), (4096, 14336),
+                                  (14336, 2048)])
 def test_card_int4_matmul_matches_plain(cuda, dtype, K, N2):
     """int4_matmul against its plain version within the stated limit
-    (int4_matmul_plain_f32_and_limit) at M in {8, 56, 64, 100}; rows at M=8
-    bit-equal to the same rows inside M=56; the call with one group's
-    -8 rowsum correction left out fails the limit."""
+    (int4_matmul_plain_f32_and_limit) at M in {8, 56, 64, 100, 256, 1024};
+    rows at M=8 bit-equal to the same rows inside M = 56, 256 and 1024; the
+    output with one group's -8 rowsum correction left out, and the output
+    with the last K split's partial (launch_plan) left out, fail the limit.
+    Shapes: a ragged N/2 (1040, no multiple of the 128-column tile), and
+    llama-3.1-8b's four products (K = 14336 takes 8 splits)."""
     from magicdec_tpu_torch.ops import int4_matmul as im
 
-    rng = np.random.default_rng(K)
+    rng = np.random.default_rng(K + N2)
     q4, s4 = im.pack_int4_cols(_rand(rng, cuda, torch.float32, K, 2 * N2,
                                      s=0.02))
-    x = _rand(rng, cuda, dtype, 100, K)
-    for M in (8, 56, 64, 100):
+    x = _rand(rng, cuda, dtype, 1024, K)
+    first = im.int4_matmul(x[:8], q4, s4)
+    for M in (8, 56, 64, 100, 256, 1024):
         out = im.int4_matmul(x[:M], q4, s4)
         ref, limit = im.int4_matmul_plain_f32_and_limit(x[:M], q4, s4)
         assert out.dtype == dtype and out.shape == (M, 2 * N2)
         assert bool(((out.float() - ref).abs() <= limit).all())
-        if M == 56:
-            assert torch.equal(im.int4_matmul(x[:8], q4, s4), out[:8])
+        if M in (56, 256, 1024):
+            assert torch.equal(first, out[:8])
     faulty = out.float() + 8.0 * x[:, :128].float().sum(1, keepdim=True) * s4[0]
+    assert not bool(((faulty - ref).abs() <= limit).all())
+    k0, k1 = im.launch_plan(K, N2)[-1]
+    faulty = out.float() - im.int4_matmul_plain(
+        x[:, k0:k1].float(), q4[k0:k1], s4[k0 // 128:k1 // 128])
     assert not bool(((faulty - ref).abs() <= limit).all())
 
 
