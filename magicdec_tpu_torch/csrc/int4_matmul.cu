@@ -17,25 +17,27 @@
 // buckets the model pads to (256 rows at B=8, 512 at B=16) and the 1024-row
 // prefill chunks.
 //
-// bf16 x (int4_bf16_kernel). A CTA of 8 warps owns 64 rows and 128 packed
-// columns, both nibble halves (256 outputs), and walks one split's range of
-// K groups through a ring of STAGES groups in shared memory. One thread
-// fills a stage with four TMA loads on the stage's mbarrier: the x tile
-// (loaded once and used for all 256 outputs), the q4 tile and the 256
-// scales; x and q4 land 128-byte swizzled, so the ldmatrix and word reads
-// below meet no bank conflicts. A stage is refilled as soon as every warp
-// is done with it, so STAGES groups are in flight without spending
-// registers or instructions per byte. Warp w computes all 64 rows of the 32
-// outputs of packed columns [32 (w % 4), +32) in nibble half w / 4 on
-// mma.sync m16n8k16 with f32 accumulation. The weight is unpacked in
-// registers from 32-bit shared loads with bit arithmetic: prmt pairs the
-// bytes of rows k and k + 1 of one packed column, a mask keeps a nibble in
-// each half, OR-ing in 0x4300 makes the bf16 128 + nibble, and one bf16x2
-// fma subtracts 136: the signed code q - 8 in [-8, 7], exact in bf16, so
-// there is no row-sum term. Lane (g, c) of a warp holds the B fragments of
-// packed columns 4g + t, t = 0..3: one 32-bit load serves four n8 tiles.
-// Each group's product is kept apart in f32 and folded as acc += s_g * p
-// once per group.
+// bf16 x (int4_bf16_kernel). A CTA of 8 warps (two warpgroups) owns 64
+// rows and 128 packed columns, both nibble halves (256 outputs), and walks
+// one split's range of K groups through a ring of STAGES groups in shared
+// memory. One thread fills a stage with four TMA loads on the stage's
+// mbarrier: the x tile (loaded once and used for all 256 outputs) and the
+// q4 tile, both 128-byte swizzled, and the 256 scales. A stage is refilled
+// as soon as both warpgroups are done with it, so STAGES groups are in
+// flight without spending registers or instructions per byte.
+// The product runs transposed on wgmma (m64n64k16, f32 accumulation):
+// D [outputs][rows] = A (the weight, dequantized in registers) . B (the x
+// tile, read by the tensor cores from shared memory in the TMA's swizzled
+// layout). Each warpgroup owns two of the CTA's four 64-output tiles. The
+// weight is unpacked from 32-bit shared loads with bit arithmetic: prmt
+// pairs the bytes of rows k and k + 1 of one packed column, a mask keeps a
+// nibble in each half, OR-ing in 0x4300 makes the bf16 128 + nibble, and
+// one bf16x2 fma subtracts 136: the signed code q - 8 in [-8, 7], exact in
+// bf16, so there is no row-sum term. One 32-bit load per row of k serves a
+// lane's four packed columns, whose low and high nibbles are the A rows g
+// and g + 8 of the four tiles. The A registers of two k16 steps alternate,
+// so a step's unpack overlaps the previous step's wgmma. Each group's
+// product is kept apart in f32 and folded as acc += s_g * p once per group.
 //
 // Splits: the K groups are cut into S contiguous ranges (S from K and N/2
 // only, by the wrapper's launch plan, ops/int4_matmul.py `launch_plan`),
@@ -148,18 +150,27 @@ __device__ __forceinline__ void load_bf16_stage(uint32_t st, uint32_t bar, const
   tma_2d(st + X_BYTES + Q_BYTES, &maps.s4, bar, n0, 2 * gi);
 }
 
-// bytes T of a (row k) and b (row k + 1), low nibbles, as the bf16x2 signed
-// codes (q_k - 8, q_k+1 - 8): 0x4300 | v is the bf16 128 + v, exact, and
-// the fma subtracts 136 exactly
-template <int T>
-__device__ __forceinline__ uint32_t nibble_pair(uint32_t a, uint32_t b) {
-  constexpr uint32_t sel = T | (T << 4) | ((T + 4) << 8) | ((T + 4) << 12);
-  uint32_t u, r;
-  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(u) : "r"(a), "r"(b), "n"(sel));
-  u = (u & 0x000F000Fu) | 0x43004300u;
+// byte t of a (row k) and byte t of b (row k + 1) side by side, as bytes 0
+// and 2; sel = pair_sel(t)
+__device__ __forceinline__ uint32_t pair_sel(int t) {
+  return t | (t << 4) | ((t + 4) << 8) | ((t + 4) << 12);
+}
+__device__ __forceinline__ uint32_t byte_pair(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t u;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(u) : "r"(a), "r"(b), "r"(sel));
+  return u;
+}
+
+// the low nibbles of bytes 0 and 2 as the bf16x2 signed codes (q - 8):
+// (u & 0x000F000F) | 0x43004300 is the bf16 128 + v twice, exact, in one
+// lop3 (both constants in registers: a lop3 takes one immediate), and the
+// fma subtracts 136 exactly
+__device__ __forceinline__ uint32_t signed_codes(uint32_t u) {
+  uint32_t v, r;
+  asm("lop3.b32 %0, %1, %2, %3, 0xEA;" : "=r"(v) : "r"(u), "r"(0x000F000Fu), "r"(0x43004300u));
   asm("fma.rn.bf16x2 %0, %1, %2, %3;"
       : "=r"(r)
-      : "r"(u), "r"(0x3F803F80u) /* 1, 1 */, "r"(0xC308C308u) /* -136, -136 */);
+      : "r"(v), "r"(0x3F803F80u) /* 1, 1 */, "r"(0xC308C308u) /* -136, -136 */);
   return r;
 }
 
@@ -170,57 +181,102 @@ __device__ __forceinline__ uint32_t q4_word(const uint8_t* qs, int k, int b) {
                                             ((((b >> 4) ^ k) & 7) << 4) + (b & 15));
 }
 
-// acc += s_g * (x_g . (q_g - 8)) for this warp's 64 rows x 32 outputs.
-// acc[mt][t][e] is the C fragment element e of m16 tile mt and n8 tile t,
-// whose column g is packed column 32 sub + 4 g + t of nibble half hi.
-__device__ __forceinline__ void bf16_group(const char* st, float (&acc)[4][4][4], int rows,
-                                           int warp, int lane) {
+// wgmma's shared-memory matrix descriptor of a K-major operand in the
+// 128-byte swizzle (the TMA's SWIZZLE_128B boxes): 8-row groups 1024 bytes
+// apart; the start may sit 32, 64 or 96 bytes into the swizzle atom
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
+         ((uint64_t)1 << 62);
+}
+
+// d (+)= a . b for a 64 x 16 A in registers (bf16, mma.m16n8k16's A layout,
+// warp w of the warpgroup rows 16 w..) and a 16 x 64 B in shared memory
+// (K-major, desc); scale_d = 0 starts a new sum
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t desc,
+                                         int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keep r in its register up to here (the compiler sees a use and a new value)
+__device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
+__device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+// acc += s_g * ((q_g - 8) . x_g) for this warpgroup's two m64 tiles, the
+// product transposed: D [64 outputs][64 rows] = A (the weight, from
+// registers) . B (the x tile, from shared memory). Lane (g, c) of warp w
+// of warpgroup j holds A rows g and g + 8 of tile t (t = 2j, 2j + 1): the
+// low and the high nibble of packed column 32 w + 4 g + t, both from the
+// same bytes. acc[i][4 n + e] is D element (row 16 w + g + 8 (e / 2),
+// column 8 n + 2 c + e % 2) of tile 2j + i.
+__device__ __forceinline__ void bf16_group(const char* st, uint32_t st_u32,
+                                           float (&acc)[2][32], int wg, int warp, int lane) {
   using namespace i4;
   const uint8_t* qs = reinterpret_cast<const uint8_t*>(st + X_BYTES);
   const float* ss = reinterpret_cast<const float*>(st + X_BYTES + Q_BYTES);
-  const int g = lane / 4, c = lane % 4, sub = warp % 4, hi = warp / 4;
-  const int sh = 4 * hi, qb = 32 * sub + 4 * g;
-  float p[4][4][4];
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) p[mt][t][e] = 0.f;
+  const int g = lane / 4, c = lane % 4, w = warp % 4, qb = 32 * w + 4 * g;
+  const uint32_t sel[2] = {pair_sel(2 * wg), pair_sel(2 * wg + 1)};
+  float p[2][32];
+  uint32_t a[2][2][4];  // [buffer][tile][fragment register]
 #pragma unroll
   for (int ks = 0; ks < GROUP / 16; ++ks) {
-    const int k = ks * 16 + 2 * c;
-    const uint32_t w0 = q4_word(qs, k, qb) >> sh, w1 = q4_word(qs, k + 1, qb) >> sh;
-    const uint32_t w2 = q4_word(qs, k + 8, qb) >> sh, w3 = q4_word(qs, k + 9, qb) >> sh;
-    const uint32_t b[4][2] = {{nibble_pair<0>(w0, w1), nibble_pair<0>(w2, w3)},
-                              {nibble_pair<1>(w0, w1), nibble_pair<1>(w2, w3)},
-                              {nibble_pair<2>(w0, w1), nibble_pair<2>(w2, w3)},
-                              {nibble_pair<3>(w0, w1), nibble_pair<3>(w2, w3)}};
-    // ldmatrix rows: lane l gives row l % 16 of the m16 tile at k chunk
-    // 2 ks + l / 16 (8 k each): box chunk / 8, swizzled chunk (chunk % 8) ^ (row % 8)
-    const int kc = 2 * ks + lane / 16, r = lane % 16;
-    const char* xa = st + (kc / 8) * X_BOX + r * 128 + (((kc % 8) ^ (r % 8)) << 4);
+    const int k = ks * 16 + 2 * c, buf = ks % 2;
+    const uint32_t w0 = q4_word(qs, k, qb), w1 = q4_word(qs, k + 1, qb);
+    const uint32_t w2 = q4_word(qs, k + 8, qb), w3 = q4_word(qs, k + 9, qb);
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      if (mt * 16 < rows) {
-        uint32_t a[4];
-        ldmatrix_x4(a, xa + mt * 16 * 128);
+    for (int i = 0; i < 2; ++i) {
+      const uint32_t u01 = byte_pair(w0, w1, sel[i]), u23 = byte_pair(w2, w3, sel[i]);
+      a[buf][i][0] = signed_codes(u01);
+      a[buf][i][1] = signed_codes(u01 >> 4);
+      a[buf][i][2] = signed_codes(u23);
+      a[buf][i][3] = signed_codes(u23 >> 4);
+    }
+    // B: k 16 ks.. of the x tile, in box ks / 4 at 32 (ks % 4) bytes
+    const uint64_t desc = desc_sw128(st_u32 + (ks / 4) * X_BOX + (ks % 4) * 32);
+    wgmma_fence();
 #pragma unroll
-        for (int t = 0; t < 4; ++t) mma_bf16(p[mt][t], a, b[t][0], b[t][1]);
-      }
+    for (int i = 0; i < 2; ++i) wgmma_rs(p[i], a[buf][i], desc, ks > 0);
+    wgmma_commit();
+    if (ks > 0) {
+      wgmma_wait<1>();  // step ks - 1 is done: its A registers may be rewritten
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) reg_fence(a[1 - buf][i][r]);
     }
   }
-  // C columns 2c, 2c + 1 of n8 tile t: packed columns 32 sub + 8c + t, + 4
-  const float* sw = ss + hi * BN2 + 32 * sub + 8 * c;
+  wgmma_wait<0>();
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    const float s0 = sw[t], s1 = sw[4 + t];
+  for (int i = 0; i < 2; ++i) {
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      acc[mt][t][0] += p[mt][t][0] * s0;
-      acc[mt][t][1] += p[mt][t][1] * s1;
-      acc[mt][t][2] += p[mt][t][2] * s0;
-      acc[mt][t][3] += p[mt][t][3] * s1;
+    for (int r = 0; r < 4; ++r) reg_fence(a[1][i][r]);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) reg_fence(p[i][e]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int t = 2 * wg + i;
+    const float s_lo = ss[qb + t], s_hi = ss[BN2 + qb + t];
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      acc[i][4 * n + 0] += p[i][4 * n + 0] * s_lo;
+      acc[i][4 * n + 1] += p[i][4 * n + 1] * s_lo;
+      acc[i][4 * n + 2] += p[i][4 * n + 2] * s_hi;
+      acc[i][4 * n + 3] += p[i][4 * n + 3] * s_hi;
     }
   }
 }
@@ -256,19 +312,17 @@ int4_bf16_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ 
       load_bf16_stage(ring + s * STAGE, smem_u32(&full[s]), maps, m0, n0, g0 + s);
   }
   __syncthreads();
-  float acc[4][4][4];
+  const int wg = warp / 4;
+  float acc[2][32];
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int t = 0; t < 4; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][t][e] = 0.f;
-  const bool active = n0 + 32 * (warp % 4) < N2;  // this warp's columns exist
+    for (int e = 0; e < 32; ++e) acc[i][e] = 0.f;
   for (int gi = 0; gi < NG; ++gi) {
     const int st = gi % STAGES;
     mbar_wait(smem_u32(&full[st]), (gi / STAGES) & 1);  // group gi has landed
-    if (active) bf16_group(smem + st * STAGE, acc, rows, warp, lane);
-    __syncthreads();  // every warp is done with group gi: its stage is free
+    bf16_group(smem + st * STAGE, ring + st * STAGE, acc, wg, warp, lane);
+    __syncthreads();  // every warpgroup is done with group gi: its stage is free
     const int nx = gi + STAGES;
     if (tid == 0 && nx < NG)
       load_bf16_stage(ring + st * STAGE, smem_u32(&full[st]), maps, m0, n0, g0 + nx);
@@ -278,17 +332,15 @@ int4_bf16_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ 
   // the ring, which holds no load in flight now
   float* part = reinterpret_cast<float*>(smem);
   {
-    const int g = lane / 4, c = lane % 4, sub = warp % 4, hi = warp / 4;
+    const int g = lane / 4, c = lane % 4, w = warp % 4;
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int row = mt * 16 + g + 8 * (e / 2);
-          const int col = hi * BN2 + 32 * sub + 4 * (2 * c + e % 2) + t;
-          part[row * PP + col] = acc[mt][t][e];
-        }
+      for (int e = 0; e < 32; ++e) {
+        const int row = 8 * (e / 4) + 2 * c + e % 2;
+        const int col = ((e / 2) % 2) * BN2 + 32 * w + 4 * g + 2 * wg + i;
+        part[row * PP + col] = acc[i][e];
+      }
   }
   cg::cluster_group cluster = cg::this_cluster();
   cluster.sync();  // every split's partial is in its CTA's shared memory

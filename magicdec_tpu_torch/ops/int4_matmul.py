@@ -141,13 +141,15 @@ def int4_matmul(x: torch.Tensor, q4: torch.Tensor,
     magicdec_tpu/ops/pallas/int4_matmul.py:131). Bound by the packed weight's
     bytes up to ~64 rows (0.5 byte per weight plus the scales) and by the
     tensor cores' operations from ~128 rows on (the model's padded decode
-    rows, prefill chunks). bf16 x runs on mma.sync tensor cores, the
-    nibbles unpacked in registers to signed codes, each CTA 64 rows and 256
-    outputs of one K split of `launch_plan`, the splits' partials summed in
-    order in a thread-block cluster; f32 x on CUDA cores, each CTA 64 rows
-    and 32 outputs over all of K. Nothing is chosen from M, so a row's bits
-    do not depend on how many rows share the call (csrc/int4_matmul.cu).
-    One call is one launch of one kernel."""
+    rows, prefill chunks). bf16 x runs on wgmma: TMA loads the x and q4
+    tiles, the nibbles are unpacked in registers to signed codes (the
+    register operand), each CTA computes 64 rows and 256 outputs of one K
+    split of `launch_plan`, and the splits' partials are summed in order in
+    a thread-block cluster. f32 x runs on CUDA cores, each CTA 64 rows and
+    32 outputs over all of K. Nothing is chosen from M, so a row's bits do
+    not depend on how many rows share the call (csrc/int4_matmul.cu). One
+    call is one launch of one kernel.
+    """
     if x.device.type == "cpu" and q4.device.type == "cpu" \
             and scales.device.type == "cpu":
         return int4_matmul_plain(x, q4, scales)
