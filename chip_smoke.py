@@ -175,8 +175,9 @@ exits non-zero):
                 int4_matmul at both models' four products, M in {8, 64, 256,
                 512, 1024} and 56 (yardsticks: torch._weight_int4pack_mm and
                 the bf16 mm of the dequantized weight; a layer's four
-                products summed at 64 and at the B=8 bucket, 256) and the
-                fused pair at M = 8 and 56
+                products summed at 64 and at the B=8 bucket, 256; a sweep
+                of every split count at 64 and 256 rows against the
+                plan's) and the fused pair at M = 8 and 56
                 (yardstick: the unfused chain, several calls); and the
                 return_lse forms at the GliDe shapes (SDPA, which returns no
                 (m, l), as the yardstick). The gathers are timed at both
@@ -3333,6 +3334,32 @@ def _bound(bytes_, flops):
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+# the split counts the sweep of time_int4 tries
+INT4_SPLITS = (1, 2, 3, 4, 6, 8)
+
+
+def _split_sweep(torch, im, x, packs, L):
+    """Device ms of int4_matmul on x with each split count S of
+    INT4_SPLITS (whole groups, as launch_plan cuts them) in place of the
+    plan's: {S: ms}."""
+    K, N2 = packs[0][0].shape
+    G = K // im.KERNEL_GROUP
+    plan = im.launch_plan
+    res = {}
+    try:
+        for S in INT4_SPLITS:
+            if S > G:
+                continue
+            cut = tuple((im.KERNEL_GROUP * (i * G // S),
+                         im.KERNEL_GROUP * ((i + 1) * G // S)) for i in range(S))
+            im.launch_plan = lambda K_, N2_, cut=cut: cut
+            res[S] = _time_ms(torch, lambda l: im.int4_matmul(x, *packs[l]), L,
+                              graph=True)
+    finally:
+        im.launch_plan = plan
+    return res
+
+
 def time_int4(torch, dev, errs, launches, L=16):
     """int4_matmul at both models' four products (GEMM_MODELS) at every row
     count of INT4_ROWS, bf16 x, with 16 layers of weights cycled (they do not
@@ -3342,12 +3369,15 @@ def time_int4(torch, dev, errs, launches, L=16):
     Yardsticks, which the port never calls: torch._weight_int4pack_mm where
     the card's torch has it, and the bf16 product with the dequantized
     weight (torch.mm). The sum of a layer's four products is taken at 256
-    rows, the bucket of a B=8 decode step."""
+    rows, the bucket of a B=8 decode step. Then the split sweep: the
+    kernel at 64 and 256 rows with every split count of INT4_SPLITS in
+    place of im.launch_plan's, so each run shows whether the plan's count
+    is still the fastest at 256 rows (the rows it is made for)."""
     from magicdec_tpu_torch.ops import int4_matmul as im
 
     saved = _counts()
     g = torch.Generator(device=dev).manual_seed(90)
-    int4 = {}
+    int4, sweep = {}, {}
     for model, shapes in GEMM_MODELS.items():
         for name, K, N in shapes:
             packs = [im.pack_int4_cols(torch.randn(
@@ -3378,6 +3408,9 @@ def time_int4(torch, dev, errs, launches, L=16):
                     bound_by=b_by, splits=len(im.launch_plan(K, N // 2)),
                     weight_int4pack_mm_ms=t_pack,
                     bf16_mm_dequantized_ms=t_mm)
+                if M in (64, 256):
+                    sweep[f"{model}_{name}_M{M}"] = _split_sweep(
+                        torch, im, x, packs, L)
             del packs, deq, fns
             torch.cuda.empty_cache()
     steps = {f"{model}_M{M}": {k: sum(int4[f"{model}_{n}_M{M}"][k]
@@ -3388,6 +3421,9 @@ def time_int4(torch, dev, errs, launches, L=16):
     line(phase="times_int4", int4=int4, products_per_layer=steps,
          library="weight_int4pack_mm where available, else bf16 mm of the "
                  "dequantized weight")
+    line(phase="int4_split_sweep", ms_by_splits=sweep,
+         plan_is_fastest_at_256={k: min(v, key=v.get) == int4[k]["splits"]
+                                 for k, v in sweep.items() if k.endswith("M256")})
     gu = int4["1b_w_gate_up_M256"]
     lib = gu["weight_int4pack_mm_ms"]
     return [{"name": "int4_matmul", "route": "cuda",

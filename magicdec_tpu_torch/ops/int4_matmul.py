@@ -31,24 +31,25 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_GROUP = 128      # K rows per scale group of the kernel's build
 KERNEL_COLS = 16        # N/2 must be a multiple (the f32 kernel's CTA width)
 TILE_COLS = 128         # packed columns per CTA of the bf16 kernel
+TILE_ROWS = 64          # rows per CTA of the bf16 kernel
 MAX_SPLITS = 8          # the splits of a tile form one thread-block cluster
-CARD_SMS = 132          # the H100's SMs; the bf16 kernel runs one CTA an SM
+PLAN_ROWS = 256         # the rows the plan is made for: the B=8 decode bucket
+PLAN_CTAS = 96          # CTAs the split count aims for at PLAN_ROWS
 
 
 def launch_plan(K: int, N2: int) -> tuple[tuple[int, int], ...]:
     """The K ranges [k0, k1) of the bf16 kernel's splits, in the order
     their partials are summed: whole 128-row groups, tiling K. Chosen from
     K and N/2 alone, never from the row count, so a row's bits do not
-    depend on how many rows share the call. S splits give each 64-row tile
-    ceil(N2 / 128) * S CTAs of ceil(G / S) groups each, and summing the
-    partials costs a CTA about one more group; S is the count that takes
-    the fewest group steps on CARD_SMS SMs (waves of CTAs times steps a
-    CTA), the smaller on a tie."""
+    depend on how many rows share the call. The count S is the fewest
+    splits that give PLAN_CTAS CTAs at PLAN_ROWS rows, where the model's
+    decode steps run: on the H100 a CTA costs a fixed ~8 us beside ~1 us a
+    group, so more splits than that cost waves and partial sums at 256
+    rows and more (PERF.md, PR 12); fewer rows get fewer CTAs than the
+    card has SMs."""
     G = K // KERNEL_GROUP
-    blocks = -(-N2 // TILE_COLS)
-    S = min(range(1, min(MAX_SPLITS, G) + 1),
-            key=lambda s: ((-(-G // s) + (s > 1)) * -(-blocks * s // CARD_SMS),
-                           s))
+    ctas = -(-N2 // TILE_COLS) * -(-PLAN_ROWS // TILE_ROWS)
+    S = max(1, min(MAX_SPLITS, G, -(-PLAN_CTAS // ctas)))
     return tuple((KERNEL_GROUP * (i * G // S), KERNEL_GROUP * ((i + 1) * G // S))
                  for i in range(S))
 
