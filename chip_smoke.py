@@ -66,10 +66,13 @@ exits non-zero):
                 the output with one group's -8 rowsum correction left out
                 and the output with the last K split's partial left out
   8b. fused     fused_qkv (with and without a bias) and fused_post_attn vs
-                their plain versions at llama-3.2-1b's widths, M in {8, 56},
-                bf16 and f32: every element within fused_*_plain_f32_and_limit
-                and the mean error within MEAN_LIMIT; M=8 rows bit-equal to the
-                same rows inside M=56
+                their plain versions at llama-3.2-1b's widths (bf16 and f32)
+                and llama-3.1-8b's (bf16), M in {8, 56}: every element within
+                fused_*_plain_f32_and_limit and the mean error within
+                MEAN_LIMIT; M=8 rows bit-equal to the same rows inside M=56;
+                the limit must reject bf16 fused_post_attn launched with its
+                planted fault (the last K split's partial left out of the wo
+                and w_down sums)
   8c. lse       the return_lse forms against their plain versions at the
                 GliDe shapes: flash_decode_stacked at T=7 and T=29 (two
                 launches, attention_impls.flash_stacked_lse) over a 4224-slot
@@ -177,8 +180,13 @@ exits non-zero):
                 the bf16 mm of the dequantized weight; a layer's four
                 products summed at 64 and at the B=8 bucket, 256; a sweep
                 of every split count at 64 and 256 rows against the
-                plan's) and the fused pair at M = 8 and 56
-                (yardstick: the unfused chain, several calls); and the
+                plan's) and the fused pair at both models' widths, M = 8 and
+                56 (yardstick: the unfused chain, several calls; for
+                fused_post_attn also each of its three passes alone, the
+                whole call at several CTA aims of its split plan, the wo
+                and w_down passes at each split count, and whether CUDA
+                graph capture keeps the programmatic launch edges between
+                its kernels); and the
                 return_lse forms at the GliDe shapes (SDPA, which returns no
                 (m, l), as the yardstick). The gathers are timed at both
                 head dims (the D=128 page_gather is the llama-3.1-8b Quest
@@ -934,63 +942,86 @@ def check_int4(torch, dev):
                if k_.startswith("1b") and "bfloat16_M256" in k_)
 
 
+# the fused block's widths (D, HqD, I, O = the qkv width) at llama-3.2-1b
+# (the main path) and llama-3.1-8b
+FUSED_WIDTHS = {"1b": (2048, 2048, 8192, 3072), "8b": (4096, 4096, 14336, 6144)}
+
+
 def check_fused(torch, dev):
     """fused_qkv (with and without a bias) and fused_post_attn against their
-    plain versions at llama-3.2-1b's widths (D = HqD 2048, O 3072, I 8192),
-    M in {8, 56}, bf16 and f32: every element within
-    fused_*_plain_f32_and_limit's limit and the mean error within
-    MEAN_LIMIT of the mean |plain|; rows at M=8 bit-equal to the same rows
-    inside M=56."""
+    plain versions at llama-3.2-1b's widths (bf16 and f32) and llama-3.1-8b's
+    (bf16), M in {8, 56}: every element within fused_*_plain_f32_and_limit's
+    limit and the mean error within MEAN_LIMIT of the mean |plain|; rows at
+    M=8 bit-equal to the same rows inside M=56; and in bf16 the limit
+    rejects fused_post_attn launched with its planted fault (the last K
+    split's partial left out of the wo and w_down sums)."""
     from magicdec_tpu_torch.ops import fused_block as fb
 
-    D, HqD, I, O = 2048, 2048, 8192, 3072
     g = torch.Generator(device=dev).manual_seed(81)
-    errs, ratios, means, bits = {}, {}, {}, {}
+    errs, ratios, means, bits, faults = {}, {}, {}, {}, {}
 
     def rnd(*shape, s=1.0):
         return torch.randn(shape, generator=g, device=dev) * s
 
-    for dtype in (torch.bfloat16, torch.float32):
-        dn = str(dtype).split(".")[1]
-        x, ctx = rnd(56, D).to(dtype), rnd(56, HqD).to(dtype)
-        n1, n2 = (1.0 + rnd(D, s=0.1)).to(dtype), (1.0 + rnd(D, s=0.1)).to(dtype)
-        wqkv, b = rnd(D, O, s=0.02).to(dtype), rnd(O, s=0.1).to(dtype)
-        wo, wd = rnd(HqD, D, s=0.02).to(dtype), rnd(I, D, s=0.02).to(dtype)
-        gu = rnd(D, 2, I, s=0.02).to(dtype)
-        for M in (8, 56):
-            cases = {
-                "qkv": (fb.fused_qkv(x[:M], n1, wqkv),
-                        fb.fused_qkv_plain_f32_and_limit(x[:M], n1, wqkv)),
-                "qkv_bias": (fb.fused_qkv(x[:M], n1, wqkv, b),
-                             fb.fused_qkv_plain_f32_and_limit(x[:M], n1, wqkv,
-                                                              b)),
-                "post_attn": (fb.fused_post_attn(x[:M], ctx[:M], wo, n2, gu, wd),
-                              fb.fused_post_attn_plain_f32_and_limit(
-                                  x[:M], ctx[:M], wo, n2, gu, wd))}
-            for case, (out, (ref, limit)) in cases.items():
-                what = f"{case}_{dn}_M{M}"
-                _check_out(torch, what, out, ref, limit, errs, ratios)
-                means[what] = float((out.float() - ref).abs().mean()
-                                    / ref.abs().mean())
-                if means[what] > fb.MEAN_LIMIT:
-                    fail(f"fused {what}: mean error {means[what]} of the mean "
-                         f"|plain| exceeds {fb.MEAN_LIMIT}")
-        bits[dn] = (torch.equal(fb.fused_qkv(x[:8], n1, wqkv, b),
-                                fb.fused_qkv(x, n1, wqkv, b)[:8])
-                    and torch.equal(fb.fused_post_attn(x[:8], ctx[:8], wo, n2,
-                                                       gu, wd),
-                                    fb.fused_post_attn(x, ctx, wo, n2, gu,
-                                                       wd)[:8]))
-        if not bits[dn]:
-            fail(f"fused {dn}: rows at M=8 differ from the same rows inside "
-                 f"M=56")
-        del x, ctx, wqkv, wo, wd, gu, cases
-        torch.cuda.empty_cache()
-    line(phase="fused_vs_plain", max_abs_err=errs, max_err_over_limit=ratios,
-         mean_err_over_mean=means, mean_limit=fb.MEAN_LIMIT,
-         rows_bitexact=bits)
-    return {"fused_qkv": errs["qkv_bfloat16_M8"],
-            "fused_post_attn": errs["post_attn_bfloat16_M8"]}
+    for model, (D, HqD, I, O) in FUSED_WIDTHS.items():
+        dtypes = (torch.bfloat16, torch.float32) if model == "1b" else (
+            torch.bfloat16,)
+        for dtype in dtypes:
+            dn = str(dtype).split(".")[1]
+            x, ctx = rnd(56, D).to(dtype), rnd(56, HqD).to(dtype)
+            n1 = (1.0 + rnd(D, s=0.1)).to(dtype)
+            n2 = (1.0 + rnd(D, s=0.1)).to(dtype)
+            wqkv, b = rnd(D, O, s=0.02).to(dtype), rnd(O, s=0.1).to(dtype)
+            wo, wd = rnd(HqD, D, s=0.02).to(dtype), rnd(I, D, s=0.02).to(dtype)
+            gu = rnd(D, 2, I, s=0.02).to(dtype)
+            for M in (8, 56):
+                post_ref = fb.fused_post_attn_plain_f32_and_limit(
+                    x[:M], ctx[:M], wo, n2, gu, wd)
+                cases = {
+                    "qkv": (fb.fused_qkv(x[:M], n1, wqkv),
+                            fb.fused_qkv_plain_f32_and_limit(x[:M], n1, wqkv)),
+                    "qkv_bias": (fb.fused_qkv(x[:M], n1, wqkv, b),
+                                 fb.fused_qkv_plain_f32_and_limit(
+                                     x[:M], n1, wqkv, b)),
+                    "post_attn": (fb.fused_post_attn(x[:M], ctx[:M], wo, n2,
+                                                     gu, wd), post_ref)}
+                for case, (out, (ref, limit)) in cases.items():
+                    what = f"{model}_{case}_{dn}_M{M}"
+                    _check_out(torch, what, out, ref, limit, errs, ratios)
+                    means[what] = float((out.float() - ref).abs().mean()
+                                        / ref.abs().mean())
+                    if means[what] > fb.MEAN_LIMIT:
+                        fail(f"fused {what}: mean error {means[what]} of the "
+                             f"mean |plain| exceeds {fb.MEAN_LIMIT}")
+                if dtype == torch.bfloat16:
+                    what = f"{model}_post_attn_M{M}_split_left_out"
+                    faulty = fb._post_attn_launch(x[:M], ctx[:M], wo, n2, gu,
+                                                  wd, fault=1)[0]
+                    faults[what] = not _hold(faulty, *post_ref)[2]
+                    if not faults[what]:
+                        fail(f"fused {what}: the limit does not reject the "
+                             f"output with the last split left out")
+            key = f"{model}_{dn}"
+            bits[key] = (torch.equal(fb.fused_qkv(x[:8], n1, wqkv, b),
+                                     fb.fused_qkv(x, n1, wqkv, b)[:8])
+                         and torch.equal(fb.fused_post_attn(x[:8], ctx[:8], wo,
+                                                            n2, gu, wd),
+                                         fb.fused_post_attn(x, ctx, wo, n2, gu,
+                                                            wd)[:8]))
+            if not bits[key]:
+                fail(f"fused {key}: rows at M=8 differ from the same rows "
+                     f"inside M=56")
+            del x, ctx, wqkv, wo, wd, gu, cases, post_ref
+            torch.cuda.empty_cache()
+    plans = {f"{model}_{name}": len(fb.launch_plan(K, N))
+             for model, (D, HqD, I, _) in FUSED_WIDTHS.items()
+             for name, K, N in (("wo", HqD, D), ("w_gate_up", D, 2 * I),
+                                ("w_down", I, D))}
+    line(phase="fused_vs_plain", splits=plans, max_abs_err=errs,
+         max_err_over_limit=ratios, mean_err_over_mean=means,
+         mean_limit=fb.MEAN_LIMIT, rows_bitexact=bits, faults_rejected=faults)
+    return {"fused_qkv": errs["1b_qkv_bfloat16_M8"],
+            "fused_post_attn": errs["1b_post_attn_bfloat16_M8"]}
 
 
 def _hold_lse(torch, fd, what, got, want, ctx_ref, ctx_limit, dtype, errs,
@@ -3338,25 +3369,24 @@ def _bound(bytes_, flops):
 INT4_SPLITS = (1, 2, 3, 4, 6, 8)
 
 
-def _split_sweep(torch, im, x, packs, L):
-    """Device ms of int4_matmul on x with each split count S of
-    INT4_SPLITS (whole groups, as launch_plan cuts them) in place of the
-    plan's: {S: ms}."""
-    K, N2 = packs[0][0].shape
-    G = K // im.KERNEL_GROUP
-    plan = im.launch_plan
+def _split_sweep(torch, plan_module, unit, counts, fn, L):
+    """Device ms of fn (a call on layer l of L) with each split count S of
+    counts in place of plan_module.launch_plan's: every K cut into min(S,
+    K / unit) balanced ranges of whole unit-row pieces, as the plans cut
+    it: {S: ms}."""
+    plan = plan_module.launch_plan
     res = {}
     try:
-        for S in INT4_SPLITS:
-            if S > G:
-                continue
-            cut = tuple((im.KERNEL_GROUP * (i * G // S),
-                         im.KERNEL_GROUP * ((i + 1) * G // S)) for i in range(S))
-            im.launch_plan = lambda K_, N2_, cut=cut: cut
-            res[S] = _time_ms(torch, lambda l: im.int4_matmul(x, *packs[l]), L,
-                              graph=True)
+        for S in counts:
+            def cut(K, N, S=S):
+                n = K // unit
+                s_ = min(S, n)
+                return tuple((unit * (i * n // s_), unit * ((i + 1) * n // s_))
+                             for i in range(s_))
+            plan_module.launch_plan = cut
+            res[S] = _time_ms(torch, fn, L, graph=True)
     finally:
-        im.launch_plan = plan
+        plan_module.launch_plan = plan
     return res
 
 
@@ -3410,7 +3440,9 @@ def time_int4(torch, dev, errs, launches, L=16):
                     bf16_mm_dequantized_ms=t_mm)
                 if M in (64, 256):
                     sweep[f"{model}_{name}_M{M}"] = _split_sweep(
-                        torch, im, x, packs, L)
+                        torch, im, im.KERNEL_GROUP,
+                        [S for S in INT4_SPLITS if S <= K // im.KERNEL_GROUP],
+                        lambda l: im.int4_matmul(x, *packs[l]), L)
             del packs, deq, fns
             torch.cuda.empty_cache()
     steps = {f"{model}_M{M}": {k: sum(int4[f"{model}_{n}_M{M}"][k]
@@ -3437,12 +3469,32 @@ def time_int4(torch, dev, errs, launches, L=16):
              else gu["bf16_mm_dequantized_ms"]}]
 
 
-def time_weight_kernels(torch, dev, errs, launches, L=16):
-    """The fused pair at M = 8 (AR and draft steps) and 56 (the verify),
-    with 16 layers of weights cycled: device ms (CUDA graph), eager ms, the
-    plain version and the bound. Yardstick, which the port never calls:
+# layers of weights the fused pair's timings cycle through: more than the
+# 50 MB L2 holds (a llama-3.2-1b layer's post-attention weights are 109 MB,
+# a llama-3.1-8b layer's 386 MB)
+FUSED_TIME_LAYERS = {"1b": 16, "8b": 4}
+# the split counts of the wo and w_down passes' sweep: the CTAs grow with S
+# while each walks fewer stages, which parts a pass's fixed cost from its
+# cost a stage
+POST_SPLITS = (1, 2, 4, 8)
+# the values of fb.PLAN_CTAS the whole call is timed at (the plan's split
+# counts follow from it)
+PLAN_CTAS_SWEEP = (32, 64, 128, 256)
+
+
+def time_weight_kernels(torch, dev, errs, launches):
+    """The fused pair at llama-3.2-1b's and llama-3.1-8b's widths, M = 8
+    (AR and draft steps) and 56 (the verify), with FUSED_TIME_LAYERS layers
+    of weights cycled: device ms (CUDA graph), eager ms, the plain version
+    and the bound; for fused_post_attn also each of its three passes alone
+    (device ms and bound: the pass's weight, operands and output) and the
+    split counts of `launch_plan`, the whole call at each plan aim of
+    PLAN_CTAS_SWEEP, and at M=8 the wo and w_down passes alone at each
+    split count of POST_SPLITS. Yardstick, which the port never calls:
     the unfused chain of the bf16 path (rms_norm, cuBLAS products and the
-    elementwise ops: several calls)."""
+    elementwise ops: several calls). Then whether CUDA graph capture keeps
+    the programmatic dependent launches between fused_post_attn's kernels
+    (the programmatic edges of one captured call)."""
     import torch.nn.functional as F
 
     from magicdec_tpu_torch.ops import fused_block as fb
@@ -3450,63 +3502,99 @@ def time_weight_kernels(torch, dev, errs, launches, L=16):
 
     saved = _counts()
     g = torch.Generator(device=dev).manual_seed(91)
+    fused, sweep, plans = {}, {}, {}
+    for model, (D, HqD, I, O) in FUSED_WIDTHS.items():
+        L = FUSED_TIME_LAYERS[model]
+        w = dict(n=[torch.ones(D, device=dev, dtype=torch.bfloat16)] * L,
+                 wqkv=[], wo=[], gu=[], wd=[])
+        for _ in range(L):
+            for k, shape in (("wqkv", (D, O)), ("wo", (HqD, D)),
+                             ("gu", (D, 2, I)), ("wd", (I, D))):
+                w[k].append((torch.randn(shape, generator=g, device=dev)
+                             * 0.02).to(torch.bfloat16))
+        for M in (8, 56):
+            x = torch.randn((M, D), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            ctx = torch.randn((M, HqD), generator=g, device=dev,
+                              dtype=torch.bfloat16)
+
+            def operands(l):
+                return (x, ctx, w["wo"][l], w["n"][l], w["gu"][l], w["wd"][l])
+
+            def qkv(l):
+                return fb.fused_qkv(x, w["n"][l], w["wqkv"][l])
+
+            def post(l):
+                return fb.fused_post_attn(*operands(l))
+
+            def qkv_plain(l):
+                return fb.fused_qkv_plain(x, w["n"][l], w["wqkv"][l])
+
+            def post_plain(l):
+                return fb.fused_post_attn_plain(*operands(l))
+
+            def qkv_chain(l):
+                return rms_norm(x, w["n"][l]) @ w["wqkv"][l]
+
+            def post_chain(l):
+                t = x + ctx @ w["wo"][l]
+                gu = (rms_norm(t, w["n"][l]) @ w["gu"][l].reshape(D, -1)).view(
+                    M, 2, I)
+                return t + (F.silu(gu[:, 0]) * gu[:, 1]) @ w["wd"][l]
+
+            for what, fn, plain, chain, (wbytes, K_N) in (
+                    ("fused_qkv", qkv, qkv_plain, qkv_chain,
+                     (D * O * 2, D * O)),
+                    ("fused_post_attn", post, post_plain, post_chain,
+                     ((HqD * D + D * 2 * I + I * D) * 2,
+                      HqD * D + D * 2 * I + I * D))):
+                t_k, t_e = _device_and_eager_ms(torch, fn, L)
+                t_p = _time_ms(torch, plain, L, graph=True)
+                t_c = _time_ms(torch, chain, L, graph=True)
+                act = 2 * M * ((D + O) if what == "fused_qkv"
+                               else (2 * D + HqD))
+                b_ms, b_by = _bound(wbytes + act, 2 * M * K_N)
+                fused[f"{model}_{what}_M{M}"] = dict(
+                    ms=t_k, eager_ms=t_e, plain_ms=t_p, unfused_chain_ms=t_c,
+                    bound_ms=b_ms, bound_by=b_by)
+            # each pass alone, on scratch a whole call filled
+            scratch = fb._post_attn_launch(*operands(0))
+            passes = {}
+            for p, (name, K, N, nbytes) in enumerate((
+                    ("wo", HqD, D, HqD * D + M * (HqD + 2 * D)),
+                    ("gate_up", D, 2 * I, 2 * D * I + D + M * (D + I)),
+                    ("down", I, D, I * D + M * (I + 2 * D)))):
+                t_pass = _time_ms(torch, lambda l, p=p: fb._post_attn_launch(
+                    *operands(l), passes=1 << p, scratch=scratch), L,
+                    graph=True)
+                b_ms, b_by = _bound(2 * nbytes, 2 * M * K * N)
+                passes[name] = dict(ms=t_pass, bound_ms=b_ms, bound_by=b_by,
+                                    splits=len(fb.launch_plan(K, N)),
+                                    ctas=fb.column_blocks(N)
+                                    * len(fb.launch_plan(K, N)))
+            fused[f"{model}_fused_post_attn_M{M}"]["passes"] = passes
+            plans[f"{model}_M{M}"] = _plan_sweep(torch, fb, post, L)
+            if M == 8:  # the wo and w_down passes alone at each split count
+                sweep[model] = {name: _split_sweep(
+                    torch, fb, fb.STAGE_K, POST_SPLITS,
+                    lambda l, p=p: fb._post_attn_launch(
+                        *operands(l), passes=1 << p, scratch=scratch), L)
+                    for p, name in ((0, "wo"), (2, "down"))}
+            del x, ctx, scratch
+        del w
+        torch.cuda.empty_cache()
+    _set_counts(saved)
+    line(phase="times_weights", fused=fused,
+         fused_library="none: the unfused chain is several calls",
+         pdl_in_capture=_pdl_in_capture(torch, dev, fb))
+    line(phase="fused_split_sweep", ms_by_splits=sweep,
+         whole_call_ms_by_plan_ctas=plans, plan_ctas=fb.PLAN_CTAS,
+         plan={m: {k: v["splits"] for k, v in
+                   fused[f"{m}_fused_post_attn_M8"]["passes"].items()}
+               for m in FUSED_WIDTHS})
     rows = []
-
-    D, HqD, I, O = 2048, 2048, 8192, 3072
-    w = dict(n=[torch.ones(D, device=dev, dtype=torch.bfloat16)] * L,
-             wqkv=[], wo=[], gu=[], wd=[])
-    for _ in range(L):
-        for k, shape in (("wqkv", (D, O)), ("wo", (HqD, D)),
-                         ("gu", (D, 2, I)), ("wd", (I, D))):
-            w[k].append((torch.randn(shape, generator=g, device=dev) * 0.02
-                         ).to(torch.bfloat16))
-    fused = {}
-    for M in (8, 56):
-        x = torch.randn((M, D), generator=g, device=dev, dtype=torch.bfloat16)
-        ctx = torch.randn((M, HqD), generator=g, device=dev,
-                          dtype=torch.bfloat16)
-
-        def qkv(l):
-            return fb.fused_qkv(x, w["n"][l], w["wqkv"][l])
-
-        def post(l):
-            return fb.fused_post_attn(x, ctx, w["wo"][l], w["n"][l],
-                                      w["gu"][l], w["wd"][l])
-
-        def qkv_plain(l):
-            return fb.fused_qkv_plain(x, w["n"][l], w["wqkv"][l])
-
-        def post_plain(l):
-            return fb.fused_post_attn_plain(x, ctx, w["wo"][l], w["n"][l],
-                                            w["gu"][l], w["wd"][l])
-
-        def qkv_chain(l):
-            return rms_norm(x, w["n"][l]) @ w["wqkv"][l]
-
-        def post_chain(l):
-            t = x + ctx @ w["wo"][l]
-            gu = (rms_norm(t, w["n"][l]) @ w["gu"][l].reshape(D, -1)).view(
-                M, 2, I)
-            return t + (F.silu(gu[:, 0]) * gu[:, 1]) @ w["wd"][l]
-
-        for what, fn, plain, chain, (wbytes, K_N) in (
-                ("fused_qkv", qkv, qkv_plain, qkv_chain,
-                 (D * O * 2, D * O)),
-                ("fused_post_attn", post, post_plain, post_chain,
-                 ((HqD * D + D * 2 * I + I * D) * 2,
-                  HqD * D + D * 2 * I + I * D))):
-            t_k, t_e = _device_and_eager_ms(torch, fn, L)
-            t_p = _time_ms(torch, plain, L, graph=True)
-            t_c = _time_ms(torch, chain, L, graph=True)
-            act = 2 * M * ((D + O) if what == "fused_qkv" else (2 * D + HqD))
-            b_ms, b_by = _bound(wbytes + act, 2 * M * K_N)
-            fused[f"{what}_M{M}"] = dict(ms=t_k, eager_ms=t_e, plain_ms=t_p,
-                                         unfused_chain_ms=t_c, bound_ms=b_ms,
-                                         bound_by=b_by)
-    del w
-    torch.cuda.empty_cache()
     for what in ("fused_qkv", "fused_post_attn"):
-        r = fused[f"{what}_M8"]
+        r = fused[f"1b_{what}_M8"]
         rows.append({"name": what, "route": "cuda",
                      "source": "magicdec_tpu_torch/csrc/fused_block.cu",
                      "replaces": "magicdec_tpu/ops/pallas/fused_block.py:"
@@ -3515,10 +3603,49 @@ def time_weight_kernels(torch, dev, errs, launches, L=16):
                      "ms": r["ms"], "plain_ms": r["plain_ms"],
                      "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                      "library_ms": None})
-    _set_counts(saved)
-    line(phase="times_weights", fused=fused,
-         fused_library="none: the unfused chain is several calls")
     return rows
+
+
+def _plan_sweep(torch, fb, post, L):
+    """Device ms of the whole call post(l) with fb.PLAN_CTAS (which
+    launch_plan reads) set to each value of PLAN_CTAS_SWEEP: {value: ms}.
+    The passes overlap in a call (programmatic launch, CTAs of two kernels
+    on an SM), so the plan is chosen on whole calls."""
+    saved = fb.PLAN_CTAS
+    res = {}
+    try:
+        for ctas in PLAN_CTAS_SWEEP:
+            fb.PLAN_CTAS = ctas
+            res[ctas] = _time_ms(torch, post, L, graph=True)
+    finally:
+        fb.PLAN_CTAS = saved
+    return res
+
+
+def _pdl_in_capture(torch, dev, fb):
+    """The edges of a CUDA graph holding one captured bf16 fused_post_attn
+    call at llama-3.2-1b's widths, M=8: with programmatic dependent launch
+    kept by the capture, the two edges between its three kernels are of
+    the programmatic type. "not measured" where the card's torch cannot
+    hand out the captured graph (CUDAGraph(keep_graph=True))."""
+    D, HqD, I, _ = FUSED_WIDTHS["1b"]
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    ops = (torch.randn((8, D), **bf), torch.randn((8, HqD), **bf),
+           torch.randn((HqD, D), **bf) * 0.02, torch.ones(D, **bf),
+           torch.randn((D, 2, I), **bf) * 0.02, torch.randn((I, D), **bf) * 0.02)
+    fb._post_attn_launch(*ops)
+    torch.cuda.synchronize()
+    try:
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+    except TypeError as e:
+        return f"not measured: {e}"
+    with torch.cuda.graph(graph):
+        fb._post_attn_launch(*ops)
+    edges, programmatic = fb.graph_edges(graph)
+    graph.replay()
+    torch.cuda.synchronize()
+    return dict(edges=edges, programmatic_edges=programmatic,
+                kept=programmatic == 2)
 
 
 def _profile(torch, fn, n):

@@ -56,9 +56,9 @@
 // each thread one output column of 16 rows, sequential f32 FMAs, each group
 // as s_g * (x_g . Qu_g - 8 * rowsum(x_g)).
 #include <cooperative_groups.h>
-#include <cuda.h>
 
 #include "mma.cuh"
+#include "tma.cuh"
 
 namespace mdt {
 
@@ -102,48 +102,12 @@ struct Maps {
   CUtensorMap x, q4, s4;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wait for the phase of parity `parity` of the mbarrier to complete; a wait
-// that outlasts ~2^32 cycles (seconds) traps, so a lost copy fails the
-// launch instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1LL << 32)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                       int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
 // stage <- group gi (one thread): x rows [m0, m0 + 64), q4 rows of the group
 // at packed columns [n0, n0 + 128), and the group's 2 x 128 scales
 __device__ __forceinline__ void load_bf16_stage(uint32_t st, uint32_t bar, const Maps& maps,
                                                 int m0, int n0, int gi) {
   using namespace i4;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(TX)
-               : "memory");
+  mbar_expect_tx(bar, TX);
   tma_2d(st, &maps.x, bar, gi * GROUP, m0);
   tma_2d(st + X_BOX, &maps.x, bar, gi * GROUP + 64, m0);
   tma_2d(st + X_BYTES, &maps.q4, bar, n0, gi * GROUP);
@@ -181,14 +145,6 @@ __device__ __forceinline__ uint32_t q4_word(const uint8_t* qs, int k, int b) {
                                             ((((b >> 4) ^ k) & 7) << 4) + (b & 15));
 }
 
-// wgmma's shared-memory matrix descriptor of a K-major operand in the
-// 128-byte swizzle (the TMA's SWIZZLE_128B boxes): 8-row groups 1024 bytes
-// apart; the start may sit 32, 64 or 96 bytes into the swizzle atom
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
 // d (+)= a . b for a 64 x 16 A in registers (bf16, mma.m16n8k16's A layout,
 // warp w of the warpgroup rows 16 w..) and a 16 x 64 B in shared memory
 // (K-major, desc); scale_d = 0 starts a new sum
@@ -202,16 +158,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
 // keep r in its register up to here (the compiler sees a use and a new value)
 __device__ __forceinline__ void reg_fence(uint32_t& r) { asm volatile("" : "+r"(r)::"memory"); }
 __device__ __forceinline__ void reg_fence(float& r) { asm volatile("" : "+f"(r)::"memory"); }
@@ -306,7 +252,7 @@ int4_bf16_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ 
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(&full[s])));
+      mbar_init(smem_u32(&full[s]), 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int s = 0; s < STAGES && s < NG; ++s)
       load_bf16_stage(ring + s * STAGE, smem_u32(&full[s]), maps, m0, n0, g0 + s);
@@ -366,52 +312,11 @@ int4_bf16_kernel(const __grid_constant__ Maps maps, __nv_bfloat16* __restrict__ 
   cluster.sync();  // no CTA leaves while another still reads its partial
 }
 
-// cuTensorMapEncodeTiled from the driver, through the runtime (no link to
-// libcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                                  cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 2-D map of rows x cols elements (cols contiguous, rows `pitch` bytes
-// apart) in boxes of box_rows x box_cols
-static bool map_2d(CUtensorMap* m, EncodeTiled enc, CUtensorMapDataType type, const void* base,
-                   uint64_t cols, uint64_t rows, uint64_t pitch, uint32_t box_cols,
-                   uint32_t box_rows, CUtensorMapSwizzle swizzle) {
-  const cuuint64_t dims[2] = {cols, rows}, strides[1] = {pitch};
-  const cuuint32_t box[2] = {box_cols, box_rows}, unit[2] = {1, 1};
-  return enc(m, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int launch_bf16(const void* x, const void* q4, const void* s4, void* out, int M, int K, int N2,
                 const Splits& splits, int S, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        int4_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, i4::BYTES);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static SmemLimit limit;
+  cudaError_t e = limit.ensure((const void*)int4_bf16_kernel, i4::BYTES);
+  if (e != cudaSuccess) return (int)e;
   EncodeTiled enc = encode_tiled();
   Maps maps;
   if (!enc ||
@@ -422,22 +327,9 @@ int launch_bf16(const void* x, const void* q4, const void* s4, void* out, int M,
       !map_2d(&maps.s4, enc, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, s4, N2, 2 * (K / GROUP),
               4 * (uint64_t)N2, i4::BN2, 2, CU_TENSOR_MAP_SWIZZLE_NONE))
     return (int)cudaErrorInvalidValue;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(S, (N2 + i4::BN2 - 1) / i4::BN2, (M + i4::BM - 1) / i4::BM);
-  cfg.blockDim = dim3(i4::NTH);
-  cfg.dynamicSmemBytes = i4::BYTES;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = S;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, int4_bf16_kernel, maps,
-                                     static_cast<__nv_bfloat16*>(out), M, N2, splits);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
+  const dim3 grid(S, (N2 + i4::BN2 - 1) / i4::BN2, (M + i4::BM - 1) / i4::BM);
+  return (int)launch_ex(int4_bf16_kernel, grid, dim3(i4::NTH), i4::BYTES, stream, S, false,
+                        maps, static_cast<__nv_bfloat16*>(out), M, N2, splits);
 }
 
 // ---------------------------------------------------------------------------
@@ -546,13 +438,9 @@ int4_f32_kernel(const float* __restrict__ x, const int8_t* __restrict__ q4,
 
 int launch_f32(const void* x, const void* q4, const void* s4, void* out, int M, int K, int N2,
                cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        int4_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f4::BYTES);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static SmemLimit limit;
+  const cudaError_t e = limit.ensure((const void*)int4_f32_kernel, f4::BYTES);
+  if (e != cudaSuccess) return (int)e;
   const dim3 grid(N2 / f4::BN2, (M + f4::BM - 1) / f4::BM);
   int4_f32_kernel<<<grid, f4::NTH, f4::BYTES, stream>>>(
       static_cast<const float*>(x), static_cast<const int8_t*>(q4),

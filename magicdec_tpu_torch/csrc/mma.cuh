@@ -1,5 +1,6 @@
-// Conversions, tensor-core and asynchronous-copy helpers shared by the
-// attention kernels (flash_common.cuh), int4_matmul.cu and fused_block.cu.
+// Conversions, tensor-core (mma.sync, wgmma) and asynchronous-copy helpers
+// shared by the attention kernels (flash_common.cuh), int4_matmul.cu and
+// fused_block.cu.
 //
 // Fragment layouts of mma.sync.m16n8k16 (PTX ISA): lane = 4*g + c; A holds
 // rows g, g+8 and k 2c, 2c+1 (+8); B holds k 2c, 2c+1 (+8) of column g; C
@@ -102,6 +103,31 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(a));
+}
+
+// wgmma's shared-memory matrix descriptor of an operand in the 128-byte
+// swizzle (the TMA's SWIZZLE_128B boxes: rows of 128 bytes, 8-row groups
+// 1024 bytes apart). K-major (the rows run along K): the start may sit 32,
+// 64 or 96 bytes into the swizzle atom, and the leading offset is unused.
+// MN-major (the rows run along M or N, 64 bf16 a row; wgmma's transpose
+// flag): the start sits on an atom, and lbo = 1024 puts the 8-row group
+// stride in both offset fields, since an operand 64 wide has one block
+// along M or N and whichever field the hardware takes for that stride goes
+// unused.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo = 16) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 }  // namespace mdt

@@ -21,9 +21,10 @@ t + round(a @ w_down).
 Every row is computed by a fixed sequence of operations that does not
 depend on the number of rows in the call, so a draft row (M = B) and the
 same row inside a verify (M = B * (gamma + 1)) get the same bits: the
-kernels never choose a tile from M, and the plain versions run at rows
-padded to a multiple of ROW_BUCKET (PyTorch's CPU GEMM and row reductions
-pick their blocking from the shape).
+kernels never choose a tile or a split from M (`launch_plan` reads K and N
+alone), and the plain versions run at rows padded to a multiple of
+ROW_BUCKET (PyTorch's CPU GEMM and row reductions pick their blocking from
+the shape).
 
 On tensors on the CPU a wrapper runs the plain version; on CUDA tensors it
 launches the kernels or raises.
@@ -41,7 +42,16 @@ from magicdec_tpu_torch.ops import _build
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ROW_BUCKET = 64
 KERNEL_K = 64       # every contraction length must be a multiple
-KERNEL_COLS = 16    # every output width must be a multiple
+KERNEL_COLS = 16    # every fused_qkv output width must be a multiple
+# the bf16 fused_post_attn kernel: a CTA owns 64 rows and TILE_COLS output
+# columns (gate/up: 64 gate and the matching 64 up columns) and walks its
+# split of K in stages of STAGE_K rows; a column block's splits form one
+# thread-block cluster of at most MAX_SPLITS CTAs
+STAGE_K = 64
+TILE_COLS = 128
+MAX_SPLITS = 8
+PLAN_CTAS = 128     # the most CTAs a split pass aims for at one 64-row tile
+PLAN_STAGES = 8     # the fewest stages a split walks
 # the per-element limit of a bf16 output is loose (see
 # fused_post_attn_plain_f32_and_limit); the mean |kernel - plain| over a
 # call's outputs must also stay within this share of the mean |plain|
@@ -144,6 +154,32 @@ def fused_post_attn_plain_f32_and_limit(x, ctx, wo, ffn_norm, w_gate_up,
     return ref, _limit(ref, ref_abs, x.dtype)
 
 
+def column_blocks(N: int) -> int:
+    """The column blocks of a product of N output columns (for gate/up N =
+    2I: block c holds gate columns 64c.. and up columns I + 64c..)."""
+    return -(-N // TILE_COLS)
+
+
+def launch_plan(K: int, N: int) -> tuple[tuple[int, int], ...]:
+    """The K ranges [k0, k1) of the bf16 fused_post_attn kernel's splits
+    for a product [M, K] @ [K, N], in the order their f32 partials are
+    summed: whole STAGE_K-row stages, tiling K, balanced. Chosen from K and
+    N alone, never from the row count, so a row's bits do not depend on how
+    many rows share the call. The count is the most splits (at most
+    MAX_SPLITS) that keep a pass within PLAN_CTAS CTAs at one 64-row tile
+    and give each split at least PLAN_STAGES stages (on the H100 a CTA
+    costs a few microseconds beside its stages). Whole calls ran fastest
+    at 128 to 256, though a wo or w_down pass alone ran fastest at about
+    64 CTAs (chip_smoke `fused_split_sweep`, PERF.md). llama-3.2-1b:
+    wo 4 splits (64 CTAs), w_down 8 (128); llama-3.1-8b: wo and w_down 4
+    (128); the gate/up products (128 and 224 column blocks) none."""
+    stages = K // STAGE_K
+    S = max(1, min(MAX_SPLITS, stages // PLAN_STAGES,
+                   PLAN_CTAS // column_blocks(N)))
+    return tuple((STAGE_K * (i * stages // S), STAGE_K * ((i + 1) * stages // S))
+                 for i in range(S))
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_block")
     if lib.mdt_fused_qkv.argtypes is None:
@@ -151,8 +187,10 @@ def _lib() -> ctypes.CDLL:
         lib.mdt_fused_qkv.argtypes = [I, P, P, P, P, P, P, I, I, I, Fl, P]
         lib.mdt_fused_qkv.restype = I
         lib.mdt_fused_post_attn.argtypes = [I, P, P, P, P, P, P, P, P, P, P,
-                                            I, I, I, I, Fl, P]
+                                            P, I, I, I, I, Fl, P, P, I, I, P]
         lib.mdt_fused_post_attn.restype = I
+        lib.mdt_graph_edges.argtypes = [P, P, P]
+        lib.mdt_graph_edges.restype = I
     return lib
 
 
@@ -223,25 +261,16 @@ def fused_qkv(x: torch.Tensor, attn_norm: torch.Tensor, wqkv: torch.Tensor,
 fused_qkv.launches = 0
 
 
-def fused_post_attn(x: torch.Tensor, ctx: torch.Tensor, wo: torch.Tensor,
-                    ffn_norm: torch.Tensor, w_gate_up: torch.Tensor,
-                    w_down: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """t = x + ctx @ wo; out = t + swiglu(rmsnorm(t) @ w_gate_up) @ w_down:
-    x [M, D], ctx [M, HqD], wo [HqD, D], ffn_norm [D], w_gate_up [D, 2, I],
-    w_down [I, D] -> [M, D] in x's dtype.
-
-    Replaces the TPU kernel fused_post_attn (pallas_call at
-    magicdec_tpu/ops/pallas/fused_block.py:191). Bound by the bytes of wo,
-    w_gate_up and w_down at decode. The TPU kernel carries t, h and the
-    accumulator across a sequential grid; Hopper's CTAs run in no order, so
-    one call issues four kernels of one source, each a full pass: t (the wo
-    product with the residual in its epilogue), h = rmsnorm(t), a (the
-    gate/up product, each CTA holding a gate tile and the matching up tile,
-    SwiGLU in the epilogue) and out (the w_down product with the residual)
-    (csrc/fused_block.cu). `launches` counts calls."""
-    if _on_cpu(x, ctx, wo, ffn_norm, w_gate_up, w_down):
-        return fused_post_attn_plain(x, ctx, wo, ffn_norm, w_gate_up, w_down,
-                                     eps)
+def _post_attn_launch(x, ctx, wo, ffn_norm, w_gate_up, w_down, eps=1e-5, *,
+                      fault=0, passes=7, scratch=None):
+    """Check the operands (CUDA tensors) and launch fused_post_attn's
+    kernels; returns (out, t, a, ssq). For the checks and timings of
+    chip_smoke.py: fault=1 leaves the last split's partial out of each split
+    pass's sum (a planted fault the limit must reject); passes (1 wo, 2
+    gate/up, 4 down) launches only those passes (bf16); scratch = (out, t,
+    a, ssq) reuses those tensors (ssq: t's sums of squares by 128-column
+    block, which the wo pass leaves for the gate/up pass's RMSNorm).
+    Counts no launch."""
     _check("fused_post_attn", x, ctx, wo, ffn_norm, w_gate_up, w_down)
     M, D = x.shape
     HqD = wo.shape[0]
@@ -256,19 +285,72 @@ def fused_post_attn(x: torch.Tensor, ctx: torch.Tensor, wo: torch.Tensor,
                          f"{tuple(w_down.shape)}")
     _check_widths("fused_post_attn", D=(D, KERNEL_K), HqD=(HqD, KERNEL_K),
                   I=(I, KERNEL_K))
-    out = torch.empty_like(x)
-    t, h = torch.empty_like(x), torch.empty_like(x)
-    a = torch.empty((M, I), dtype=x.dtype, device=x.device)
+    if scratch is None:
+        scratch = (torch.empty_like(x), torch.empty_like(x),
+                   torch.empty((M, I), dtype=x.dtype, device=x.device),
+                   torch.empty((M, column_blocks(D)), dtype=torch.float32,
+                               device=x.device))
+    out, t, a, ssq = scratch
+    h = torch.empty_like(x) if x.dtype == torch.float32 else None
+    plans = [launch_plan(K, N) for K, N in ((HqD, D), (D, 2 * I), (I, D))]
+    nsplit = (ctypes.c_int * 3)(*(len(p) for p in plans))
+    bounds = (ctypes.c_int * (3 * (MAX_SPLITS + 1)))()
+    for i, plan in enumerate(plans):
+        for s, (_, k1) in enumerate(plan):
+            bounds[i * (MAX_SPLITS + 1) + s + 1] = k1 // STAGE_K
     rc = _lib().mdt_fused_post_attn(
         _DTYPE_CODES[x.dtype], x.data_ptr(), ctx.data_ptr(), wo.data_ptr(),
         ffn_norm.data_ptr(), w_gate_up.data_ptr(), w_down.data_ptr(),
-        t.data_ptr(), h.data_ptr(), a.data_ptr(), out.data_ptr(), M, D, HqD,
-        I, eps, torch.cuda.current_stream(x.device).cuda_stream)
+        t.data_ptr(), None if h is None else h.data_ptr(), a.data_ptr(),
+        ssq.data_ptr(), out.data_ptr(), M, D, HqD, I, eps, nsplit, bounds,
+        fault, passes,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_post_attn launch failed with cudaError_t "
                            f"{rc}")
+    return scratch
+
+
+def fused_post_attn(x: torch.Tensor, ctx: torch.Tensor, wo: torch.Tensor,
+                    ffn_norm: torch.Tensor, w_gate_up: torch.Tensor,
+                    w_down: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """t = x + ctx @ wo; out = t + swiglu(rmsnorm(t) @ w_gate_up) @ w_down:
+    x [M, D], ctx [M, HqD], wo [HqD, D], ffn_norm [D], w_gate_up [D, 2, I],
+    w_down [I, D] -> [M, D] in x's dtype.
+
+    Replaces the TPU kernel fused_post_attn (pallas_call at
+    magicdec_tpu/ops/pallas/fused_block.py:191). Bound by the bytes of wo,
+    w_gate_up and w_down at decode. The TPU kernel carries t, h and the
+    accumulator across a sequential grid; Hopper's CTAs run in no order, so
+    a bf16 call issues three kernels of one weight-streaming design
+    (csrc/fused_block.cu): t (the wo product with the residual; its
+    epilogue also leaves t's sums of squares by column block), a (the
+    gate/up product, the RMSNorm of t folded into its operand, SwiGLU in
+    the epilogue) and out (the w_down product with the residual). Each
+    streams its weight by TMA through a 4-stage ring, runs on the tensor
+    cores, and splits K by `launch_plan` over a thread-block cluster whose
+    CTAs sum their partials in split order; programmatic dependent launch
+    lets each pass fetch its first weight stages while the pass before it
+    drains. f32 (the exact checks) keeps four CUDA-core kernels (wo, the
+    RMSNorm, gate/up, w_down). `launches` counts calls."""
+    if _on_cpu(x, ctx, wo, ffn_norm, w_gate_up, w_down):
+        return fused_post_attn_plain(x, ctx, wo, ffn_norm, w_gate_up, w_down,
+                                     eps)
+    out = _post_attn_launch(x, ctx, wo, ffn_norm, w_gate_up, w_down, eps)[0]
     fused_post_attn.launches += 1
     return out
 
 
 fused_post_attn.launches = 0
+
+
+def graph_edges(graph) -> tuple[int, int]:
+    """(edges, programmatic edges) of a torch.cuda.CUDAGraph captured with
+    keep_graph=True: whether stream capture kept the programmatic
+    dependent launches between fused_post_attn's kernels."""
+    total, prog = ctypes.c_int(), ctypes.c_int()
+    rc = _lib().mdt_graph_edges(graph.raw_cuda_graph(), ctypes.byref(total),
+                                ctypes.byref(prog))
+    if rc != 0:
+        raise RuntimeError(f"cudaGraphGetEdges failed with cudaError_t {rc}")
+    return total.value, prog.value

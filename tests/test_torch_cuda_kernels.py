@@ -401,15 +401,21 @@ def test_card_int4_matmul_matches_plain(cuda, dtype, K, N2):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("widths", [(256, 256, 704, 512), (1024, 1024, 2816, 1536)],
+                         ids=["D256", "D1024"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_fused_block_matches_plain(cuda, dtype):
+def test_card_fused_block_matches_plain(cuda, dtype, widths):
     """fused_qkv (with and without a bias) and fused_post_attn against their
     plain versions within the stated limits (per element, and the mean
-    error in bf16) at tests/test_fused_block.py's widths, M in {8, 56}; rows
-    at M=8 bit-equal to the same rows inside M=56."""
+    error in bf16), M in {8, 56}; rows at M=8 bit-equal to the same rows
+    inside M=56; in bf16 the limit rejects fused_post_attn with the last K
+    split's partial left out of each split pass's sum. Widths (D = HqD, I,
+    O): tests/test_fused_block.py's (no product long enough to split), and
+    a wider set whose launch_plan splits every product's K (wo and gate/up
+    in 2, w_down in 5)."""
     from magicdec_tpu_torch.ops import fused_block as fb
 
-    D, HqD, I, O = 256, 256, 704, 512
+    D, HqD, I, O = widths
     rng = np.random.default_rng(9)
     x, ctx = _rand(rng, cuda, dtype, 56, D), _rand(rng, cuda, dtype, 56, HqD)
     n = 1.0 + _rand(rng, cuda, dtype, D, s=0.1)
@@ -427,9 +433,13 @@ def test_card_fused_block_matches_plain(cuda, dtype):
         for bias in (None, b):
             out = fb.fused_qkv(x[:M], n, wqkv, bias)
             hold(out, *fb.fused_qkv_plain_f32_and_limit(x[:M], n, wqkv, bias))
-        post = fb.fused_post_attn(x[:M], ctx[:M], wo, n, gu, wd)
-        hold(post, *fb.fused_post_attn_plain_f32_and_limit(x[:M], ctx[:M], wo,
-                                                           n, gu, wd))
+        ref, limit = fb.fused_post_attn_plain_f32_and_limit(x[:M], ctx[:M], wo,
+                                                            n, gu, wd)
+        hold(fb.fused_post_attn(x[:M], ctx[:M], wo, n, gu, wd), ref, limit)
+        if dtype == torch.bfloat16 and D > 256:
+            faulty = fb._post_attn_launch(x[:M], ctx[:M], wo, n, gu, wd,
+                                          fault=1)[0]
+            assert not bool(((faulty.float() - ref).abs() <= limit).all())
     assert torch.equal(fb.fused_qkv(x[:8], n, wqkv, b),
                        fb.fused_qkv(x, n, wqkv, b)[:8])
     assert torch.equal(fb.fused_post_attn(x[:8], ctx[:8], wo, n, gu, wd),
