@@ -952,9 +952,9 @@ def check_fused(torch, dev):
     plain versions at llama-3.2-1b's widths (bf16 and f32) and llama-3.1-8b's
     (bf16), M in {8, 56}: every element within fused_*_plain_f32_and_limit's
     limit and the mean error within MEAN_LIMIT of the mean |plain|; rows at
-    M=8 bit-equal to the same rows inside M=56; and in bf16 the limit
-    rejects fused_post_attn launched with its planted fault (the last K
-    split's partial left out of the wo and w_down sums)."""
+    M=8 bit-equal to the same rows inside M=56; and in bf16 the limits
+    reject fused_qkv and fused_post_attn launched with their planted fault
+    (the last K split's partial left out of each split product's sum)."""
     from magicdec_tpu_torch.ops import fused_block as fb
 
     g = torch.Generator(device=dev).manual_seed(81)
@@ -994,13 +994,18 @@ def check_fused(torch, dev):
                         fail(f"fused {what}: mean error {means[what]} of the "
                              f"mean |plain| exceeds {fb.MEAN_LIMIT}")
                 if dtype == torch.bfloat16:
-                    what = f"{model}_post_attn_M{M}_split_left_out"
-                    faulty = fb._post_attn_launch(x[:M], ctx[:M], wo, n2, gu,
-                                                  wd, fault=1)[0]
-                    faults[what] = not _hold(faulty, *post_ref)[2]
-                    if not faults[what]:
-                        fail(f"fused {what}: the limit does not reject the "
-                             f"output with the last split left out")
+                    for case, faulty, (ref, limit) in (
+                            ("qkv_bias", fb._qkv_launch(x[:M], n1, wqkv, b,
+                                                        fault=1)[0],
+                             cases["qkv_bias"][1]),
+                            ("post_attn", fb._post_attn_launch(
+                                x[:M], ctx[:M], wo, n2, gu, wd, fault=1)[0],
+                             post_ref)):
+                        what = f"{model}_{case}_M{M}_split_left_out"
+                        faults[what] = not _hold(faulty, ref, limit)[2]
+                        if not faults[what]:
+                            fail(f"fused {what}: the limit does not reject "
+                                 f"the output with the last split left out")
             key = f"{model}_{dn}"
             bits[key] = (torch.equal(fb.fused_qkv(x[:8], n1, wqkv, b),
                                      fb.fused_qkv(x, n1, wqkv, b)[:8])
@@ -1014,9 +1019,9 @@ def check_fused(torch, dev):
             del x, ctx, wqkv, wo, wd, gu, cases, post_ref
             torch.cuda.empty_cache()
     plans = {f"{model}_{name}": len(fb.launch_plan(K, N))
-             for model, (D, HqD, I, _) in FUSED_WIDTHS.items()
-             for name, K, N in (("wo", HqD, D), ("w_gate_up", D, 2 * I),
-                                ("w_down", I, D))}
+             for model, (D, HqD, I, O) in FUSED_WIDTHS.items()
+             for name, K, N in (("wqkv", D, O), ("wo", HqD, D),
+                                ("w_gate_up", D, 2 * I), ("w_down", I, D))}
     line(phase="fused_vs_plain", splits=plans, max_abs_err=errs,
          max_err_over_limit=ratios, mean_err_over_mean=means,
          mean_limit=fb.MEAN_LIMIT, rows_bitexact=bits, faults_rejected=faults)
@@ -3486,15 +3491,16 @@ def time_weight_kernels(torch, dev, errs, launches):
     """The fused pair at llama-3.2-1b's and llama-3.1-8b's widths, M = 8
     (AR and draft steps) and 56 (the verify), with FUSED_TIME_LAYERS layers
     of weights cycled: device ms (CUDA graph), eager ms, the plain version
-    and the bound; for fused_post_attn also each of its three passes alone
-    (device ms and bound: the pass's weight, operands and output) and the
-    split counts of `launch_plan`, the whole call at each plan aim of
-    PLAN_CTAS_SWEEP, and at M=8 the wo and w_down passes alone at each
-    split count of POST_SPLITS. Yardstick, which the port never calls:
-    the unfused chain of the bf16 path (rms_norm, cuBLAS products and the
-    elementwise ops: several calls). Then whether CUDA graph capture keeps
-    the programmatic dependent launches between fused_post_attn's kernels
-    (the programmatic edges of one captured call)."""
+    and the bound; each kernel of a call alone (device ms and bound: its
+    weight, operands and output): fused_qkv's sums of squares and product,
+    fused_post_attn's three passes, with the split counts of `launch_plan`;
+    each whole call at each plan aim of PLAN_CTAS_SWEEP; and at M=8 the
+    qkv product and the wo and w_down passes alone at each split count of
+    POST_SPLITS. Yardstick, which the port never calls: the unfused chain
+    of the bf16 path (rms_norm, cuBLAS products and the elementwise ops:
+    two calls for fused_qkv, several for fused_post_attn). Then whether
+    CUDA graph capture keeps the programmatic dependent launches between
+    the kernels of a call (the programmatic edges of one captured call)."""
     import torch.nn.functional as F
 
     from magicdec_tpu_torch.ops import fused_block as fb
@@ -3502,7 +3508,7 @@ def time_weight_kernels(torch, dev, errs, launches):
 
     saved = _counts()
     g = torch.Generator(device=dev).manual_seed(91)
-    fused, sweep, plans = {}, {}, {}
+    fused, sweep, plans, qkv_plans = {}, {}, {}, {}
     for model, (D, HqD, I, O) in FUSED_WIDTHS.items():
         L = FUSED_TIME_LAYERS[model]
         w = dict(n=[torch.ones(D, device=dev, dtype=torch.bfloat16)] * L,
@@ -3557,6 +3563,24 @@ def time_weight_kernels(torch, dev, errs, launches):
                 fused[f"{model}_{what}_M{M}"] = dict(
                     ms=t_k, eager_ms=t_e, plain_ms=t_p, unfused_chain_ms=t_c,
                     bound_ms=b_ms, bound_by=b_by)
+            # fused_qkv's two kernels alone, on scratch a whole call filled
+            qscratch = fb._qkv_launch(x, w["n"][0], w["wqkv"][0])
+            nb = fb.column_blocks(D)
+            qkv_plan = fb.launch_plan(D, O)
+            kernels = {}
+            for bit, (name, nbytes, flops) in enumerate((
+                    ("ssq", 2 * M * D + 4 * M * nb, 2 * M * D),
+                    ("product", 2 * (D * O + D + M * (D + O)) + 4 * M * nb,
+                     2 * M * D * O))):
+                t_kernel = _time_ms(torch, lambda l, bit=bit: fb._qkv_launch(
+                    x, w["n"][l], w["wqkv"][l], passes=1 << bit,
+                    scratch=qscratch), L, graph=True)
+                b_ms, b_by = _bound(nbytes, flops)
+                kernels[name] = dict(ms=t_kernel, bound_ms=b_ms, bound_by=b_by)
+            kernels["product"].update(
+                splits=len(qkv_plan), ctas=fb.column_blocks(O) * len(qkv_plan))
+            fused[f"{model}_fused_qkv_M{M}"]["kernels"] = kernels
+            qkv_plans[f"{model}_M{M}"] = _plan_sweep(torch, fb, qkv, L)
             # each pass alone, on scratch a whole call filled
             scratch = fb._post_attn_launch(*operands(0))
             passes = {}
@@ -3574,13 +3598,17 @@ def time_weight_kernels(torch, dev, errs, launches):
                                     * len(fb.launch_plan(K, N)))
             fused[f"{model}_fused_post_attn_M{M}"]["passes"] = passes
             plans[f"{model}_M{M}"] = _plan_sweep(torch, fb, post, L)
-            if M == 8:  # the wo and w_down passes alone at each split count
+            if M == 8:  # the split products alone at each split count
                 sweep[model] = {name: _split_sweep(
                     torch, fb, fb.STAGE_K, POST_SPLITS,
                     lambda l, p=p: fb._post_attn_launch(
                         *operands(l), passes=1 << p, scratch=scratch), L)
                     for p, name in ((0, "wo"), (2, "down"))}
-            del x, ctx, scratch
+                sweep[model]["qkv"] = _split_sweep(
+                    torch, fb, fb.STAGE_K, POST_SPLITS,
+                    lambda l: fb._qkv_launch(x, w["n"][l], w["wqkv"][l],
+                                             passes=2, scratch=qscratch), L)
+            del x, ctx, scratch, qscratch
         del w
         torch.cuda.empty_cache()
     _set_counts(saved)
@@ -3588,9 +3616,11 @@ def time_weight_kernels(torch, dev, errs, launches):
          fused_library="none: the unfused chain is several calls",
          pdl_in_capture=_pdl_in_capture(torch, dev, fb))
     line(phase="fused_split_sweep", ms_by_splits=sweep,
-         whole_call_ms_by_plan_ctas=plans, plan_ctas=fb.PLAN_CTAS,
-         plan={m: {k: v["splits"] for k, v in
-                   fused[f"{m}_fused_post_attn_M8"]["passes"].items()}
+         whole_call_ms_by_plan_ctas=plans,
+         qkv_whole_call_ms_by_plan_ctas=qkv_plans, plan_ctas=fb.PLAN_CTAS,
+         plan={m: {"qkv": fused[f"{m}_fused_qkv_M8"]["kernels"]["product"][
+             "splits"], **{k: v["splits"] for k, v in
+                           fused[f"{m}_fused_post_attn_M8"]["passes"].items()}}
                for m in FUSED_WIDTHS})
     rows = []
     for what in ("fused_qkv", "fused_post_attn"):
@@ -3623,29 +3653,36 @@ def _plan_sweep(torch, fb, post, L):
 
 
 def _pdl_in_capture(torch, dev, fb):
-    """The edges of a CUDA graph holding one captured bf16 fused_post_attn
-    call at llama-3.2-1b's widths, M=8: with programmatic dependent launch
-    kept by the capture, the two edges between its three kernels are of
-    the programmatic type. "not measured" where the card's torch cannot
-    hand out the captured graph (CUDAGraph(keep_graph=True))."""
-    D, HqD, I, _ = FUSED_WIDTHS["1b"]
+    """The edges of CUDA graphs each holding one captured bf16 call at
+    llama-3.2-1b's widths, M=8: with programmatic dependent launch kept by
+    the capture, the edges between a call's kernels are of the
+    programmatic type (fused_qkv: 1 of its 2 kernels, fused_post_attn: 2 of
+    its 3). "not measured" where the card's torch cannot hand out the
+    captured graph (CUDAGraph(keep_graph=True))."""
+    D, HqD, I, O = FUSED_WIDTHS["1b"]
     bf = dict(device=dev, dtype=torch.bfloat16)
     ops = (torch.randn((8, D), **bf), torch.randn((8, HqD), **bf),
            torch.randn((HqD, D), **bf) * 0.02, torch.ones(D, **bf),
            torch.randn((D, 2, I), **bf) * 0.02, torch.randn((I, D), **bf) * 0.02)
-    fb._post_attn_launch(*ops)
-    torch.cuda.synchronize()
-    try:
-        graph = torch.cuda.CUDAGraph(keep_graph=True)
-    except TypeError as e:
-        return f"not measured: {e}"
-    with torch.cuda.graph(graph):
-        fb._post_attn_launch(*ops)
-    edges, programmatic = fb.graph_edges(graph)
-    graph.replay()
-    torch.cuda.synchronize()
-    return dict(edges=edges, programmatic_edges=programmatic,
-                kept=programmatic == 2)
+    qkv_ops = (ops[0], ops[3], torch.randn((D, O), **bf) * 0.02)
+    res = {}
+    for name, call, want in (("fused_qkv", lambda: fb._qkv_launch(*qkv_ops), 1),
+                             ("fused_post_attn",
+                              lambda: fb._post_attn_launch(*ops), 2)):
+        call()
+        torch.cuda.synchronize()
+        try:
+            graph = torch.cuda.CUDAGraph(keep_graph=True)
+        except TypeError as e:
+            return f"not measured: {e}"
+        with torch.cuda.graph(graph):
+            call()
+        edges, programmatic = fb.graph_edges(graph)
+        graph.replay()
+        torch.cuda.synchronize()
+        res[name] = dict(edges=edges, programmatic_edges=programmatic,
+                         kept=programmatic == want)
+    return res
 
 
 def _profile(torch, fn, n):

@@ -55,6 +55,7 @@
 //    at the end; an empty split (l == 0) is skipped, an exact identity.
 //  * Rows are independent (see flash_common.cuh).
 #include "flash_common.cuh"
+#include "tma.cuh"
 
 namespace mdt {
 
@@ -375,14 +376,9 @@ int launch_f32(const void* q, const void* k, const void* v, Rows rows, void* out
                float* out_m, float* out_l, float* part_acc, float* part_ml, int layer,
                int B, int T_, int Hq, int Hkv, int S, int s_extent, cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes(MR * F32<D>::NGRP_V);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(decode_split_kernel<D, MR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static SmemLimit limit;
+  const cudaError_t e = limit.ensure((const void*)decode_split_kernel<D, MR>, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const int nsplit = (s_extent + SPLIT - 1) / SPLIT;
   const int64_t layer_off = (int64_t)layer * B * S * Hkv * D;
   const int* cm_layer = rows.colmask ? rows.colmask + (int64_t)layer * B * S : nullptr;
@@ -419,14 +415,9 @@ int launch_bf16(const void* q, const void* k, const void* v, Rows rows, void* ou
                 cudaStream_t stream) {
   if (T_ * (Hq / Hkv) > MAX_ROWS) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = decode_mma_smem<D>();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(decode_split_mma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static SmemLimit limit;
+  const cudaError_t e = limit.ensure((const void*)decode_split_mma_kernel<D>, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const int nsplit = (s_extent + SPLIT - 1) / SPLIT;
   const int64_t layer_off = (int64_t)layer * B * S * Hkv * D;
   const int* cm_layer = rows.colmask ? rows.colmask + (int64_t)layer * B * S : nullptr;

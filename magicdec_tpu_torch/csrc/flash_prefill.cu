@@ -24,6 +24,7 @@
 //  * float32: the CUDA-core tile step of flash_common.cuh (exact f32
 //    products, as the tests want), 64 rows a CTA, 2*D threads.
 #include "flash_common.cuh"
+#include "tma.cuh"
 
 namespace mdt {
 
@@ -218,14 +219,9 @@ int launch_prefill_f32(const void* q, const void* k, const void* v, const int* v
                        void* out, int layer, int B, int T_, int Hq, int Hkv, int S,
                        int s_extent, cudaStream_t stream) {
   const size_t smem = Smem<D>::bytes(QROWS);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(prefill_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static SmemLimit limit;
+  const cudaError_t e = limit.ensure((const void*)prefill_kernel<D>, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const int n_qt = (T_ * (Hq / Hkv) + QROWS - 1) / QROWS;
   const int64_t layer_off = (int64_t)layer * B * S * Hkv * D;
   prefill_kernel<D><<<dim3(n_qt, Hkv, B), F32<D>::NT, smem, stream>>>(
@@ -240,14 +236,9 @@ int launch_prefill_mma(const void* q, const void* k, const void* v, const int* v
                        void* out, int layer, int B, int T_, int Hq, int Hkv, int S,
                        int s_extent, int fault, cudaStream_t stream) {
   constexpr size_t smem = PrefillCfg<D>::smem();
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(prefill_mma_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static SmemLimit limit;
+  const cudaError_t e = limit.ensure((const void*)prefill_mma_kernel<D>, (int)smem);
+  if (e != cudaSuccess) return (int)e;
   const int n_qt = (T_ * (Hq / Hkv) + PQ - 1) / PQ;
   const int64_t layer_off = (int64_t)layer * B * S * Hkv * D;
   prefill_mma_kernel<D><<<dim3(n_qt, Hkv, B), PRE_NT, smem, stream>>>(

@@ -6,11 +6,11 @@
 //
 // Replaces magicdec_tpu/ops/pallas/fused_block.py fused_qkv (pallas_call at
 // :96) and fused_post_attn (pallas_call at :191), with their rounding points
-// (fused_block.py:62-75, 116-159): RMSNorm normalizes in f32, rounds to x's
+// (fused_block.py:62-93, 116-159): RMSNorm normalizes in f32, rounds to x's
 // dtype and multiplies by the norm weight in x's dtype; products sum in f32
-// and round to x's dtype; t = x + round(acc - x) with acc = x + ctx @ wo in
-// f32; a = round(silu(gate)) * round(up), a product in x's dtype;
-// out = t + round(a @ w_down).
+// and round to x's dtype; the bias is added in x's dtype; t = x + round(acc -
+// x) with acc = x + ctx @ wo in f32; a = round(silu(gate)) * round(up), a
+// product in x's dtype; out = t + round(a @ w_down).
 //
 // Bound on the H100: at decode (M = 8 or 56 rows) by the weights' bytes
 // (llama-3.2-1b bf16, per layer: fused_qkv 12.6 MB, 3.8 us at 3.35 TB/s;
@@ -19,55 +19,57 @@
 // CTAs run in parallel and in no order, so each pass over a weight is its
 // own kernel.
 //
-// bf16 fused_post_attn (post_kernel): three kernels of one weight-streaming
-// design, the wo product with the residual (t), the gate/up product with the
-// RMSNorm of t folded into its operand and SwiGLU in its epilogue (a), and the
-// w_down product with the residual (out). A CTA of 8 warps owns 64 rows and 128
-// output columns (gate/up: 64 gate columns and the matching 64 up columns, I
-// apart) and walks one split's range of 64-row K stages through a 4-stage ring
-// in shared memory: one thread loads a stage by TMA (the two 64-column weight
-// boxes and the activation box, each 128-byte swizzled) on the stage's
-// mbarrier, so 64 KB of weight are in flight a CTA. The product runs transposed
-// on wgmma m64n64k16 (f32 accumulation) with both operands read from the
-// swizzled boxes: D [columns][rows] = W^T (the weight box as the MN-major A
-// operand) . act^T (the activation box as the K-major B); each warpgroup owns
-// one 64-column box, all 64 rows (rows past M are the TMA's zeros). (An
-// mma.sync form with ldmatrix.trans, 8 warps of 16 columns that skipped row
-// tiles past M, ran the gate/up pass at M = 56 in 0.0499 ms against 0.0324 on
-// wgmma: PERF.md.) K is split by the wrapper's plan (ops/fused_block.py
-// `launch_plan`, from K and N alone) over a thread-block cluster: each CTA
-// leaves its f32 partial tile in shared memory, and CTA r of the cluster sums
-// rows r, r + S, ... of the S partials in split order through distributed
-// shared memory, then applies the epilogue and rounds once. The RMSNorm rides
-// on the two kernels around it: the wo epilogue leaves each row's sum of
-// squares of t by 128-column block (ssq, [M, D / 128] f32: a lane's 4 columns
-// in order, then a butterfly over the warp), and each gate/up CTA sums a row's
-// blocks in order, takes the inverse RMS, and turns each stage's t box into h =
-// round(round(t * inv) * w) in place before its product. The order depends on D
-// alone, so every CTA forms the same h at any M, and no RMSNorm kernel and no h
-// buffer remain. (Each gate/up CTA reading its rows of t whole took 24 us more
-// than the pass's bytes at M = 56: PERF.md.) The three launches use
-// programmatic dependent launch: the wo kernel waits for the kernel before it
-// (griddepcontrol.wait) before it reads or writes anything, then lets the next
-// kernel start; the gate/up and down kernels let the next kernel start at once,
-// fetch their first weight stages (which no kernel of the call writes), then
-// wait before they read t or a. Two CTAs fit an SM (~97 KB of shared memory
-// each, <= 128 registers a thread), so a dependent CTA fills its ring beside a
-// running one. Nothing of the launch is chosen from M and a row's products
-// never mix with another row's, so a row's bits do not depend on how many rows
-// share the call.
+// bf16 (post_kernel): four passes of one weight-streaming design: the qkv
+// product with the RMSNorm of x folded into its operand and the bias in its
+// epilogue; the wo product with the residual (t); the gate/up product with
+// the RMSNorm of t folded into its operand and SwiGLU in its epilogue (a);
+// the w_down product with the residual (out). A CTA of 8 warps owns 64 rows
+// and 128 output columns (gate/up: 64 gate columns and the matching 64 up
+// columns, I apart) and walks one split's range of 64-row K stages through a
+// 4-stage ring in shared memory: one thread loads a stage by TMA (the two
+// 64-column weight boxes and the activation box, each 128-byte swizzled) on
+// the stage's mbarrier, so 64 KB of weight are in flight a CTA. The product
+// runs transposed on wgmma m64n64k16 (f32 accumulation) with both operands
+// read from the swizzled boxes: D [columns][rows] = W^T (the weight box as
+// the MN-major A operand) . act^T (the activation box as the K-major B); each
+// warpgroup owns one 64-column box, all 64 rows (rows past M are the TMA's
+// zeros). (An mma.sync form with ldmatrix.trans, 8 warps of 16 columns that
+// skipped row tiles past M, ran the gate/up pass at M = 56 in 0.0499 ms
+// against 0.0324 on wgmma: PERF.md.) K is split by the wrapper's plan
+// (ops/fused_block.py `launch_plan`, from K and N alone) over a thread-block
+// cluster: each CTA leaves its f32 partial tile in shared memory, and CTA r
+// of the cluster sums rows r, r + S, ... of the S partials in split order
+// through distributed shared memory, then applies the epilogue and rounds
+// once. The RMSNorms ride on sums of squares by 128-column block (ssq, [M, D
+// / 128] f32: a lane's 4 columns in order, then a butterfly over the warp):
+// for fused_qkv a small kernel (ssq_kernel, a warp a row and block) takes
+// x's before the product, for fused_post_attn the wo epilogue leaves t's.
+// Each normed CTA sums a row's blocks in order, takes the inverse RMS, and
+// turns each stage's activation box into h = round(round(x * inv) * w) in
+// place before its product. The order depends on D alone, so every CTA forms
+// the same h at any M, and no h buffer remains. (Each gate/up CTA reading
+// its rows of t whole took 24 us more than the pass's bytes at M = 56:
+// PERF.md.) The launches use programmatic dependent launch: the ssq and wo
+// kernels (whose kernel before is another call's) wait (griddepcontrol.wait)
+// before they read or write anything; the ssq kernel lets the qkv product
+// start at once, the wo kernel lets gate/up start after its wait; the qkv,
+// gate/up and down kernels let the next kernel start at once, fetch their
+// first weight stages (which no kernel of the call writes), then wait before
+// they read their activation or sums of squares. Two CTAs fit an SM (~97 KB
+// of shared memory each, <= 128 registers a thread), so a dependent CTA
+// fills its ring beside a running one. Nothing of the launch is chosen from
+// M and a row's products never mix with another row's, so a row's bits do
+// not depend on how many rows share the call.
 //
-// fused_qkv (both dtypes) and the f32 fused_post_attn (the exact checks):
-// the first port's kernels. One GEMM kernel, a CTA of 4 warps per 64 rows
-// and two 16-column blocks of the weight, K walked in order through a
-// cp.async ring of 64-row stages; bf16 on mma.sync with f32 accumulation,
-// f32 on CUDA cores (a thread one column of 16 rows, sequential FMAs); the
-// RMSNorm its own kernel (one CTA a row, a fixed order). fused_qkv issues
-// two kernels (the RMSNorm, the product with the bias in its epilogue), the
-// f32 fused_post_attn four (wo, the RMSNorm of t, gate/up, w_down).
+// f32 (the exact checks): the first port's kernels. One GEMM kernel, a CTA of
+// 4 warps per 64 rows and two 16-column blocks of the weight, K walked in
+// order through a cp.async ring of 64-row stages on CUDA cores (a thread one
+// column of 16 rows, sequential FMAs); the RMSNorm its own kernel (one CTA a
+// row, a fixed order). fused_qkv issues two kernels (the RMSNorm, the product
+// with the bias in its epilogue), fused_post_attn four (wo, the RMSNorm of t,
+// gate/up, w_down).
 #include <cooperative_groups.h>
 
-#include <type_traits>
 #include <vector>
 
 #include "mma.cuh"
@@ -75,159 +77,119 @@
 
 namespace mdt {
 
-constexpr int BM = 64;    // rows per CTA
-constexpr int HALF = 16;  // columns per column block (two per CTA)
-constexpr int BK = 64;    // K rows per stage
-constexpr int NTH = 128;  // threads per GEMM CTA
-constexpr int NORM_THREADS = 256;
+constexpr int BK = 64;  // K rows per stage (both designs)
 
 enum Epilogue { QKV = 0, WO = 1, GATE_UP = 2, DOWN = 3 };
 
-template <typename T>
-struct Gemm {
-  static constexpr bool MMA = std::is_same<T, __nv_bfloat16>::value;
-  static constexpr int STAGES = MMA ? 4 : 2;
-  static constexpr int VEC = 16 / sizeof(T);     // elements per 16 bytes
-  static constexpr int AP = BK + VEC;            // A row pitch (elements)
-  static constexpr int WP = 2 * HALF + VEC;      // W row pitch (elements)
-  static constexpr int A_BYTES = BM * AP * sizeof(T);
-  static constexpr int W_BYTES = BK * WP * sizeof(T);
-  static constexpr int STAGE = A_BYTES + W_BYTES;  // a multiple of 16
-  static constexpr int CP = 2 * HALF + 1;        // accumulator tile pitch (floats)
-  static constexpr int BYTES = STAGES * STAGE + BM * CP * 4;
-};
+// ---------------------------------------------------------------------------
+// f32: the exact checks' kernels
+// ---------------------------------------------------------------------------
 
-template <typename T>
+namespace f32 {
+constexpr int BM = 64;                       // rows per CTA
+constexpr int HALF = 16;                     // columns per column block (two per CTA)
+constexpr int NTH = 128;                     // threads per GEMM CTA
+constexpr int NORM_THREADS = 256;
+constexpr int STAGES = 2;
+constexpr int VEC = 4;                       // floats per 16 bytes
+constexpr int AP = BK + VEC;                 // A row pitch (floats)
+constexpr int WP = 2 * HALF + VEC;           // W row pitch (floats)
+constexpr int A_BYTES = BM * AP * 4;
+constexpr int W_BYTES = BK * WP * 4;
+constexpr int STAGE = A_BYTES + W_BYTES;     // a multiple of 16
+constexpr int CP = 2 * HALF + 1;             // accumulator tile pitch (floats)
+constexpr int BYTES = STAGES * STAGE + BM * CP * 4;
+}  // namespace f32
+
 struct GemmArgs {
-  const T* a;    // [M, K], row stride lda
-  const T* w;    // [K, ldw]
-  const T* aux;  // QKV: bias [N] or null; WO: x [M, N]; DOWN: t [M, N]
-  T* out;        // [M, ldo]
+  const float* a;    // [M, K], row stride lda
+  const float* w;    // [K, ldw]
+  const float* aux;  // QKV: bias [N] or null; WO: x [M, N]; DOWN: t [M, N]
+  float* out;        // [M, ldo]
   int M, K, lda, ldw, ldo;
-  int cstep;     // columns between the c0 of neighbouring CTAs
-  int pair;      // c1 - c0
-  int mode;      // Epilogue
+  int cstep;         // columns between the c0 of neighbouring CTAs
+  int pair;          // c1 - c0
+  int mode;          // Epilogue
 };
 
-template <typename T>
-__device__ __forceinline__ void load_stage(char* st, const GemmArgs<T>& p, int m0, int c0,
-                                           int c1, int kc, int tid) {
-  using C = Gemm<T>;
-  T* sa = reinterpret_cast<T*>(st);
-  T* sw = reinterpret_cast<T*>(st + C::A_BYTES);
-  constexpr int CPR = BK / C::VEC;    // 16-byte chunks per A row
-  constexpr int CPH = HALF / C::VEC;  // 16-byte chunks per column block row
+__device__ __forceinline__ void load_stage(char* st, const GemmArgs& p, int m0, int c0, int c1,
+                                           int kc, int tid) {
+  using namespace f32;
+  float* sa = reinterpret_cast<float*>(st);
+  float* sw = reinterpret_cast<float*>(st + A_BYTES);
+  constexpr int CPR = BK / VEC;    // 16-byte chunks per A row
+  constexpr int CPH = HALF / VEC;  // 16-byte chunks per column block row
   const int k0 = kc * BK;
   for (int i = tid; i < BM * CPR; i += NTH) {
     const int r = i / CPR, cc = i % CPR;
     const bool ok = m0 + r < p.M;
-    const T* src = ok ? p.a + (int64_t)(m0 + r) * p.lda + k0 + cc * C::VEC : p.a;
-    cp_async16(sa + r * C::AP + cc * C::VEC, src, ok);
+    const float* src = ok ? p.a + (int64_t)(m0 + r) * p.lda + k0 + cc * VEC : p.a;
+    cp_async16(sa + r * AP + cc * VEC, src, ok);
   }
   for (int i = tid; i < BK * 2 * CPH; i += NTH) {
     const int k = i / (2 * CPH), blk = (i / CPH) % 2, cc = i % CPH;
     const int cb = blk ? c1 : c0;
     const bool ok = cb < p.ldw;
-    const T* src = ok ? p.w + (int64_t)(k0 + k) * p.ldw + cb + cc * C::VEC : p.w;
-    cp_async16(sw + k * C::WP + blk * HALF + cc * C::VEC, src, ok);
+    const float* src = ok ? p.w + (int64_t)(k0 + k) * p.ldw + cb + cc * VEC : p.w;
+    cp_async16(sw + k * WP + blk * HALF + cc * VEC, src, ok);
   }
 }
 
-// acc += A tile @ W tile on the tensor cores; acc[4 * mt + e] is the C
-// fragment element e of m-tile mt of this warp's 8 columns
-__device__ __forceinline__ void stage_mma(const char* st, float (&acc)[16], int tid) {
-  using C = Gemm<__nv_bfloat16>;
-  const __nv_bfloat16* sa = reinterpret_cast<const __nv_bfloat16*>(st);
-  const unsigned short* sw = reinterpret_cast<const unsigned short*>(st + C::A_BYTES);
-  const int warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
-  const int bcol = warp * 8 + g;  // this lane's B column within the 32 of the tile
-#pragma unroll
-  for (int ks = 0; ks < BK / 16; ++ks) {
-    const int k = ks * 16 + 2 * c;
-    const uint32_t b0 = (uint32_t)sw[k * C::WP + bcol] |
-                        ((uint32_t)sw[(k + 1) * C::WP + bcol] << 16);
-    const uint32_t b1 = (uint32_t)sw[(k + 8) * C::WP + bcol] |
-                        ((uint32_t)sw[(k + 9) * C::WP + bcol] << 16);
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
-      const __nv_bfloat16* base = sa + (mt * 16 + g) * C::AP + ks * 16 + 2 * c;
-      const uint32_t a[4] = {ld32(base), ld32(base + 8 * C::AP), ld32(base + 8),
-                             ld32(base + 8 * C::AP + 8)};
-      float* d = acc + 4 * mt;
-      mma_bf16(*reinterpret_cast<float(*)[4]>(d), a, b0, b1);
-    }
-  }
-}
-
-// acc[r] += sum_k A[16 * (t / 32) + r][k] W[k][t % 32], CUDA cores (f32)
+// acc[r] += sum_k A[16 * (t / 32) + r][k] W[k][t % 32], CUDA cores
 __device__ __forceinline__ void stage_f32(const char* st, float (&acc)[16], int tid) {
-  using C = Gemm<float>;
+  using namespace f32;
   const float* sa = reinterpret_cast<const float*>(st);
-  const float* sw = reinterpret_cast<const float*>(st + C::A_BYTES);
+  const float* sw = reinterpret_cast<const float*>(st + A_BYTES);
   const int j = tid % 32, r0 = (tid / 32) * 16;
   for (int k = 0; k < BK; ++k) {
-    const float w = sw[k * C::WP + j];
+    const float w = sw[k * WP + j];
 #pragma unroll
-    for (int r = 0; r < 16; ++r) acc[r] = fmaf(sa[(r0 + r) * C::AP + k], w, acc[r]);
+    for (int r = 0; r < 16; ++r) acc[r] = fmaf(sa[(r0 + r) * AP + k], w, acc[r]);
   }
 }
 
-// grid (column blocks, ceil(M / 64)), NTH threads, Gemm<T>::BYTES of dynamic
-// shared memory
-template <typename T>
-__global__ void __launch_bounds__(NTH) gemm_kernel(const GemmArgs<T> p) {
-  using C = Gemm<T>;
+// grid (column blocks, ceil(M / 64)), f32::NTH threads, f32::BYTES of
+// dynamic shared memory
+__global__ void __launch_bounds__(f32::NTH) gemm_kernel(const GemmArgs p) {
+  using namespace f32;
   extern __shared__ __align__(16) char smem[];
   const int tid = threadIdx.x, m0 = blockIdx.y * BM;
   const int c0 = blockIdx.x * p.cstep, c1 = c0 + p.pair;
   const int NK = p.K / BK;
 #pragma unroll
-  for (int s = 0; s < C::STAGES - 1; ++s) {
-    if (s < NK) load_stage<T>(smem + s * C::STAGE, p, m0, c0, c1, s, tid);
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < NK) load_stage(smem + s * STAGE, p, m0, c0, c1, s, tid);
     cp_async_commit();
   }
   float acc[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) acc[i] = 0.f;
   for (int kc = 0; kc < NK; ++kc) {
-    cp_async_wait<C::STAGES - 2>();  // stage kc has landed
-    __syncthreads();                 // ... for every thread; kc - 1 is consumed
-    const int nx = kc + C::STAGES - 1;
-    if (nx < NK) load_stage<T>(smem + (nx % C::STAGES) * C::STAGE, p, m0, c0, c1, nx, tid);
+    cp_async_wait<STAGES - 2>();  // stage kc has landed
+    __syncthreads();              // ... for every thread; kc - 1 is consumed
+    const int nx = kc + STAGES - 1;
+    if (nx < NK) load_stage(smem + (nx % STAGES) * STAGE, p, m0, c0, c1, nx, tid);
     cp_async_commit();
-    const char* st = smem + (kc % C::STAGES) * C::STAGE;
-    if constexpr (C::MMA)
-      stage_mma(st, acc, tid);
-    else
-      stage_f32(st, acc, tid);
+    stage_f32(smem + (kc % STAGES) * STAGE, acc, tid);
   }
   cp_async_wait<0>();
 
   // accumulators -> shared tile [64][32] (column j < 16: block c0, else c1)
-  float* cs = reinterpret_cast<float*>(smem + C::STAGES * C::STAGE);
-  if constexpr (C::MMA) {
-    const int warp = tid / 32, lane = tid % 32, g = lane / 4, c = lane % 4;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-        cs[(mt * 16 + g + 8 * (e >> 1)) * C::CP + warp * 8 + 2 * c + (e & 1)] =
-            acc[4 * mt + e];
-  } else {
+  float* cs = reinterpret_cast<float*>(smem + STAGES * STAGE);
+  {
     const int j = tid % 32, r0 = (tid / 32) * 16;
 #pragma unroll
-    for (int r = 0; r < 16; ++r) cs[(r0 + r) * C::CP + j] = acc[r];
+    for (int r = 0; r < 16; ++r) cs[(r0 + r) * CP + j] = acc[r];
   }
   __syncthreads();
 
-  if (p.mode == GATE_UP) {  // out [M, I] = round(silu(gate)) * round(up)
+  if (p.mode == GATE_UP) {  // out [M, I] = silu(gate) * up
     for (int i = tid; i < BM * HALF; i += NTH) {
       const int r = i / HALF, j = i % HALF, row = m0 + r;
       if (row >= p.M) continue;
-      const float gate = cs[r * C::CP + j], up = cs[r * C::CP + HALF + j];
+      const float gate = cs[r * CP + j], up = cs[r * CP + HALF + j];
       const float silu = (1.f / (1.f + expf(-gate))) * gate;
-      p.out[(int64_t)row * p.ldo + c0 + j] =
-          from_f32<T>(round_to<T>(silu) * round_to<T>(up));
+      p.out[(int64_t)row * p.ldo + c0 + j] = silu * up;
     }
     return;
   }
@@ -235,34 +197,34 @@ __global__ void __launch_bounds__(NTH) gemm_kernel(const GemmArgs<T> p) {
     const int r = i / (2 * HALF), j = i % (2 * HALF), row = m0 + r;
     const int col = j < HALF ? c0 + j : c1 + j - HALF;
     if (row >= p.M || col >= p.ldw) continue;
-    const float acc_v = cs[r * C::CP + j];
+    const float acc_v = cs[r * CP + j];
     float v;
     if (p.mode == QKV) {
-      v = round_to<T>(acc_v);
-      if (p.aux) v += to_f32(p.aux[col]);
-    } else if (p.mode == WO) {  // acc = x + ctx @ wo; t = x + round(acc - x)
-      const float x = to_f32(p.aux[(int64_t)row * p.ldo + col]);
-      v = x + round_to<T>((x + acc_v) - x);
-    } else {                    // DOWN: out = t + round(a @ w_down)
-      v = to_f32(p.aux[(int64_t)row * p.ldo + col]) + round_to<T>(acc_v);
+      v = acc_v;
+      if (p.aux) v += p.aux[col];
+    } else if (p.mode == WO) {  // acc = x + ctx @ wo; t = x + (acc - x)
+      const float x = p.aux[(int64_t)row * p.ldo + col];
+      v = x + ((x + acc_v) - x);
+    } else {                    // DOWN: out = t + a @ w_down
+      v = p.aux[(int64_t)row * p.ldo + col] + acc_v;
     }
-    p.out[(int64_t)row * p.ldo + col] = from_f32<T>(v);
+    p.out[(int64_t)row * p.ldo + col] = v;
   }
 }
 
-// h[r] = round(round(x[r] * rsqrt(mean(x[r]^2) + eps)) * w), one CTA per row;
-// the sum of squares runs in a fixed order (strided per thread, then a fixed
-// shuffle tree and the warps' partial sums in order)
-template <typename T>
-__global__ void __launch_bounds__(NORM_THREADS)
-rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ h, int D,
-               float eps) {
-  __shared__ float part[NORM_THREADS / 32];
-  const T* xr = x + (int64_t)blockIdx.x * D;
-  T* hr = h + (int64_t)blockIdx.x * D;
+// h[r] = x[r] * rsqrt(mean(x[r]^2) + eps) * w, one CTA per row; the sum of
+// squares runs in a fixed order (strided per thread, then a fixed shuffle
+// tree and the warps' partial sums in order)
+__global__ void __launch_bounds__(f32::NORM_THREADS)
+rmsnorm_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ h,
+               int D, float eps) {
+  constexpr int NT = f32::NORM_THREADS;
+  __shared__ float part[NT / 32];
+  const float* xr = x + (int64_t)blockIdx.x * D;
+  float* hr = h + (int64_t)blockIdx.x * D;
   float ss = 0.f;
-  for (int i = threadIdx.x; i < D; i += NORM_THREADS) {
-    const float v = to_f32(xr[i]);
+  for (int i = threadIdx.x; i < D; i += NT) {
+    const float v = xr[i];
     ss += v * v;
   }
 #pragma unroll
@@ -271,65 +233,64 @@ rmsnorm_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__
   __syncthreads();
   float total = 0.f;
 #pragma unroll
-  for (int i = 0; i < NORM_THREADS / 32; ++i) total += part[i];
+  for (int i = 0; i < NT / 32; ++i) total += part[i];
   const float inv = __frsqrt_rn(total / (float)D + eps);
-  for (int i = threadIdx.x; i < D; i += NORM_THREADS)
-    hr[i] = from_f32<T>(round_to<T>(to_f32(xr[i]) * inv) * to_f32(w[i]));
+  for (int i = threadIdx.x; i < D; i += NT) hr[i] = xr[i] * inv * w[i];
 }
 
-template <typename T>
-int gemm(const GemmArgs<T>& p, int n_blocks, cudaStream_t stream) {
+int gemm(const GemmArgs& p, int n_blocks, cudaStream_t stream) {
   static SmemLimit limit;
-  const cudaError_t e = limit.ensure((const void*)gemm_kernel<T>, Gemm<T>::BYTES);
+  const cudaError_t e = limit.ensure((const void*)gemm_kernel, f32::BYTES);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid(n_blocks, (p.M + BM - 1) / BM);
-  gemm_kernel<T><<<grid, NTH, Gemm<T>::BYTES, stream>>>(p);
+  const dim3 grid(n_blocks, (p.M + f32::BM - 1) / f32::BM);
+  gemm_kernel<<<grid, f32::NTH, f32::BYTES, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
 int rmsnorm(const void* x, const void* w, void* h, int M, int D, float eps,
             cudaStream_t stream) {
-  rmsnorm_kernel<T><<<M, NORM_THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(h), D, eps);
+  rmsnorm_kernel<<<M, f32::NORM_THREADS, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(h), D,
+      eps);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int fused_qkv(const void* x, const void* norm, const void* w, const void* bias, void* h,
-              void* out, int M, int D, int O, float eps, cudaStream_t stream) {
-  int rc = rmsnorm<T>(x, norm, h, M, D, eps, stream);
+int fused_qkv_f32(const void* x, const void* norm, const void* w, const void* bias, void* h,
+                  void* out, int M, int D, int O, float eps, cudaStream_t stream) {
+  using namespace f32;
+  const int rc = rmsnorm(x, norm, h, M, D, eps, stream);
   if (rc) return rc;
-  const GemmArgs<T> p{static_cast<const T*>(h), static_cast<const T*>(w),
-                      static_cast<const T*>(bias), static_cast<T*>(out),
-                      M, D, D, O, O, 2 * HALF, HALF, QKV};
-  return gemm<T>(p, (O + 2 * HALF - 1) / (2 * HALF), stream);
+  const GemmArgs p{static_cast<const float*>(h), static_cast<const float*>(w),
+                   static_cast<const float*>(bias), static_cast<float*>(out),
+                   M, D, D, O, O, 2 * HALF, HALF, QKV};
+  return gemm(p, (O + 2 * HALF - 1) / (2 * HALF), stream);
 }
 
 int fused_post_attn_f32(const void* x, const void* ctx, const void* wo, const void* norm,
                         const void* w_gate_up, const void* w_down, void* t, void* h, void* a,
                         void* out, int M, int D, int HqD, int I, float eps,
                         cudaStream_t stream) {
+  using namespace f32;
   using T = float;
   int rc;
-  const GemmArgs<T> p_wo{static_cast<const T*>(ctx), static_cast<const T*>(wo),
-                         static_cast<const T*>(x), static_cast<T*>(t),
-                         M, HqD, HqD, D, D, 2 * HALF, HALF, WO};
-  if ((rc = gemm<T>(p_wo, (D + 2 * HALF - 1) / (2 * HALF), stream))) return rc;
-  if ((rc = rmsnorm<T>(t, norm, h, M, D, eps, stream))) return rc;
+  const GemmArgs p_wo{static_cast<const T*>(ctx), static_cast<const T*>(wo),
+                      static_cast<const T*>(x), static_cast<T*>(t),
+                      M, HqD, HqD, D, D, 2 * HALF, HALF, WO};
+  if ((rc = gemm(p_wo, (D + 2 * HALF - 1) / (2 * HALF), stream))) return rc;
+  if ((rc = rmsnorm(t, norm, h, M, D, eps, stream))) return rc;
   // w_gate_up [D, 2, I] read as [D, 2I]: gate column i, up column I + i
-  const GemmArgs<T> p_gu{static_cast<const T*>(h), static_cast<const T*>(w_gate_up),
-                         nullptr, static_cast<T*>(a),
-                         M, D, D, 2 * I, I, HALF, I, GATE_UP};
-  if ((rc = gemm<T>(p_gu, I / HALF, stream))) return rc;
-  const GemmArgs<T> p_down{static_cast<const T*>(a), static_cast<const T*>(w_down),
-                           static_cast<const T*>(t), static_cast<T*>(out),
-                           M, I, I, D, D, 2 * HALF, HALF, DOWN};
-  return gemm<T>(p_down, (D + 2 * HALF - 1) / (2 * HALF), stream);
+  const GemmArgs p_gu{static_cast<const T*>(h), static_cast<const T*>(w_gate_up),
+                      nullptr, static_cast<T*>(a),
+                      M, D, D, 2 * I, I, HALF, I, GATE_UP};
+  if ((rc = gemm(p_gu, I / HALF, stream))) return rc;
+  const GemmArgs p_down{static_cast<const T*>(a), static_cast<const T*>(w_down),
+                        static_cast<const T*>(t), static_cast<T*>(out),
+                        M, I, I, D, D, 2 * HALF, HALF, DOWN};
+  return gemm(p_down, (D + 2 * HALF - 1) / (2 * HALF), stream);
 }
 
 // ---------------------------------------------------------------------------
-// bf16 fused_post_attn: TMA weight streaming, K split over a cluster
+// bf16: TMA weight streaming, K split over a cluster
 // ---------------------------------------------------------------------------
 
 namespace pa {
@@ -344,10 +305,14 @@ constexpr int W_BOX = BK * 128;           // bytes of a weight box [64 k][64 col
 constexpr int A_BOX = BM * 128;           // bytes of the activation box [64 rows][64 k]
 constexpr int STAGE = 2 * W_BOX + A_BOX;  // 24 KB: a multiple of the swizzle's 1024
 constexpr int RING = STAGES * STAGE;
-constexpr int BYTES = RING + 1024;        // + the base's alignment (gate/up: + the norm)
+constexpr int BYTES = RING + 1024;        // + the base's alignment (normed: + the norm)
 constexpr int PP = 2 * BOX + 4;           // the partial tile's row pitch, f32
 static_assert(BM * PP * 4 <= RING, "the partial tile reuses the ring");
+constexpr int SSQ_THREADS = 256;          // ssq_kernel: a warp a (row, column block)
 }  // namespace pa
+
+// the passes whose activation box is turned into h = rmsnorm(act) in place
+__host__ __device__ constexpr bool normed(int mode) { return mode == QKV || mode == GATE_UP; }
 
 // stage boundaries of the splits: split s walks stages [s[s], s[s + 1])
 struct PostSplits {
@@ -362,11 +327,12 @@ struct PostMaps {
 };
 
 struct PostArgs {
-  const __nv_bfloat16* aux;   // WO: x [M, N]; DOWN: t [M, N]
-  const __nv_bfloat16* norm;  // GATE_UP: the norm weight [K]
-  __nv_bfloat16* out;         // [M, N]: t, a or out
-  float* ssq;                 // [M, nb]: t's sums of squares by column block (WO
-                              // writes them, GATE_UP reads them)
+  const __nv_bfloat16* aux;   // QKV: the bias [N] or null; WO: x [M, N]; DOWN: t [M, N]
+  const __nv_bfloat16* norm;  // QKV, GATE_UP: the norm weight [K]
+  __nv_bfloat16* out;         // [M, N]: qkv, t, a or out
+  float* ssq;                 // [M, nb]: the normed activation's sums of squares by
+                              // column block (QKV reads x's, which ssq_kernel
+                              // writes; WO writes t's, GATE_UP reads them)
   int nb;
   int M, N, K;
   int col_step;  // columns between the first boxes of neighbouring column blocks
@@ -382,12 +348,13 @@ __device__ __forceinline__ void grid_dep_launch() {
   asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
-// a stage's weight boxes (columns c0.. and c1.., K rows k0..) and its
-// activation box (rows m0.., k0..), completing on the stage's barrier
+// a stage's weight boxes (columns c0.. and, with two, c1..; K rows k0..)
+// and its activation box (rows m0.., k0..), completing on the stage's
+// barrier
 __device__ __forceinline__ void post_load_w(uint32_t st, uint32_t bar, const PostMaps& maps,
-                                            int c0, int c1, int k0) {
+                                            int c0, int c1, bool two, int k0) {
   tma_2d(st, &maps.w, bar, c0, k0);
-  tma_2d(st + pa::W_BOX, &maps.w, bar, c1, k0);
+  if (two) tma_2d(st + pa::W_BOX, &maps.w, bar, c1, k0);
 }
 __device__ __forceinline__ void post_load_act(uint32_t st, uint32_t bar, const PostMaps& maps,
                                               int m0, int k0) {
@@ -480,7 +447,7 @@ __device__ __forceinline__ float swiglu(float gate, float up) {
 }
 
 // grid (S, column blocks, ceil(M / 64)), clusters of (S, 1, 1), pa::NTH
-// threads, pa::BYTES (+ 2 K for GATE_UP) of dynamic shared memory
+// threads, pa::BYTES (+ 2 K for the normed passes) of dynamic shared memory
 template <int MODE>
 __global__ void __launch_bounds__(pa::NTH, 2)
 post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostSplits splits) {
@@ -502,8 +469,11 @@ post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostS
   for (int s = 0; s < pa::MAX_SPLITS; ++s)
     if (s == split) s0 = splits.s[s], s1 = splits.s[s + 1];
   const int NS = s1 - s0, first = min(pa::STAGES, NS);
+  // the second weight box lies inside the weight (gate/up: always)
+  const bool two = MODE == GATE_UP || c1 < p.N;
+  const uint32_t tx = two ? pa::STAGE : pa::STAGE - pa::W_BOX;
 
-  if (MODE == WO) {  // the kernel before is not one of these three
+  if (MODE == WO) {  // the kernel before is another call's
     grid_dep_wait();
     grid_dep_launch();
   } else {
@@ -514,18 +484,19 @@ post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostS
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int s = 0; s < first; ++s) {
       const uint32_t bar = smem_u32(&full[s]);
-      mbar_expect_tx(bar, pa::STAGE);
-      post_load_w(ring + s * pa::STAGE, bar, maps, c0, c1, (s0 + s) * pa::BK);
+      mbar_expect_tx(bar, tx);
+      post_load_w(ring + s * pa::STAGE, bar, maps, c0, c1, two, (s0 + s) * pa::BK);
     }
   }
-  if (MODE == GATE_UP)
+  if (normed(MODE))
     for (int i = tid; i < p.K / 8; i += pa::NTH)
       reinterpret_cast<uint4*>(norm_s)[i] = reinterpret_cast<const uint4*>(p.norm)[i];
-  if (MODE != WO) grid_dep_wait();  // t (gate/up) or a and t (down) are written
+  // x's sums of squares (qkv), t (gate/up), or a and t (down) are written
+  if (MODE != WO) grid_dep_wait();
   if (tid == 0)
     for (int s = 0; s < first; ++s)
       post_load_act(ring + s * pa::STAGE, smem_u32(&full[s]), maps, m0, (s0 + s) * pa::BK);
-  if (MODE == GATE_UP && tid < rows) {  // the column blocks' sums in order
+  if (normed(MODE) && tid < rows) {  // the column blocks' sums in order
     float ss = 0.f;
     for (int b = 0; b < p.nb; ++b) ss += p.ssq[(int64_t)(m0 + tid) * p.nb + b];
     inv[tid] = __frsqrt_rn(ss / (float)p.K + p.eps);
@@ -539,7 +510,7 @@ post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostS
     const int st = i % pa::STAGES;
     char* sp = smem + st * pa::STAGE;
     mbar_wait(smem_u32(&full[st]), (i / pa::STAGES) & 1);  // stage i has landed
-    if (MODE == GATE_UP) {
+    if (normed(MODE)) {
       to_h(sp + 2 * pa::W_BOX, norm_s + (s0 + i) * pa::BK, inv, rows, tid);
       // the generic-proxy writes are ordered before wgmma's reads and the
       // stage's next TMA load (both the async proxy)
@@ -551,8 +522,8 @@ post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostS
     const int nx = i + pa::STAGES;
     if (tid == 0 && nx < NS) {
       const uint32_t bar = smem_u32(&full[st]);
-      mbar_expect_tx(bar, pa::STAGE);
-      post_load_w(ring + st * pa::STAGE, bar, maps, c0, c1, (s0 + nx) * pa::BK);
+      mbar_expect_tx(bar, tx);
+      post_load_w(ring + st * pa::STAGE, bar, maps, c0, c1, two, (s0 + nx) * pa::BK);
       post_load_act(ring + st * pa::STAGE, bar, maps, m0, (s0 + nx) * pa::BK);
     }
   }
@@ -590,6 +561,21 @@ post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostS
       continue;
     }
     const int gc = col < pa::BOX ? c0 + col : c1 + col - pa::BOX;
+    if (MODE == QKV) {  // qkv = round(sum) (+ bias, a sum in bf16)
+      if (gc >= p.N) continue;
+      const float sv[4] = {v.x, v.y, v.z, v.w};
+      float r[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) r[e] = round_to<__nv_bfloat16>(sv[e]);
+      if (p.aux) {
+        const uint2 br = *reinterpret_cast<const uint2*>(p.aux + gc);
+        r[0] += __uint_as_float(br.x << 16), r[1] += __uint_as_float(br.x & 0xFFFF0000u);
+        r[2] += __uint_as_float(br.y << 16), r[3] += __uint_as_float(br.y & 0xFFFF0000u);
+      }
+      *reinterpret_cast<uint2*>(p.out + o + gc) =
+          uint2{pack_bf16(r[0], r[1]), pack_bf16(r[2], r[3])};
+      continue;
+    }
     float r[4] = {0.f, 0.f, 0.f, 0.f};
     if (gc < p.N) {
       const uint2 xr = *reinterpret_cast<const uint2*>(p.aux + o + gc);
@@ -612,6 +598,28 @@ post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostS
   cluster.sync();  // no CTA leaves while another still reads its partial
 }
 
+// ssq [M, nb] = the sums of squares of x [M, D] by 128-column block, each by
+// block_ssq (the order the wo epilogue sums t's in): a warp a (row, block),
+// lane l columns 4 l .. 4 l + 3 of the block. The kernel before is another
+// call's, so it waits before it reads x or writes ssq; the product may start
+// at once (it fetches weights only before its own wait).
+__global__ void __launch_bounds__(pa::SSQ_THREADS)
+ssq_kernel(const __nv_bfloat16* x, float* ssq, int M, int D, int nb) {
+  grid_dep_launch();
+  grid_dep_wait();
+  const int w = blockIdx.x * (pa::SSQ_THREADS / 32) + threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (w >= M * nb) return;  // a whole warp
+  const int row = w / nb, col = 2 * pa::BOX * (w % nb) + 4 * lane;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  if (col < D) {
+    const uint2 xr = *reinterpret_cast<const uint2*>(x + (int64_t)row * D + col);
+    v[0] = __uint_as_float(xr.x << 16), v[1] = __uint_as_float(xr.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(xr.y << 16), v[3] = __uint_as_float(xr.y & 0xFFFF0000u);
+  }
+  const float ss = block_ssq(v);
+  if (lane == 0) ssq[w] = ss;
+}
+
 // one pass: act [M, K] @ w [K, W] through the epilogue MODE into out [M, N],
 // the K stages cut at bounds[0..S]
 template <int MODE>
@@ -620,7 +628,7 @@ int post_pass(const void* act, const void* w, int W, const void* aux, const void
               int n_blocks, const int* bounds, int S, float eps, int fault,
               cudaStream_t stream) {
   static SmemLimit limit;
-  const int bytes = pa::BYTES + (MODE == GATE_UP ? 2 * K : 0);
+  const int bytes = pa::BYTES + (normed(MODE) ? 2 * K : 0);
   const cudaError_t e = limit.ensure((const void*)post_kernel<MODE>, bytes);
   if (e != cudaSuccess) return (int)e;
   EncodeTiled enc = encode_tiled();
@@ -640,6 +648,24 @@ int post_pass(const void* act, const void* w, int W, const void* aux, const void
   const dim3 grid(S, n_blocks, (M + pa::BM - 1) / pa::BM);
   return (int)launch_ex(post_kernel<MODE>, grid, dim3(pa::NTH), bytes, stream, S, true, maps,
                         args, splits);
+}
+
+// the two kernels (those whose bit is set in `passes`: 1 the sums of
+// squares, 2 the product); bounds the stage bounds of the product's S splits
+int fused_qkv_bf16(const void* x, const void* norm, const void* w, const void* bias,
+                   float* ssq, void* out, int M, int D, int O, float eps, const int* bounds,
+                   int S, int fault, int passes, cudaStream_t stream) {
+  const int nb = (D + 2 * pa::BOX - 1) / (2 * pa::BOX);
+  if (passes & 1) {
+    constexpr int WARPS = pa::SSQ_THREADS / 32;
+    const cudaError_t e = launch_ex(ssq_kernel, dim3((M * nb + WARPS - 1) / WARPS),
+                                    dim3(pa::SSQ_THREADS), 0, stream, 1, true,
+                                    static_cast<const __nv_bfloat16*>(x), ssq, M, D, nb);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (!(passes & 2)) return 0;
+  return post_pass<QKV>(x, w, O, bias, norm, out, ssq, nb, M, O, D, 2 * pa::BOX, pa::BOX,
+                        (O + 2 * pa::BOX - 1) / (2 * pa::BOX), bounds, S, eps, fault, stream);
 }
 
 // the three passes (those whose bit is set in `passes`: 1 wo, 2 gate/up, 4
@@ -664,32 +690,55 @@ int fused_post_attn_bf16(const void* x, const void* ctx, const void* wo, const v
   return rc;
 }
 
+// the stage bounds of a K split plan of n splits over `stages` stages,
+// copied into out[0..n]: false unless 1 <= n <= MAX_SPLITS and 0 = bounds[0]
+// < ... < bounds[n] = stages
+bool read_plan(const int* bounds, int n, int stages, int* out) {
+  if (n < 1 || n > pa::MAX_SPLITS || bounds[0] != 0 || bounds[n] != stages) return false;
+  for (int s = 0; s <= n; ++s) {
+    if (s > 0 && bounds[s] <= bounds[s - 1]) return false;
+    out[s] = bounds[s];
+  }
+  return true;
+}
+
 }  // namespace mdt
 
 // C interface (ctypes). dtype: 0 = float32, 1 = bfloat16 (every operand).
 // Contraction lengths (D, HqD, I) multiples of 64, output widths multiples of
-// 16; contiguous, 16-byte aligned operands; h, t, a are scratch of [M, D],
-// [M, D], [M, I]. Each returns the CUDA error code of its launches.
+// 16; contiguous, 16-byte aligned operands. Plans (bf16): nsplit in [1, 8]
+// and bounds [nsplit + 1] with 0 = bounds[0] < ... < bounds[nsplit] = the
+// product's K / 64 (ops/fused_block.py `launch_plan`); fault 1 leaves the
+// last split's partial out of each split product's sum (a planted fault the
+// checks must reject). Each returns the CUDA error code of its launches.
+
+// bf16: ssq is f32 scratch of [M, ceil(D / 128)] (x's sums of squares by
+// column block); passes (1 the sums of squares, 2 the product) selects the
+// kernels launched (3: the whole call); h is unused. f32: h is scratch of
+// [M, D], ssq and the plan are unused, fault 0 and passes 3.
 extern "C" int mdt_fused_qkv(int dtype, const void* x, const void* norm, const void* w,
-                             const void* bias, void* h, void* out, int M, int D, int O,
-                             float eps, void* stream) {
+                             const void* bias, void* h, void* ssq, void* out, int M, int D,
+                             int O, float eps, int nsplit, const int* bounds, int fault,
+                             int passes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M <= 0 || D % mdt::BK || O % mdt::HALF) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) return mdt::fused_qkv<float>(x, norm, w, bias, h, out, M, D, O, eps, st);
-  if (dtype == 1)
-    return mdt::fused_qkv<__nv_bfloat16>(x, norm, w, bias, h, out, M, D, O, eps, st);
-  return (int)cudaErrorInvalidValue;
+  if (M <= 0 || D % mdt::BK || O % 16) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (fault || passes != 3) return (int)cudaErrorInvalidValue;
+    return mdt::fused_qkv_f32(x, norm, w, bias, h, out, M, D, O, eps, st);
+  }
+  int plan[mdt::pa::MAX_SPLITS + 1];
+  if (dtype != 1 || passes < 1 || passes > 3 || !mdt::read_plan(bounds, nsplit, D / mdt::BK, plan))
+    return (int)cudaErrorInvalidValue;
+  return mdt::fused_qkv_bf16(x, norm, w, bias, static_cast<float*>(ssq), out, M, D, O, eps,
+                             plan, nsplit, fault, passes, st);
 }
 
-// bf16: nsplit[3] and bounds[3][9] are the K stage plans of the wo, gate/up
-// and down passes (ops/fused_block.py `launch_plan`): nsplit[p] in [1, 8],
-// 0 = bounds[p][0] < ... < bounds[p][nsplit[p]] = that product's K / 64;
-// fault 1 leaves each split pass's last partial out of its sum (a planted
-// fault the checks must reject); passes (1 wo, 2 gate/up, 4 down) selects
-// the passes launched (7: the whole call; one bit times one pass). ssq is
-// f32 scratch of [M, ceil(D / 128)] (t's sums of squares by column block);
-// h is unused. f32 uses h and not ssq, ignores the plans and needs fault 0
-// and passes 7.
+// bf16: nsplit[3] and bounds[3][9] are the plans of the wo, gate/up and down
+// products; passes (1 wo, 2 gate/up, 4 down) selects the passes launched (7:
+// the whole call; one bit times one pass). ssq is f32 scratch of [M, ceil(D
+// / 128)] (t's sums of squares by column block); h is unused. f32: t, h and a
+// are scratch of [M, D], [M, D], [M, I]; ssq and the plans are unused, fault
+// 0 and passes 7.
 extern "C" int mdt_fused_post_attn(int dtype, const void* x, const void* ctx,
                                    const void* wo, const void* norm,
                                    const void* w_gate_up, const void* w_down, void* t,
@@ -708,15 +757,9 @@ extern "C" int mdt_fused_post_attn(int dtype, const void* x, const void* ctx,
   constexpr int W = mdt::pa::MAX_SPLITS + 1;
   const int stages[3] = {HqD / mdt::pa::BK, D / mdt::pa::BK, I / mdt::pa::BK};
   int plans[3][W] = {};
-  for (int p = 0; p < 3; ++p) {
-    const int n = nsplit[p];
-    if (n < 1 || n > mdt::pa::MAX_SPLITS || bounds[p * W] != 0 || bounds[p * W + n] != stages[p])
+  for (int p = 0; p < 3; ++p)
+    if (!mdt::read_plan(bounds + p * W, nsplit[p], stages[p], plans[p]))
       return (int)cudaErrorInvalidValue;
-    for (int s = 0; s <= n; ++s) {
-      if (s > 0 && bounds[p * W + s] <= bounds[p * W + s - 1]) return (int)cudaErrorInvalidValue;
-      plans[p][s] = bounds[p * W + s];
-    }
-  }
   return mdt::fused_post_attn_bf16(x, ctx, wo, norm, w_gate_up, w_down, t, a,
                                    static_cast<float*>(ssq), out, M, D, HqD, I, eps, plans,
                                    nsplit, fault, passes, st);

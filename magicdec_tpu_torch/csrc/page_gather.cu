@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace mdt {
 
 // the ring's limits; the C entry rejects a geometry beyond them
@@ -91,31 +93,6 @@ __device__ __forceinline__ Span chunk_span(const GatherArgs& a, int i) {
   s.dst = (z ? a.dst1 : a.dst0) + b * a.dst_b + j * a.dst_page + off;
   s.bytes = last ? (a.fault ? 0 : a.tail_bytes) : a.chunk_bytes;
   return s;
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// wait for the phase of parity `parity` of the mbarrier to complete; a wait
-// that outlasts ~2^32 cycles (seconds) traps, so a lost copy fails the
-// launch instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long start = clock64();
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred P1;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 P1, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, P1;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - start > (1LL << 32)) __trap();
-  }
 }
 
 // one warp; lane 0 issues every copy
@@ -238,13 +215,9 @@ extern "C" int mdt_page_gather(const void* src0, const void* src1, const int* pa
   a.dst_b = dst_b_bytes;
   a.dst_page = dst_page_bytes;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        mdt::gather_bulk, cudaFuncAttributeMaxDynamicSharedMemorySize, mdt::MAX_RING_BYTES);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static mdt::SmemLimit limit;
+  const cudaError_t e = limit.ensure((const void*)mdt::gather_bulk, mdt::MAX_RING_BYTES);
+  if (e != cudaSuccess) return (int)e;
   mdt::gather_bulk<<<grid, 32, (size_t)stages * chunk_bytes, s>>>(a);
   return (int)cudaGetLastError();
 }

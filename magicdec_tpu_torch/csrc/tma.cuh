@@ -1,5 +1,6 @@
 // TMA, mbarrier and launch helpers shared by the weight-streaming kernels
-// (int4_matmul.cu, fused_block.cu).
+// (int4_matmul.cu, fused_block.cu); the gathers (page_gather.cu) use the
+// mbarrier wait, and every source's launcher the shared memory limit.
 //
 // Device side: shared-memory addresses, mbarrier init / expect_tx / wait,
 // and a 2-D tensor load (cp.async.bulk.tensor) that completes on an

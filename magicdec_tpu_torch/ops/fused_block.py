@@ -13,7 +13,7 @@ forward of T <= 32 tokens through them when the fused mode is on.
 Rounding points, as the TPU kernels (x's dtype is bf16 on the card's main
 path, f32 in the exact tests): RMSNorm normalizes in f32, rounds to x's
 dtype and multiplies by the norm weight in x's dtype; each product sums in
-f32 and rounds to x's dtype; the residual of the attention output is
+f32 and rounds to x's dtype; the qkv bias is added in x's dtype; the residual of the attention output is
 t = x + round(acc - x) with acc = x + ctx @ wo in f32; the SwiGLU operand
 is round(silu(gate)) * round(up), a product in x's dtype; the output is
 t + round(a @ w_down).
@@ -43,14 +43,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 ROW_BUCKET = 64
 KERNEL_K = 64       # every contraction length must be a multiple
 KERNEL_COLS = 16    # every fused_qkv output width must be a multiple
-# the bf16 fused_post_attn kernel: a CTA owns 64 rows and TILE_COLS output
-# columns (gate/up: 64 gate and the matching 64 up columns) and walks its
-# split of K in stages of STAGE_K rows; a column block's splits form one
-# thread-block cluster of at most MAX_SPLITS CTAs
+# the bf16 products (fused_qkv's, and fused_post_attn's three passes): a
+# CTA owns 64 rows and TILE_COLS output columns (gate/up: 64 gate and the
+# matching 64 up columns) and walks its split of K in stages of STAGE_K
+# rows; a column block's splits form one thread-block cluster of at most
+# MAX_SPLITS CTAs
 STAGE_K = 64
 TILE_COLS = 128
 MAX_SPLITS = 8
-PLAN_CTAS = 128     # the most CTAs a split pass aims for at one 64-row tile
+PLAN_CTAS = 128     # the most CTAs a split product aims for at one 64-row tile
 PLAN_STAGES = 8     # the fewest stages a split walks
 # the per-element limit of a bf16 output is loose (see
 # fused_post_attn_plain_f32_and_limit); the mean |kernel - plain| over a
@@ -161,8 +162,8 @@ def column_blocks(N: int) -> int:
 
 
 def launch_plan(K: int, N: int) -> tuple[tuple[int, int], ...]:
-    """The K ranges [k0, k1) of the bf16 fused_post_attn kernel's splits
-    for a product [M, K] @ [K, N], in the order their f32 partials are
+    """The K ranges [k0, k1) of the bf16 fused kernels' splits for a
+    product [M, K] @ [K, N], in the order their f32 partials are
     summed: whole STAGE_K-row stages, tiling K, balanced. Chosen from K and
     N alone, never from the row count, so a row's bits do not depend on how
     many rows share the call. The count is the most splits (at most
@@ -171,8 +172,9 @@ def launch_plan(K: int, N: int) -> tuple[tuple[int, int], ...]:
     costs a few microseconds beside its stages). Whole calls ran fastest
     at 128 to 256, though a wo or w_down pass alone ran fastest at about
     64 CTAs (chip_smoke `fused_split_sweep`, PERF.md). llama-3.2-1b:
-    wo 4 splits (64 CTAs), w_down 8 (128); llama-3.1-8b: wo and w_down 4
-    (128); the gate/up products (128 and 224 column blocks) none."""
+    wqkv 4 splits (96 CTAs), wo 4 (64), w_down 8 (128); llama-3.1-8b: wqkv
+    2 (96), wo and w_down 4 (128); the gate/up products (128 and 224 column
+    blocks) none."""
     stages = K // STAGE_K
     S = max(1, min(MAX_SPLITS, stages // PLAN_STAGES,
                    PLAN_CTAS // column_blocks(N)))
@@ -184,7 +186,8 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("fused_block")
     if lib.mdt_fused_qkv.argtypes is None:
         P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.mdt_fused_qkv.argtypes = [I, P, P, P, P, P, P, I, I, I, Fl, P]
+        lib.mdt_fused_qkv.argtypes = [I, P, P, P, P, P, P, P, I, I, I, Fl,
+                                      I, P, I, I, P]
         lib.mdt_fused_qkv.restype = I
         lib.mdt_fused_post_attn.argtypes = [I, P, P, P, P, P, P, P, P, P, P,
                                             P, I, I, I, I, Fl, P, P, I, I, P]
@@ -223,20 +226,26 @@ def _on_cpu(*tensors) -> bool:
     return all(t is None or t.device.type == "cpu" for t in tensors)
 
 
-def fused_qkv(x: torch.Tensor, attn_norm: torch.Tensor, wqkv: torch.Tensor,
-              bqkv: torch.Tensor | None = None,
-              eps: float = 1e-5) -> torch.Tensor:
-    """rmsnorm(x) @ wqkv (+ bqkv): x [M, D], attn_norm [D], wqkv [D, O],
-    bqkv [O] -> [M, O] in x's dtype.
+def _plan_bounds(plans) -> tuple:
+    """The C entries' form of K split plans: (split counts, stage bounds
+    [len(plans)][MAX_SPLITS + 1], each plan's bounds from 0 to its K / 64)."""
+    nsplit = (ctypes.c_int * len(plans))(*(len(p) for p in plans))
+    bounds = (ctypes.c_int * (len(plans) * (MAX_SPLITS + 1)))()
+    for i, plan in enumerate(plans):
+        for s, (_, k1) in enumerate(plan):
+            bounds[i * (MAX_SPLITS + 1) + s + 1] = k1 // STAGE_K
+    return nsplit, bounds
 
-    Replaces the TPU kernel fused_qkv (pallas_call at
-    magicdec_tpu/ops/pallas/fused_block.py:96). Bound by wqkv's bytes at
-    decode. Two kernels: the RMSNorm of the rows (one CTA per row), then
-    the product with the bias in its epilogue on 64-row x 32-column tiles
-    (mma.sync for bf16, CUDA cores for f32), K walked in order
-    (csrc/fused_block.cu)."""
-    if _on_cpu(x, attn_norm, wqkv, bqkv):
-        return fused_qkv_plain(x, attn_norm, wqkv, bqkv, eps)
+
+def _qkv_launch(x, attn_norm, wqkv, bqkv=None, eps=1e-5, *, fault=0,
+                passes=3, scratch=None):
+    """Check the operands (CUDA tensors) and launch fused_qkv's kernels;
+    returns (out, ssq). For the checks and timings of chip_smoke.py: fault=1
+    leaves the last split's partial out of the product's sum (a planted
+    fault the limit must reject); passes (1 the sums of squares, 2 the
+    product) launches only those kernels (bf16); scratch = (out, ssq) reuses
+    those tensors (ssq: x's sums of squares by 128-column block, which the
+    product's RMSNorm reads). Counts no launch."""
     _check("fused_qkv", x, attn_norm, wqkv, bqkv)
     M, D = x.shape
     O = wqkv.shape[1]
@@ -245,15 +254,45 @@ def fused_qkv(x: torch.Tensor, attn_norm: torch.Tensor, wqkv: torch.Tensor,
         raise ValueError(f"fused_qkv: x {tuple(x.shape)}, attn_norm "
                          f"{tuple(attn_norm.shape)}, wqkv {tuple(wqkv.shape)}")
     _check_widths("fused_qkv", D=(D, KERNEL_K), O=(O, KERNEL_COLS))
-    out = torch.empty((M, O), dtype=x.dtype, device=x.device)
-    h = torch.empty_like(x)
+    if scratch is None:
+        scratch = (torch.empty((M, O), dtype=x.dtype, device=x.device),
+                   torch.empty((M, column_blocks(D)), dtype=torch.float32,
+                               device=x.device))
+    out, ssq = scratch
+    h = torch.empty_like(x) if x.dtype == torch.float32 else None
+    nsplit, bounds = _plan_bounds([launch_plan(D, O)])
     rc = _lib().mdt_fused_qkv(
         _DTYPE_CODES[x.dtype], x.data_ptr(), attn_norm.data_ptr(),
         wqkv.data_ptr(), None if bqkv is None else bqkv.data_ptr(),
-        h.data_ptr(), out.data_ptr(), M, D, O, eps,
+        None if h is None else h.data_ptr(), ssq.data_ptr(), out.data_ptr(),
+        M, D, O, eps, nsplit[0], bounds, fault, passes,
         torch.cuda.current_stream(x.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_qkv launch failed with cudaError_t {rc}")
+    return scratch
+
+
+def fused_qkv(x: torch.Tensor, attn_norm: torch.Tensor, wqkv: torch.Tensor,
+              bqkv: torch.Tensor | None = None,
+              eps: float = 1e-5) -> torch.Tensor:
+    """rmsnorm(x) @ wqkv (+ bqkv): x [M, D], attn_norm [D], wqkv [D, O],
+    bqkv [O] -> [M, O] in x's dtype.
+
+    Replaces the TPU kernel fused_qkv (pallas_call at
+    magicdec_tpu/ops/pallas/fused_block.py:96). Bound by wqkv's bytes at
+    decode. A bf16 call issues two kernels (csrc/fused_block.cu): x's sums
+    of squares by 128-column block, then the product on fused_post_attn's
+    weight-streaming design (TMA weight boxes through a 4-stage ring,
+    wgmma, K split by `launch_plan(D, O)` over a thread-block cluster whose
+    CTAs sum their partials in split order), the RMSNorm folded into each
+    stage's activation box and the bias into the epilogue; the product is
+    launched with programmatic dependent launch, so it fetches its first
+    weight stages while the sums of squares run. f32 (the exact checks)
+    keeps two CUDA-core kernels (the RMSNorm, the product). `launches`
+    counts calls."""
+    if _on_cpu(x, attn_norm, wqkv, bqkv):
+        return fused_qkv_plain(x, attn_norm, wqkv, bqkv, eps)
+    out = _qkv_launch(x, attn_norm, wqkv, bqkv, eps)[0]
     fused_qkv.launches += 1
     return out
 
@@ -292,12 +331,8 @@ def _post_attn_launch(x, ctx, wo, ffn_norm, w_gate_up, w_down, eps=1e-5, *,
                                device=x.device))
     out, t, a, ssq = scratch
     h = torch.empty_like(x) if x.dtype == torch.float32 else None
-    plans = [launch_plan(K, N) for K, N in ((HqD, D), (D, 2 * I), (I, D))]
-    nsplit = (ctypes.c_int * 3)(*(len(p) for p in plans))
-    bounds = (ctypes.c_int * (3 * (MAX_SPLITS + 1)))()
-    for i, plan in enumerate(plans):
-        for s, (_, k1) in enumerate(plan):
-            bounds[i * (MAX_SPLITS + 1) + s + 1] = k1 // STAGE_K
+    nsplit, bounds = _plan_bounds([launch_plan(K, N) for K, N in
+                                   ((HqD, D), (D, 2 * I), (I, D))])
     rc = _lib().mdt_fused_post_attn(
         _DTYPE_CODES[x.dtype], x.data_ptr(), ctx.data_ptr(), wo.data_ptr(),
         ffn_norm.data_ptr(), w_gate_up.data_ptr(), w_down.data_ptr(),
@@ -347,7 +382,7 @@ fused_post_attn.launches = 0
 def graph_edges(graph) -> tuple[int, int]:
     """(edges, programmatic edges) of a torch.cuda.CUDAGraph captured with
     keep_graph=True: whether stream capture kept the programmatic
-    dependent launches between fused_post_attn's kernels."""
+    dependent launches between the kernels of a fused call."""
     total, prog = ctypes.c_int(), ctypes.c_int()
     rc = _lib().mdt_graph_edges(graph.raw_cuda_graph(), ctypes.byref(total),
                                 ctypes.byref(prog))

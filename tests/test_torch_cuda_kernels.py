@@ -446,6 +446,40 @@ def test_card_fused_block_matches_plain(cuda, dtype, widths):
                        fb.fused_post_attn(x, ctx, wo, n, gu, wd)[:8])
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,O", [(1024, 1536), (1024, 1040), (2048, 3072),
+                                 (4096, 6144)],
+                         ids=["D1024", "O1040", "1b", "8b"])
+def test_card_fused_qkv_split_matches_plain(cuda, D, O):
+    """The bf16 fused_qkv (sums of squares, then the TMA/wgmma product with
+    K split by launch_plan(D, O)) at widths whose plan splits K (2, 2, 4
+    and 2 splits; O=1040 ends on a partial column block with no second
+    weight box), with and without a bias, against the plain version within
+    the per-element limit and MEAN_LIMIT; rows at M=8 bit-equal to the
+    same rows inside M=56; and the limit rejects the output with the last
+    split's partial left out of the sum (`_qkv_launch(fault=1)`)."""
+    from magicdec_tpu_torch.ops import fused_block as fb
+
+    assert len(fb.launch_plan(D, O)) > 1
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(D + O)
+    x = _rand(rng, cuda, dtype, 56, D)
+    n = 1.0 + _rand(rng, cuda, dtype, D, s=0.1)
+    wqkv, b = _rand(rng, cuda, dtype, D, O, s=0.02), _rand(rng, cuda, dtype, O)
+    for M in (8, 56):
+        for bias in (None, b):
+            out = fb.fused_qkv(x[:M], n, wqkv, bias)
+            ref, limit = fb.fused_qkv_plain_f32_and_limit(x[:M], n, wqkv, bias)
+            err = (out.float() - ref).abs()
+            assert out.dtype == dtype and out.shape == (M, O)
+            assert bool((err <= limit).all()), float((err / limit).max())
+            assert float(err.mean()) <= fb.MEAN_LIMIT * float(ref.abs().mean())
+            faulty = fb._qkv_launch(x[:M], n, wqkv, bias, fault=1)[0]
+            assert not bool(((faulty.float() - ref).abs() <= limit).all())
+    assert torch.equal(fb.fused_qkv(x[:8], n, wqkv, b),
+                       fb.fused_qkv(x, n, wqkv, b)[:8])
+
+
 def _assert_lse(got, want, dtype):
     """(ctx, m, l) of a return_lse kernel against the plain f32 (m, l): m
     where the row is not empty, l everywhere (tfd.lse_limits); empty rows

@@ -77,3 +77,47 @@ def test_plan_at_the_timed_widths():
         cfg = ModelArgs.from_name(name)
         assert tuple(len(fb.launch_plan(K, N))
                      for _, K, N in _products(cfg)) == counts, name
+
+
+def _qkv_width(cfg):
+    """fused_qkv's product [M, D] @ [D, O]: O = (Hq + 2 Hkv) * head_dim."""
+    return cfg.dim, (cfg.n_head + 2 * cfg.n_kv_head) * cfg.head_dim
+
+
+@pytest.mark.parametrize("name", sorted(TRANSFORMER_CONFIGS))
+def test_qkv_plan_tiles_k_in_whole_stages(name):
+    """The bf16 fused_qkv product's plan, launch_plan(D, O), tiles D in
+    whole stages, in order, balanced, with 1 to MAX_SPLITS splits of at
+    least PLAN_STAGES stages, and keeps the product within PLAN_CTAS CTAs
+    at one 64-row tile."""
+    D, O = _qkv_width(ModelArgs.from_name(name))
+    assert D % fb.STAGE_K == 0 and O % fb.KERNEL_COLS == 0, (D, O)
+    plan = fb.launch_plan(D, O)
+    assert 1 <= len(plan) <= fb.MAX_SPLITS, plan
+    assert [k for r in plan for k in r][1:-1:2] == [k for r in plan
+                                                   for k in r][2::2]
+    assert plan[0][0] == 0 and plan[-1][1] == D, plan
+    assert all(k0 % fb.STAGE_K == 0 and k1 % fb.STAGE_K == 0 and k0 < k1
+               for k0, k1 in plan), plan
+    sizes = {(k1 - k0) // fb.STAGE_K for k0, k1 in plan}
+    assert max(sizes) - min(sizes) <= 1, plan
+    assert len(plan) == 1 or min(sizes) >= fb.PLAN_STAGES, plan
+    assert len(plan) == 1 or fb.column_blocks(O) * len(plan) <= fb.PLAN_CTAS
+
+
+@pytest.mark.parametrize("name,splits,ctas", [("llama-3.2-1b", 4, 96),
+                                              ("llama-3.1-8b", 2, 96)])
+def test_qkv_plan_at_the_timed_widths(name, splits, ctas):
+    """The QKV product's split count and CTAs at one 64-row tile where
+    PERF.md's times were taken: llama-3.2-1b D=2048, O=3072 (24 column
+    blocks x 4 splits); llama-3.1-8b D=4096, O=6144 (48 x 2)."""
+    D, O = _qkv_width(ModelArgs.from_name(name))
+    plan = fb.launch_plan(D, O)
+    assert len(plan) == splits and fb.column_blocks(O) * splits == ctas
+
+
+def test_qkv_launch_reads_the_plan_from_k_and_n_only():
+    """_qkv_launch takes the plan from launch_plan(D, O): the row count is
+    in none of its inputs, so x[:8] and x[:56] get the same splits."""
+    src = inspect.getsource(fb._qkv_launch)
+    assert "launch_plan(D, O)" in src and "launch_plan(M" not in src
