@@ -49,8 +49,11 @@ exits non-zero):
                 of 66), into a new tensor and split into a round buffer's K
                 and V top regions
   7. scores     centroid_scores vs its plain version in f32 (q bf16 and f32,
-                T in {1, 7}, the main path's 130 centroids as a strided view,
-                flat and peaked softmax) within 1e-5 + 1e-5 |plain|
+                T in {1, 7}, the main path's 130 centroids and 1024, D 64 and
+                128, as a strided view, flat and peaked softmax) within 1e-5
+                + 1e-5 |plain|; where scores_plan splits C over a cluster,
+                the limit must reject the scores with the last rank left out
+                of the rows' (max, sum of exp) combine
   8. prefill    flash_prefill vs its plain version, T=128 chunks at several
                 s_cap buckets, bf16 and f32, flat and peaked softmax.
                 Phases 2-4 and 8 hold each output against the plain version
@@ -70,9 +73,9 @@ exits non-zero):
                 and llama-3.1-8b's (bf16), M in {8, 56}: every element within
                 fused_*_plain_f32_and_limit and the mean error within
                 MEAN_LIMIT; M=8 rows bit-equal to the same rows inside M=56;
-                the limit must reject bf16 fused_post_attn launched with its
-                planted fault (the last K split's partial left out of the wo
-                and w_down sums)
+                the limit must reject bf16 fused_qkv and fused_post_attn
+                launched with their planted fault (the last K split's
+                partial left out of each split product's sum)
   8c. lse       the return_lse forms against their plain versions at the
                 GliDe shapes: flash_decode_stacked at T=7 and T=29 (two
                 launches, attention_impls.flash_stacked_lse) over a 4224-slot
@@ -181,12 +184,15 @@ exits non-zero):
                 products summed at 64 and at the B=8 bucket, 256; a sweep
                 of every split count at 64 and 256 rows against the
                 plan's) and the fused pair at both models' widths, M = 8 and
-                56 (yardstick: the unfused chain, several calls; for
-                fused_post_attn also each of its three passes alone, the
-                whole call at several CTA aims of its split plan, the wo
-                and w_down passes at each split count, and whether CUDA
-                graph capture keeps the programmatic launch edges between
-                its kernels); and the
+                56 (yardstick: the unfused chain, two or several calls;
+                each kernel of a call alone: fused_qkv's sums of squares and
+                product, fused_post_attn's three passes; each whole call at
+                several CTA aims of its split plan, the qkv product and the
+                wo and w_down passes at each split count, and whether CUDA
+                graph capture keeps the programmatic launch edges between a
+                call's kernels); centroid_scores against C (32, 130, 520,
+                1024) with the bound and the plain version at each C and
+                the whole call at several aims of scores_plan; and the
                 return_lse forms at the GliDe shapes (SDPA, which returns no
                 (m, l), as the yardstick). The gathers are timed at both
                 head dims (the D=128 page_gather is the llama-3.1-8b Quest
@@ -811,33 +817,46 @@ def check_page_gather_single(torch, dev):
 def check_centroid_scores(torch, dev):
     """centroid_scores against its plain version: both in f32 (the kernel
     converts q on load), sums in other orders and expf, so each score is
-    held within 1e-5 + 1e-5 |plain|; each head's scores must sum to T*G."""
-    from magicdec_tpu_torch.ops.gemm_softmax import (centroid_scores,
-                                                     centroid_scores_plain)
+    held within 1e-5 + 1e-5 |plain|; each head's scores must sum to T*G.
+    At the main path's C=130 and at C=1024 (P=32768), D 64 and 128; where
+    scores_plan splits C, the limit must reject the scores with the last
+    rank left out of the rows' (max, sum of exp) combine."""
+    from magicdec_tpu_torch.ops import gemm_softmax as gs
 
-    Hkv, G, D = 8, 4, 64
+    Hkv, G = 8, 4
     g = torch.Generator(device=dev).manual_seed(64)
-    errs, ratios = {}, {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name = str(dtype).split(".")[1]
-        for T in (1, 7):
-            q = torch.randn((B, T, Hkv * G, D), generator=g,
-                            device=dev).to(dtype)
-            for scale, cs in (("flat", 0.2), ("peaked", 2.0)):
-                cent = torch.randn((B, RETRO_C, Hkv * D), generator=g,
-                                   device=dev) * cs
-                view = cent.view(B, RETRO_C, Hkv, D).transpose(1, 2)
-                ref = centroid_scores_plain(q, view)
-                out = centroid_scores(q, view)
-                what = f"{name}_T{T}_{scale}"
-                limit = 1e-5 + 1e-5 * ref.abs()
-                _check_out(torch, what, out, ref, limit, errs, ratios)
-                if not torch.allclose(out.sum(-1), torch.full_like(
-                        out[..., 0], T * G), rtol=1e-5, atol=1e-4):
-                    fail(f"centroid_scores {what}: a head's mass is not T*G")
-    line(phase="centroid_scores_vs_plain", C=RETRO_C, Hkv=Hkv, G=G,
-         max_abs_err=errs, max_err_over_limit=ratios, tol="1e-5 + 1e-5|ref|")
-    return max(e for k_, e in errs.items() if k_.startswith("bfloat16_T1"))
+    errs, ratios, faults, plans = {}, {}, {}, {}
+    for D, C in ((64, RETRO_C), (128, RETRO_C), (64, 1024), (128, 1024)):
+        plans[f"D{D}_C{C}"] = gs.scores_plan(C, D)
+        for dtype in (torch.bfloat16, torch.float32):
+            name = str(dtype).split(".")[1]
+            for T in (1, 7):
+                q = torch.randn((B, T, Hkv * G, D), generator=g,
+                                device=dev).to(dtype)
+                for scale, cs in (("flat", 0.2), ("peaked", 2.0)):
+                    cent = torch.randn((B, C, Hkv * D), generator=g,
+                                       device=dev) * cs
+                    view = cent.view(B, C, Hkv, D).transpose(1, 2)
+                    ref = gs.centroid_scores_plain(q, view)
+                    out = gs.centroid_scores(q, view)
+                    what = f"{name}_T{T}_D{D}_C{C}_{scale}"
+                    limit = 1e-5 + 1e-5 * ref.abs()
+                    _check_out(torch, what, out, ref, limit, errs, ratios)
+                    if not torch.allclose(out.sum(-1), torch.full_like(
+                            out[..., 0], T * G), rtol=1e-5, atol=1e-4):
+                        fail(f"centroid_scores {what}: a head's mass is not "
+                             f"T*G")
+                    if gs.scores_plan(C, D)[0] > 1:
+                        faulty = gs._scores_launch(q, view, fault=1)
+                        faults[what] = not _hold(faulty, ref, limit)[2]
+                        if not faults[what]:
+                            fail(f"centroid_scores {what}: the limit does not "
+                                 f"reject the scores with a rank left out")
+    line(phase="centroid_scores_vs_plain", Hkv=Hkv, G=G, plans=plans,
+         max_abs_err=errs, max_err_over_limit=ratios,
+         rank_left_out_rejected=faults, tol="1e-5 + 1e-5|ref|")
+    return max(e for k_, e in errs.items()
+               if k_.startswith(f"bfloat16_T1_D64_C{RETRO_C}_"))
 
 
 def check_prefill(torch, dev, D=64):
@@ -1020,8 +1039,10 @@ def check_fused(torch, dev):
             torch.cuda.empty_cache()
     plans = {f"{model}_{name}": len(fb.launch_plan(K, N))
              for model, (D, HqD, I, O) in FUSED_WIDTHS.items()
-             for name, K, N in (("wqkv", D, O), ("wo", HqD, D),
-                                ("w_gate_up", D, 2 * I), ("w_down", I, D))}
+             for name, K, N in (("wo", HqD, D), ("w_gate_up", D, 2 * I),
+                                ("w_down", I, D))}
+    plans.update({f"{model}_wqkv": len(fb.qkv_plan(D, O))
+                  for model, (D, _, _, O) in FUSED_WIDTHS.items()})
     line(phase="fused_vs_plain", splits=plans, max_abs_err=errs,
          max_err_over_limit=ratios, mean_err_over_mean=means,
          mean_limit=fb.MEAN_LIMIT, rows_bitexact=bits, faults_rejected=faults)
@@ -3185,35 +3206,44 @@ def time_kernels(torch, dev, errs, launches, D=64):
     # centroid_scores: the RetroInfer round-opening step's scoring (T=1,
     # Hq=32 over Hkv=8, the 130 float32 centroids of each layer read as a
     # strided view of [B, C, Hkv*D]); no single PyTorch call computes it
-    from magicdec_tpu_torch.ops.gemm_softmax import (centroid_scores,
-                                                     centroid_scores_plain)
+    from magicdec_tpu_torch.ops import gemm_softmax as gs
     q = torch.randn((B, 1, Hq, D), generator=g, device=dev,
                     dtype=torch.bfloat16)
-    cents = torch.randn((L, B, RETRO_C, Hkv * D), generator=g, device=dev)
-    views = [cents[l].view(B, RETRO_C, Hkv, D).transpose(1, 2)
-             for l in range(L)]
-    bytes_ = (q.numel() * item + B * RETRO_C * Hkv * D * 4
-              + B * Hkv * RETRO_C * 4)
-    # the dots, and per logit a scale, an exponent and two sums
-    flops = 2 * B * Hq * RETRO_C * D + 4 * B * Hq * RETRO_C
-    t_k, t_e = _device_and_eager_ms(
-        torch, lambda l: centroid_scores(q, views[l]), L)
-    t_p = _time_ms(torch, lambda l: centroid_scores_plain(q, views[l]), L,
-                   graph=True)
-    tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
-    b_ms, b_by = (tb, "bytes") if tb >= tf else (tf, "operations")
+
+    def scores_bound(C):
+        bytes_ = q.numel() * item + B * C * Hkv * D * 4 + B * Hkv * C * 4
+        # the dots, and per logit a scale, an exponent and two sums
+        flops = 2 * B * Hq * C * D + 4 * B * Hq * C
+        tb, tf = bytes_ / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+        return (tb, "bytes") if tb >= tf else (tf, "operations")
+
     # device ms against the cluster count (C = max_len / 32 grows with the
-    # context: 1024 at P=32768), same q
+    # context: 1024 at P=32768), same q: the kernel at scores_plan's aim and
+    # at each aim of SCORES_AIMS, the plain version and the bound
     by_c = {}
-    for c in (32, 520, 1024):
-        cc = torch.randn((L, B, c, Hkv * D), generator=g, device=dev)
-        vv = [cc[l].view(B, c, Hkv, D).transpose(1, 2) for l in range(L)]
-        by_c[c] = _time_ms(torch, lambda l: centroid_scores(q, vv[l]), L,
-                           graph=True)
-    del cc, vv
+    for c in SCORES_CLUSTERS:
+        cents = torch.randn((L, B, c, Hkv * D), generator=g, device=dev)
+        views = [cents[l].view(B, c, Hkv, D).transpose(1, 2)
+                 for l in range(L)]
+        b_ms, b_by = scores_bound(c)
+        by_c[c] = dict(
+            ms=_time_ms(torch, lambda l: gs.centroid_scores(q, views[l]), L,
+                        graph=True),
+            plain_ms=_time_ms(torch, lambda l: gs.centroid_scores_plain(
+                q, views[l]), L, graph=True),
+            bound_ms=b_ms, bound_by=b_by, plan=gs.scores_plan(c, D),
+            ms_by_cta_floats=_plan_sweep(
+                torch, gs, lambda l: gs.centroid_scores(q, views[l]), L,
+                "SCORES_CTA_FLOATS", SCORES_AIMS))
+        if c == RETRO_C:
+            t_k, t_e = _device_and_eager_ms(
+                torch, lambda l: gs.centroid_scores(q, views[l]), L)
+        del cents, views
+    main = by_c[RETRO_C]
+    t_p, b_ms, b_by = main["plain_ms"], main["bound_ms"], main["bound_by"]
     scores = dict(C=RETRO_C, ms=t_k, eager_ms=t_e, plain_ms=t_p,
                   library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                  ms_by_C=by_c)
+                  ms_by_C=by_c, cta_floats=gs.SCORES_CTA_FLOATS)
     rows.append({"name": "centroid_scores", "route": "cuda",
                  "source": "magicdec_tpu_torch/csrc/centroid_scores.cu",
                  "replaces": "magicdec_tpu/ops/pallas/gemm_softmax.py:50",
@@ -3221,7 +3251,6 @@ def time_kernels(torch, dev, errs, launches, D=64):
                  "max_abs_err": errs["centroid_scores"], "ms": t_k,
                  "plain_ms": t_p, "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": None})
-    del cents, views
     _set_counts(saved)      # the timing launches are not the main path's
     line(phase="times", D=D, decode_shapes=extra, intervals_shapes=draft_shapes,
          lse_shapes=lse_shapes, lse_library="SDPA on the same work; it "
@@ -3230,6 +3259,12 @@ def time_kernels(torch, dev, errs, launches, D=64):
          page_gather=gather, page_gather_single=gather_single,
          centroid_scores=scores)
     return rows
+
+
+# centroid_scores' cluster counts C timed (the main path's 130 among them),
+# and the values of gs.SCORES_CTA_FLOATS (scores_plan's aim) timed at each
+SCORES_CLUSTERS = (32, RETRO_C, 520, 1024)
+SCORES_AIMS = (1024, 2048, 4096, 8192, 16384)
 
 
 # the gather kernel's geometries timed against each other (ops/page_gather.py
@@ -3374,12 +3409,13 @@ def _bound(bytes_, flops):
 INT4_SPLITS = (1, 2, 3, 4, 6, 8)
 
 
-def _split_sweep(torch, plan_module, unit, counts, fn, L):
+def _split_sweep(torch, plan_module, unit, counts, fn, L,
+                 name="launch_plan"):
     """Device ms of fn (a call on layer l of L) with each split count S of
-    counts in place of plan_module.launch_plan's: every K cut into min(S,
-    K / unit) balanced ranges of whole unit-row pieces, as the plans cut
-    it: {S: ms}."""
-    plan = plan_module.launch_plan
+    counts in place of the plan plan_module.<name>'s: every K cut into
+    min(S, K / unit) balanced ranges of whole unit-row pieces, as the plans
+    cut it: {S: ms}."""
+    plan = getattr(plan_module, name)
     res = {}
     try:
         for S in counts:
@@ -3388,10 +3424,10 @@ def _split_sweep(torch, plan_module, unit, counts, fn, L):
                 s_ = min(S, n)
                 return tuple((unit * (i * n // s_), unit * ((i + 1) * n // s_))
                              for i in range(s_))
-            plan_module.launch_plan = cut
+            setattr(plan_module, name, cut)
             res[S] = _time_ms(torch, fn, L, graph=True)
     finally:
-        plan_module.launch_plan = plan
+        setattr(plan_module, name, plan)
     return res
 
 
@@ -3482,9 +3518,11 @@ FUSED_TIME_LAYERS = {"1b": 16, "8b": 4}
 # while each walks fewer stages, which parts a pass's fixed cost from its
 # cost a stage
 POST_SPLITS = (1, 2, 4, 8)
-# the values of fb.PLAN_CTAS the whole call is timed at (the plan's split
-# counts follow from it)
+# the values of fb.PLAN_CTAS the whole fused_post_attn call is timed at, and
+# of fb.QKV_PLAN_CTAS the whole fused_qkv call (the plans' split counts
+# follow from them)
 PLAN_CTAS_SWEEP = (32, 64, 128, 256)
+QKV_CTAS_SWEEP = (64, 128, 192, 256)
 
 
 def time_weight_kernels(torch, dev, errs, launches):
@@ -3494,7 +3532,8 @@ def time_weight_kernels(torch, dev, errs, launches):
     and the bound; each kernel of a call alone (device ms and bound: its
     weight, operands and output): fused_qkv's sums of squares and product,
     fused_post_attn's three passes, with the split counts of `launch_plan`;
-    each whole call at each plan aim of PLAN_CTAS_SWEEP; and at M=8 the
+    each whole call at each plan aim of PLAN_CTAS_SWEEP (fused_qkv:
+    QKV_CTAS_SWEEP); and at M=8 the
     qkv product and the wo and w_down passes alone at each split count of
     POST_SPLITS. Yardstick, which the port never calls: the unfused chain
     of the bf16 path (rms_norm, cuBLAS products and the elementwise ops:
@@ -3566,7 +3605,7 @@ def time_weight_kernels(torch, dev, errs, launches):
             # fused_qkv's two kernels alone, on scratch a whole call filled
             qscratch = fb._qkv_launch(x, w["n"][0], w["wqkv"][0])
             nb = fb.column_blocks(D)
-            qkv_plan = fb.launch_plan(D, O)
+            qkv_plan = fb.qkv_plan(D, O)
             kernels = {}
             for bit, (name, nbytes, flops) in enumerate((
                     ("ssq", 2 * M * D + 4 * M * nb, 2 * M * D),
@@ -3580,7 +3619,8 @@ def time_weight_kernels(torch, dev, errs, launches):
             kernels["product"].update(
                 splits=len(qkv_plan), ctas=fb.column_blocks(O) * len(qkv_plan))
             fused[f"{model}_fused_qkv_M{M}"]["kernels"] = kernels
-            qkv_plans[f"{model}_M{M}"] = _plan_sweep(torch, fb, qkv, L)
+            qkv_plans[f"{model}_M{M}"] = _plan_sweep(
+                torch, fb, qkv, L, "QKV_PLAN_CTAS", QKV_CTAS_SWEEP)
             # each pass alone, on scratch a whole call filled
             scratch = fb._post_attn_launch(*operands(0))
             passes = {}
@@ -3607,7 +3647,8 @@ def time_weight_kernels(torch, dev, errs, launches):
                 sweep[model]["qkv"] = _split_sweep(
                     torch, fb, fb.STAGE_K, POST_SPLITS,
                     lambda l: fb._qkv_launch(x, w["n"][l], w["wqkv"][l],
-                                             passes=2, scratch=qscratch), L)
+                                             passes=2, scratch=qscratch), L,
+                    "qkv_plan")
             del x, ctx, scratch, qscratch
         del w
         torch.cuda.empty_cache()
@@ -3618,6 +3659,7 @@ def time_weight_kernels(torch, dev, errs, launches):
     line(phase="fused_split_sweep", ms_by_splits=sweep,
          whole_call_ms_by_plan_ctas=plans,
          qkv_whole_call_ms_by_plan_ctas=qkv_plans, plan_ctas=fb.PLAN_CTAS,
+         qkv_plan_ctas=fb.QKV_PLAN_CTAS,
          plan={m: {"qkv": fused[f"{m}_fused_qkv_M8"]["kernels"]["product"][
              "splits"], **{k: v["splits"] for k, v in
                            fused[f"{m}_fused_post_attn_M8"]["passes"].items()}}
@@ -3636,19 +3678,20 @@ def time_weight_kernels(torch, dev, errs, launches):
     return rows
 
 
-def _plan_sweep(torch, fb, post, L):
-    """Device ms of the whole call post(l) with fb.PLAN_CTAS (which
-    launch_plan reads) set to each value of PLAN_CTAS_SWEEP: {value: ms}.
-    The passes overlap in a call (programmatic launch, CTAs of two kernels
-    on an SM), so the plan is chosen on whole calls."""
-    saved = fb.PLAN_CTAS
+def _plan_sweep(torch, fb, call, L, aim="PLAN_CTAS", values=PLAN_CTAS_SWEEP):
+    """Device ms of the whole call call(l) with the plan aim fb.<aim>
+    (PLAN_CTAS, which launch_plan reads, or QKV_PLAN_CTAS, qkv_plan's) set
+    to each of values: {value: ms}. The kernels overlap in a call
+    (programmatic launch, CTAs of two kernels on an SM), so a plan is
+    chosen on whole calls."""
+    saved = getattr(fb, aim)
     res = {}
     try:
-        for ctas in PLAN_CTAS_SWEEP:
-            fb.PLAN_CTAS = ctas
-            res[ctas] = _time_ms(torch, post, L, graph=True)
+        for ctas in values:
+            setattr(fb, aim, ctas)
+            res[ctas] = _time_ms(torch, call, L, graph=True)
     finally:
-        fb.PLAN_CTAS = saved
+        setattr(fb, aim, saved)
     return res
 
 

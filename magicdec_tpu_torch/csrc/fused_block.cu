@@ -36,7 +36,7 @@
 // zeros). (An mma.sync form with ldmatrix.trans, 8 warps of 16 columns that
 // skipped row tiles past M, ran the gate/up pass at M = 56 in 0.0499 ms
 // against 0.0324 on wgmma: PERF.md.) K is split by the wrapper's plan
-// (ops/fused_block.py `launch_plan`, from K and N alone) over a thread-block
+// (ops/fused_block.py `launch_plan`, `qkv_plan`: from K and N alone) over a thread-block
 // cluster: each CTA leaves its f32 partial tile in shared memory, and CTA r
 // of the cluster sums rows r, r + S, ... of the S partials in split order
 // through distributed shared memory, then applies the epilogue and rounds
@@ -708,7 +708,7 @@ bool read_plan(const int* bounds, int n, int stages, int* out) {
 // Contraction lengths (D, HqD, I) multiples of 64, output widths multiples of
 // 16; contiguous, 16-byte aligned operands. Plans (bf16): nsplit in [1, 8]
 // and bounds [nsplit + 1] with 0 = bounds[0] < ... < bounds[nsplit] = the
-// product's K / 64 (ops/fused_block.py `launch_plan`); fault 1 leaves the
+// product's K / 64 (ops/fused_block.py `launch_plan`, `qkv_plan`); fault 1 leaves the
 // last split's partial out of each split product's sum (a planted fault the
 // checks must reject). Each returns the CUDA error code of its launches.
 

@@ -21,8 +21,8 @@ t + round(a @ w_down).
 Every row is computed by a fixed sequence of operations that does not
 depend on the number of rows in the call, so a draft row (M = B) and the
 same row inside a verify (M = B * (gamma + 1)) get the same bits: the
-kernels never choose a tile or a split from M (`launch_plan` reads K and N
-alone), and the plain versions run at rows padded to a multiple of
+kernels never choose a tile or a split from M (`launch_plan` and
+`qkv_plan` read K and N alone), and the plain versions run at rows padded to a multiple of
 ROW_BUCKET (PyTorch's CPU GEMM and row reductions pick their blocking from
 the shape).
 
@@ -51,7 +51,8 @@ KERNEL_COLS = 16    # every fused_qkv output width must be a multiple
 STAGE_K = 64
 TILE_COLS = 128
 MAX_SPLITS = 8
-PLAN_CTAS = 128     # the most CTAs a split product aims for at one 64-row tile
+PLAN_CTAS = 128     # the most CTAs a split pass of fused_post_attn aims for
+QKV_PLAN_CTAS = 192  # ... and fused_qkv's product (one 64-row tile)
 PLAN_STAGES = 8     # the fewest stages a split walks
 # the per-element limit of a bf16 output is loose (see
 # fused_post_attn_plain_f32_and_limit); the mean |kernel - plain| over a
@@ -161,9 +162,21 @@ def column_blocks(N: int) -> int:
     return -(-N // TILE_COLS)
 
 
+def _split_plan(K: int, N: int, ctas: int) -> tuple[tuple[int, int], ...]:
+    """The most splits (at most MAX_SPLITS) that keep a product within
+    `ctas` CTAs at one 64-row tile and give each split at least
+    PLAN_STAGES stages, as K ranges of whole STAGE_K-row stages, tiling K,
+    balanced."""
+    stages = K // STAGE_K
+    S = max(1, min(MAX_SPLITS, stages // PLAN_STAGES,
+                   ctas // column_blocks(N)))
+    return tuple((STAGE_K * (i * stages // S), STAGE_K * ((i + 1) * stages // S))
+                 for i in range(S))
+
+
 def launch_plan(K: int, N: int) -> tuple[tuple[int, int], ...]:
-    """The K ranges [k0, k1) of the bf16 fused kernels' splits for a
-    product [M, K] @ [K, N], in the order their f32 partials are
+    """The K ranges [k0, k1) of the bf16 fused_post_attn kernel's splits
+    for a product [M, K] @ [K, N], in the order their f32 partials are
     summed: whole STAGE_K-row stages, tiling K, balanced. Chosen from K and
     N alone, never from the row count, so a row's bits do not depend on how
     many rows share the call. The count is the most splits (at most
@@ -172,14 +185,19 @@ def launch_plan(K: int, N: int) -> tuple[tuple[int, int], ...]:
     costs a few microseconds beside its stages). Whole calls ran fastest
     at 128 to 256, though a wo or w_down pass alone ran fastest at about
     64 CTAs (chip_smoke `fused_split_sweep`, PERF.md). llama-3.2-1b:
-    wqkv 4 splits (96 CTAs), wo 4 (64), w_down 8 (128); llama-3.1-8b: wqkv
-    2 (96), wo and w_down 4 (128); the gate/up products (128 and 224 column
-    blocks) none."""
-    stages = K // STAGE_K
-    S = max(1, min(MAX_SPLITS, stages // PLAN_STAGES,
-                   PLAN_CTAS // column_blocks(N)))
-    return tuple((STAGE_K * (i * stages // S), STAGE_K * ((i + 1) * stages // S))
-                 for i in range(S))
+    wo 4 splits (64 CTAs), w_down 8 (128); llama-3.1-8b: wo and w_down 4
+    (128); the gate/up products (128 and 224 column blocks) none."""
+    return _split_plan(K, N, PLAN_CTAS)
+
+
+def qkv_plan(K: int, N: int) -> tuple[tuple[int, int], ...]:
+    """launch_plan for fused_qkv's product [M, K] @ [K, N], aimed at
+    QKV_PLAN_CTAS: from K and N alone. llama-3.2-1b (K=2048, N=3072): 4
+    splits x 24 column blocks; llama-3.1-8b (4096, 6144): 4 x 48. The QKV
+    product is one pass with nothing after it in the call, so it takes
+    more CTAs than a fused_post_attn pass (chip_smoke `fused_split_sweep`,
+    PERF.md PR 14)."""
+    return _split_plan(K, N, QKV_PLAN_CTAS)
 
 
 def _lib() -> ctypes.CDLL:
@@ -260,7 +278,7 @@ def _qkv_launch(x, attn_norm, wqkv, bqkv=None, eps=1e-5, *, fault=0,
                                device=x.device))
     out, ssq = scratch
     h = torch.empty_like(x) if x.dtype == torch.float32 else None
-    nsplit, bounds = _plan_bounds([launch_plan(D, O)])
+    nsplit, bounds = _plan_bounds([qkv_plan(D, O)])
     rc = _lib().mdt_fused_qkv(
         _DTYPE_CODES[x.dtype], x.data_ptr(), attn_norm.data_ptr(),
         wqkv.data_ptr(), None if bqkv is None else bqkv.data_ptr(),
@@ -283,7 +301,7 @@ def fused_qkv(x: torch.Tensor, attn_norm: torch.Tensor, wqkv: torch.Tensor,
     decode. A bf16 call issues two kernels (csrc/fused_block.cu): x's sums
     of squares by 128-column block, then the product on fused_post_attn's
     weight-streaming design (TMA weight boxes through a 4-stage ring,
-    wgmma, K split by `launch_plan(D, O)` over a thread-block cluster whose
+    wgmma, K split by `qkv_plan(D, O)` over a thread-block cluster whose
     CTAs sum their partials in split order), the RMSNorm folded into each
     stage's activation box and the bias into the epilogue; the product is
     launched with programmatic dependent launch, so it fetches its first

@@ -360,6 +360,36 @@ def test_card_centroid_scores_matches_plain(cuda, dtype, T, C, D):
                                               device=cuda))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 7])
+@pytest.mark.parametrize("C", [130, 1024])
+@pytest.mark.parametrize("D", [64, 128])
+def test_card_centroid_scores_cluster_split(cuda, T, C, D):
+    """The centroid_scores kernel with C split over a cluster by
+    scores_plan(C, D) (C=130: 2 CTAs at D=64, 3 at 128; C=1024: 8), bf16 q,
+    against the plain version within 1e-5 + 1e-5 |ref|; and the limit
+    rejects the scores with the last rank left out of the rows' (max, sum
+    of exp) combine (`_scores_launch(fault=1)`)."""
+    from magicdec_tpu_torch.ops import gemm_softmax as gs
+
+    assert gs.scores_plan(C, D)[0] > 1
+    B, Hkv, G = 2, 8, 4
+    rng = np.random.default_rng(C + D + T)
+    q = torch.from_numpy(rng.standard_normal((B, T, Hkv * G, D)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    for scale in (0.2, 2.0):            # a flat and a peaked softmax
+        cent = torch.from_numpy((rng.standard_normal((B, C, Hkv * D)) * scale
+                                 ).astype(np.float32)).to(cuda)
+        view = cent.view(B, C, Hkv, D).transpose(1, 2)
+        ref = gs.centroid_scores_plain(q, view)
+        limit = 1e-5 + 1e-5 * ref.abs()
+        out = gs.centroid_scores(q, view)
+        assert bool(((out - ref).abs() <= limit).all()), \
+            float((out - ref).abs().max())
+        faulty = gs._scores_launch(q, view, fault=1)
+        assert not bool(((faulty - ref).abs() <= limit).all())
+
+
 def _rand(rng, dev, dtype, *shape, s=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * s).astype(
         np.float32)).to(dev, dtype)
@@ -452,15 +482,15 @@ def test_card_fused_block_matches_plain(cuda, dtype, widths):
                          ids=["D1024", "O1040", "1b", "8b"])
 def test_card_fused_qkv_split_matches_plain(cuda, D, O):
     """The bf16 fused_qkv (sums of squares, then the TMA/wgmma product with
-    K split by launch_plan(D, O)) at widths whose plan splits K (2, 2, 4
-    and 2 splits; O=1040 ends on a partial column block with no second
+    K split by qkv_plan(D, O)) at widths whose plan splits K (2, 2, 4 and 4
+    splits; O=1040 ends on a partial column block with no second
     weight box), with and without a bias, against the plain version within
     the per-element limit and MEAN_LIMIT; rows at M=8 bit-equal to the
     same rows inside M=56; and the limit rejects the output with the last
     split's partial left out of the sum (`_qkv_launch(fault=1)`)."""
     from magicdec_tpu_torch.ops import fused_block as fb
 
-    assert len(fb.launch_plan(D, O)) > 1
+    assert len(fb.qkv_plan(D, O)) > 1
     dtype = torch.bfloat16
     rng = np.random.default_rng(D + O)
     x = _rand(rng, cuda, dtype, 56, D)

@@ -86,13 +86,13 @@ def _qkv_width(cfg):
 
 @pytest.mark.parametrize("name", sorted(TRANSFORMER_CONFIGS))
 def test_qkv_plan_tiles_k_in_whole_stages(name):
-    """The bf16 fused_qkv product's plan, launch_plan(D, O), tiles D in
-    whole stages, in order, balanced, with 1 to MAX_SPLITS splits of at
-    least PLAN_STAGES stages, and keeps the product within PLAN_CTAS CTAs
-    at one 64-row tile."""
+    """The bf16 fused_qkv product's plan, qkv_plan(D, O), tiles D in whole
+    stages, in order, balanced, with 1 to MAX_SPLITS splits of at least
+    PLAN_STAGES stages, and keeps the product within QKV_PLAN_CTAS CTAs at
+    one 64-row tile."""
     D, O = _qkv_width(ModelArgs.from_name(name))
     assert D % fb.STAGE_K == 0 and O % fb.KERNEL_COLS == 0, (D, O)
-    plan = fb.launch_plan(D, O)
+    plan = fb.qkv_plan(D, O)
     assert 1 <= len(plan) <= fb.MAX_SPLITS, plan
     assert [k for r in plan for k in r][1:-1:2] == [k for r in plan
                                                    for k in r][2::2]
@@ -102,22 +102,23 @@ def test_qkv_plan_tiles_k_in_whole_stages(name):
     sizes = {(k1 - k0) // fb.STAGE_K for k0, k1 in plan}
     assert max(sizes) - min(sizes) <= 1, plan
     assert len(plan) == 1 or min(sizes) >= fb.PLAN_STAGES, plan
-    assert len(plan) == 1 or fb.column_blocks(O) * len(plan) <= fb.PLAN_CTAS
+    assert (len(plan) == 1
+            or fb.column_blocks(O) * len(plan) <= fb.QKV_PLAN_CTAS)
 
 
 @pytest.mark.parametrize("name,splits,ctas", [("llama-3.2-1b", 4, 96),
-                                              ("llama-3.1-8b", 2, 96)])
+                                              ("llama-3.1-8b", 4, 192)])
 def test_qkv_plan_at_the_timed_widths(name, splits, ctas):
     """The QKV product's split count and CTAs at one 64-row tile where
     PERF.md's times were taken: llama-3.2-1b D=2048, O=3072 (24 column
-    blocks x 4 splits); llama-3.1-8b D=4096, O=6144 (48 x 2)."""
+    blocks x 4 splits); llama-3.1-8b D=4096, O=6144 (48 x 4)."""
     D, O = _qkv_width(ModelArgs.from_name(name))
-    plan = fb.launch_plan(D, O)
+    plan = fb.qkv_plan(D, O)
     assert len(plan) == splits and fb.column_blocks(O) * splits == ctas
 
 
-def test_qkv_launch_reads_the_plan_from_k_and_n_only():
-    """_qkv_launch takes the plan from launch_plan(D, O): the row count is
-    in none of its inputs, so x[:8] and x[:56] get the same splits."""
-    src = inspect.getsource(fb._qkv_launch)
-    assert "launch_plan(D, O)" in src and "launch_plan(M" not in src
+def test_qkv_plan_reads_no_row_count():
+    """qkv_plan's only inputs are K and N, and _qkv_launch calls it with
+    (D, O), so x[:8] and x[:56] get the same splits."""
+    assert list(inspect.signature(fb.qkv_plan).parameters) == ["K", "N"]
+    assert "qkv_plan(D, O)" in inspect.getsource(fb._qkv_launch)
