@@ -250,7 +250,8 @@ int launch_d(const void* q, const float* cent, float* out, int B, int T,
 }  // namespace mdt
 
 // C interface (ctypes). dtype: 0 = float32 q, 1 = bfloat16 q. Strides are in
-// elements; the D axis of q and of the centroids is contiguous. D is 64 or
+// elements; the D axis of q and of the centroids is contiguous, and each
+// centroid starts 16-byte aligned (copied 16 bytes at a time). D is 64 or
 // 128; Hq is a multiple of Hkv. The plan (ops/gemm_softmax.py
 // `scores_plan`): S in [1, 8] CTAs a cluster, each scoring `chunk`
 // centroids, with (S - 1) chunk < C <= S chunk. fault 1 leaves the last rank

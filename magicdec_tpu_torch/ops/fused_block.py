@@ -13,18 +13,18 @@ forward of T <= 32 tokens through them when the fused mode is on.
 Rounding points, as the TPU kernels (x's dtype is bf16 on the card's main
 path, f32 in the exact tests): RMSNorm normalizes in f32, rounds to x's
 dtype and multiplies by the norm weight in x's dtype; each product sums in
-f32 and rounds to x's dtype; the qkv bias is added in x's dtype; the residual of the attention output is
-t = x + round(acc - x) with acc = x + ctx @ wo in f32; the SwiGLU operand
-is round(silu(gate)) * round(up), a product in x's dtype; the output is
-t + round(a @ w_down).
+f32 and rounds to x's dtype; the qkv bias is added in x's dtype; the
+residual of the attention output is t = x + round(acc - x) with acc = x +
+ctx @ wo in f32; the SwiGLU operand is round(silu(gate)) * round(up), a
+product in x's dtype; the output is t + round(a @ w_down).
 
 Every row is computed by a fixed sequence of operations that does not
 depend on the number of rows in the call, so a draft row (M = B) and the
 same row inside a verify (M = B * (gamma + 1)) get the same bits: the
 kernels never choose a tile or a split from M (`launch_plan` and
-`qkv_plan` read K and N alone), and the plain versions run at rows padded to a multiple of
-ROW_BUCKET (PyTorch's CPU GEMM and row reductions pick their blocking from
-the shape).
+`qkv_plan` read K and N alone), and the plain versions run at rows padded
+to a multiple of ROW_BUCKET (PyTorch's CPU GEMM and row reductions pick
+their blocking from the shape).
 
 On tensors on the CPU a wrapper runs the plain version; on CUDA tensors it
 launches the kernels or raises.
@@ -196,7 +196,7 @@ def qkv_plan(K: int, N: int) -> tuple[tuple[int, int], ...]:
     splits x 24 column blocks; llama-3.1-8b (4096, 6144): 4 x 48. The QKV
     product is one pass with nothing after it in the call, so it takes
     more CTAs than a fused_post_attn pass (chip_smoke `fused_split_sweep`,
-    PERF.md PR 14)."""
+    PERF.md)."""
     return _split_plan(K, N, QKV_PLAN_CTAS)
 
 

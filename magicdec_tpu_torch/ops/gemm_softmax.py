@@ -51,7 +51,7 @@ def scores_plan(C: int, D: int) -> tuple[int, int]:
     from B, Hkv or T, so a head's scores have the same bits in a call on a
     shard of the heads. llama-3.2-1b (D=64): C=130 2 CTAs of 65, C=1024 8
     of 128; D=128: C=130 3 of 44. Of chip_smoke's sweep of the aim, 8192
-    was within 0.2 us of the fastest at every C timed (PERF.md PR 14)."""
+    was within 0.2 us of the fastest at every C timed (PERF.md)."""
     S = max(1, min(MAX_SPLITS, -(-C * D // SCORES_CTA_FLOATS)))
     return S, -(-C // S)
 
@@ -102,7 +102,8 @@ def _scores_launch(q, centroids, *, fault=0):
                          f"Hkv and D 64 or 128 (the kernel's builds)")
     if q.stride(3) != 1 or centroids.stride(3) != 1:
         raise ValueError("q and centroids need a contiguous last (D) axis")
-    if centroids.data_ptr() % 16 or any(st % 4 for st in centroids.stride()[:3]):
+    if (centroids.data_ptr() % 16
+            or any(st % 4 for st in centroids.stride()[:3])):
         raise ValueError("centroids: each centroid must start 16-byte aligned "
                          "(the kernel copies them in 16-byte pieces)")
     M = T * (Hq // Hkv)
