@@ -168,6 +168,30 @@ exits non-zero):
  12f. nccl_world_of_one  one rank with the nccl backend: an all-reduce, then
                 llama-3.2-1b AR (8 tokens) with the mesh bit-equal to the
                 stream without it
+ 12g. trained   training on the card (magicdec_tpu_torch/train.py). First
+                train_card_vs_cpu: three make_train_step steps of the
+                small f32 model on the card and on the CPU on the same
+                batches: losses within 1e-5 relative, first moments within
+                1e-4 of each leaf's largest element, params within 1e-4 of
+                each leaf's update (mean over mean); the same steps with
+                TF32 on must fail that.
+                Then bench.py's BENCH_MODEL (bench.py:57-59) at full width
+                trained with bench.py's protocol cut to TRAIN_STEPS steps
+                (mixed_markov_dataset(2048, 2048, seed 7), batch 8, lr
+                1e-3, f32, remat, TF32 off; no kernel launched): the loss
+                at steps 0, N/2 and N, which must end below 4.0 nats, ms a
+                step, tokens/s, peak memory and the 1200-step protocol's
+                projected time; its bf16 cast saved with save_params and
+                loaded back bit for bit; on held-out prompts
+                (mixed_markov_dataset(4096, 8, seed 10_000)) AR and SnapKV
+                at budget 1024 and full budget with the trained weights
+                (lossless, full budget exactly 1.0, launch counts, the
+                acceptance and tok/s beside the main path's random-weight
+                run); a GliDe block trained against the frozen target for
+                GLIDE_STEPS steps (mixed_markov_dataset(1024, 1024, seed
+                7)): its loss must fall and flash_prefill launch n_layer
+                times a step (the target's forward); then GliDe linear
+                rounds with it (stream = AR, acceptance printed)
  13. times      each kernel at the main path's shapes (the attention kernels
                 at both head dims: `times` and `times_d128`): kernel, plain version,
                 bound (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s bf16, or 67
@@ -223,7 +247,9 @@ the repository's package is not beside this script.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
+import copy
 import json
 import subprocess
 import sys
@@ -295,7 +321,13 @@ class _Clock:
         self.seconds[name], self.t = now - self.t, now
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
+    ap.add_argument("--protocol", action="store_true",
+                    help="run only the build and the trained phase, at "
+                         "bench.py's full step counts (PROTOCOL_STEPS and "
+                         "PROTOCOL_GLIDE_STEPS) instead of the cut ones")
+    args = ap.parse_args(argv)
     import torch
 
     if not torch.cuda.is_available():
@@ -315,6 +347,10 @@ def main() -> int:
     clock = _Clock()
     line(phase="build", seconds=_build.build(), sources=list(_build.SOURCES))
     clock.mark("build")
+    if args.protocol:
+        trained(torch, dev, None, PROTOCOL_STEPS, PROTOCOL_GLIDE_STEPS)
+        clock.mark("trained")
+        return _finish(torch, clock, None)
 
     errs = {}
     for D in HEAD_DIMS:
@@ -337,7 +373,7 @@ def main() -> int:
     gemm_rows(torch, dev)
     clock.mark("reference_and_gemm_rows")
     params, prompt = main_inputs(torch, dev)
-    launches, ar = main_path(torch, dev, params, prompt)
+    launches, ar, random_tok_s = main_path(torch, dev, params, prompt)
     clock.mark("main_path")
     launches = _add(launches, longspec(torch, dev, params, prompt, ar))
     launches = _add(launches, quant_and_fused(torch, dev, params, prompt))
@@ -347,6 +383,9 @@ def main() -> int:
     clock.mark("glide")
     del params
     torch.cuda.empty_cache()
+    train_card_vs_cpu(torch, dev)
+    launches = _add(launches, trained(torch, dev, random_tok_s))
+    clock.mark("trained")
     launches128, ref8b = llama8b(torch, dev)
     clock.mark("llama8b")
     launches_tp = tensor_parallel(torch, dev, ref8b)
@@ -363,10 +402,16 @@ def main() -> int:
     gather_variants(torch, dev)
     step_profile(torch, dev)
     clock.mark("gather_variants_and_profile")
-    line(phase="seconds", **clock.seconds)
+    return _finish(torch, clock, kernels)
 
+
+def _finish(torch, clock, kernels) -> int:
+    """The phases' seconds, the card's name and power limit, the kernels'
+    JSON line (when the kernels were timed) and the last line."""
+    line(phase="seconds", **clock.seconds)
     print(_card())
-    print(json.dumps({"kernels": kernels}))
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -1662,7 +1707,8 @@ def main_path(torch, dev, params, prompt):
          decode_s={k: r["stats"].wall_time_s for k, r in runs.items()},
          launches={k: r["launches"] for k, r in runs.items()},
          invariant1=True, invariant2=True)
-    return total, ar
+    return total, ar, {k: rate(runs[k]) for k in ("ar", "snapkv",
+                                                  "snapkv_full")}
 
 
 def _path_launches(L, spec, new=NEW, sharded=False):
@@ -2034,6 +2080,242 @@ def glide_f32(torch, dev, params, prompt):
     del p32, gp
     torch.cuda.empty_cache()
     return _add(used_ar, used)
+
+
+# bench.py:57-59's BENCH_MODEL, the model the JAX package trains and
+# benchmarks (8 layers, dim 1024, 16/8 heads of 64, FFN 2816, vocab 4096,
+# tied embeddings); bench.py's training protocol: mixed_markov_dataset of
+# TRAIN_SEQS sequences of TRAIN_SEQ tokens (seed 7), batch 8, lr 1e-3, f32
+# master weights, PROTOCOL_STEPS steps, here cut to TRAIN_STEPS
+BENCH_MODEL = dict(block_size=8192, vocab_size=4096, n_layer=8, n_head=16,
+                   n_kv_head=8, dim=1024, intermediate_size=2816,
+                   rope_base=500000.0, tie_word_embeddings=True)
+TRAIN_SEQ, TRAIN_SEQS, TRAIN_BATCH, TRAIN_LR, TRAIN_SEED = 2048, 2048, 8, \
+    1e-3, 7
+PROTOCOL_STEPS, TRAIN_STEPS = 1200, 200
+TRAINED_LOSS_MAX = 4.0          # nats; ln 4096 = 8.32 at init
+# bench.py's GliDe block: mixed_markov_dataset(1024, 1024, seed 7), batch 8,
+# lr 1e-3, train_glide's default seed, PROTOCOL_GLIDE_STEPS steps (bench.py's
+# --glide_train_steps), here cut to GLIDE_STEPS
+GLIDE_SEQ, GLIDE_SEQS, GLIDE_STEPS = 1024, 1024, 60
+PROTOCOL_GLIDE_STEPS = 800
+HELD_OUT_SEED = 10_000          # bench.py's held-out prompts (seed 10_000)
+# the card-vs-CPU training check: three make_train_step steps of the small
+# f32 model; losses within 1e-5 relative, first moments within 1e-4 of each
+# leaf's largest element, params within 1e-4 of each leaf's update (mean
+# error over mean update: Adam carries a tiny gradient's f32 error into a
+# full-size update, so the largest element's error says little)
+STEP_LOSS_TOL, STEP_MU_TOL, STEP_PARAM_TOL = 1e-5, 1e-4, 1e-4
+
+
+def _three_steps(torch, dev, cfg, params, batches, tf32=False):
+    """Three make_train_step steps (lr 1e-2 over a 40-step schedule) from
+    a copy of params on dev: (params, losses, first moments) on the CPU.
+    tf32: run the products with TF32 on (the fault the check must catch)."""
+    from magicdec_tpu_torch import train
+
+    p = _to(copy.deepcopy(params), dev)
+    opt = train.make_optimizer(1e-2, 40)
+    step = train.make_train_step(cfg, opt)
+    state = opt.init(train.leaves_of(p))
+    losses = []
+    with train.highest_precision():
+        if tf32:
+            torch.backends.cuda.matmul.allow_tf32 = True
+            torch.set_float32_matmul_precision("high")
+        for toks in batches:
+            p, state, loss = step(p, state, toks.to(dev))
+            losses.append(float(loss))
+    return ([t.detach().cpu() for t in train.leaves_of(p)], losses,
+            [m.cpu() for m in state["mu"]])
+
+
+def train_card_vs_cpu(torch, dev):
+    """Three training steps of the small f32 model on the card and on the
+    CPU, held within STEP_*_TOL; the card with TF32 on must fail them."""
+    from magicdec_tpu_torch import train
+    from magicdec_tpu_torch.data.converters import mixed_markov_dataset
+    from magicdec_tpu_torch.models import llama
+
+    cfg = _small_cfg().replace(tie_word_embeddings=True)
+    params = llama.init_params(cfg, torch.float32, scale=0.1, seed=0,
+                               device="cpu")
+    p0 = train.leaves_of(params)
+    batches = [torch.from_numpy(mixed_markov_dataset(
+        seq_len=256, num_seqs=4, vocab_size=cfg.vocab_size, seed=20 + i))
+        for i in range(3)]
+    cpu = _three_steps(torch, "cpu", cfg, params, batches)
+
+    def errors(run):
+        got, losses, mu = run
+        return dict(
+            loss=max(abs(a - b) / abs(b) for a, b in zip(losses, cpu[1])),
+            mu=max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(mu, cpu[2])),
+            params=max(float((a - b).abs().mean() / (b - s).abs().mean())
+                       for a, b, s in zip(got, cpu[0], p0)))
+
+    def holds(e):
+        return (e["loss"] <= STEP_LOSS_TOL and e["mu"] <= STEP_MU_TOL
+                and e["params"] <= STEP_PARAM_TOL)
+
+    card = errors(_three_steps(torch, dev, cfg, params, batches))
+    tf32 = errors(_three_steps(torch, dev, cfg, params, batches, tf32=True))
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("train_card_vs_cpu: TF32 left on after the check")
+    if not holds(card):
+        fail(f"training on the card vs the CPU: {card}")
+    if holds(tf32):
+        fail(f"training with TF32 on passed the card-vs-CPU check: {tf32}")
+    line(phase="train_card_vs_cpu", model="small f32 (2 layers, dim 256, "
+         "tied)", steps=3, batch=4, seq=256, errors=card, errors_tf32=tf32,
+         tol={"loss": STEP_LOSS_TOL, "mu": STEP_MU_TOL,
+              "params": STEP_PARAM_TOL})
+
+
+def trained(torch, dev, random_tok_s, steps=TRAIN_STEPS,
+            glide_steps=GLIDE_STEPS):
+    """BENCH_MODEL trained at full width on the card (bench.py's protocol,
+    `steps` steps), its bf16 checkpoint saved and loaded bit for bit, then
+    AR and SnapKV (budget 1024 and full) on held-out prompts with the
+    trained weights, a GliDe block trained against the frozen target for
+    `glide_steps` steps and its linear rounds. random_tok_s: the main
+    path's random-weight tok/s, printed beside (None when not run). Returns
+    the launch counts of the engine runs and of train_glide."""
+    import tempfile
+
+    from magicdec_tpu_torch import train
+    from magicdec_tpu_torch.checkpoint.store import (flatten_params,
+                                                     load_params, save_params)
+    from magicdec_tpu_torch.data.converters import mixed_markov_dataset
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.glide_engine import GlideEngine
+    from magicdec_tpu_torch.models.config import ModelArgs
+
+    cfg = ModelArgs(**BENCH_MODEL)
+    L = cfg.n_layer
+    t = time.perf_counter()
+    data = mixed_markov_dataset(seq_len=TRAIN_SEQ, num_seqs=TRAIN_SEQS,
+                                seed=TRAIN_SEED)
+    corpus_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    history = []
+    # plain ops and cuBLAS only: the trainer launches none of the kernels
+    (params, loss), _, train_s = _drive(
+        torch, "train", lambda: train.train(
+            cfg, data, steps=steps, batch=TRAIN_BATCH, lr=TRAIN_LR,
+            seed=TRAIN_SEED, device=dev, history=history),
+        lambda r: _zero())
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in history]
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        fail("trained: a training loss is not finite")
+    if loss >= TRAINED_LOSS_MAX:
+        fail(f"trained: final loss {loss} >= {TRAINED_LOSS_MAX} nats")
+    del data
+    ms_step = 1e3 * train_s / steps
+
+    # the bf16 checkpoint, written and read back bit for bit
+    p16 = train.cast_params(params, torch.bfloat16)
+    del params
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "bench_model.npz")
+        save_params(path, p16)
+        back = load_params(path, device=dev)
+    want, got = flatten_params(p16), flatten_params(back)
+    if (back["output"] is not None or list(got) != list(want)
+            or not all(got[k].dtype == torch.bfloat16 and torch.equal(
+                got[k].view(torch.int16), want[k].view(torch.int16))
+                for k in want)):
+        fail("trained: the bf16 checkpoint did not round-trip bit for bit")
+    p16 = back
+
+    # held-out prompts: AR, SnapKV at budget 1024 and at full budget
+    prompt = mixed_markov_dataset(seq_len=P, num_seqs=B, seed=HELD_OUT_SEED)
+    runs, total = {}, _zero()
+    for name, spec, budget in (("ar", None, 0), ("snapkv", "snapkv", BUDGET),
+                               ("snapkv_full", "snapkv", P)):
+        runs[name] = _spec_run(torch, cfg, p16, prompt, name, spec, budget)
+        total = _add(total, runs[name]["launches"])
+    ar = runs["ar"]["out"]
+    for name in ("snapkv", "snapkv_full"):
+        _check_stream(torch, f"trained {name}", runs[name]["out"],
+                      runs[name]["counts"], ar, cfg.vocab_size)
+    if runs["snapkv_full"]["stats"].acceptance_rate != 1.0:
+        fail(f"trained snapkv_full: acceptance "
+             f"{runs['snapkv_full']['stats'].acceptance_rate} != 1.0")
+
+    # the GliDe block against the frozen trained target
+    gdata = mixed_markov_dataset(seq_len=GLIDE_SEQ, num_seqs=GLIDE_SEQS,
+                                 seed=TRAIN_SEED)
+    ghist = []
+    (gp, gloss), glaunch, glide_s = _drive(
+        torch, "train_glide", lambda: train.train_glide(
+            p16, cfg, gdata, steps=glide_steps, batch=TRAIN_BATCH,
+            lr=TRAIN_LR, device=dev, history=ghist),
+        lambda r: dict(_zero(), flash_prefill=L * glide_steps))
+    glosses = [float(x) for x in ghist]
+    if not gloss < 0.9 * glosses[0]:
+        fail(f"train_glide: the loss did not fall ({glosses[0]} -> {gloss})")
+    total = _add(total, glaunch)
+    gp16 = train.cast_params(gp, torch.bfloat16)
+    del gp, gdata
+
+    def go_glide():
+        return GlideEngine(Engine(cfg, p16, batch_size=B, max_len=MAX_LEN),
+                           gp16).generate(prompt, NEW, gamma=GAMMA)
+
+    (gout, gcounts, gstats), used, gseconds = _drive(
+        torch, "trained glide linear", go_glide,
+        _glide_expect(L, P // 128, None))
+    _check_stream(torch, "trained glide linear", gout, gcounts, ar,
+                  cfg.vocab_size)
+    total = _add(total, used)
+
+    def rate(s):
+        return s.generated_tokens / s.wall_time_s
+
+    half = steps // 2
+    line(phase="trained", model="BENCH_MODEL (bench.py:57-59)",
+         protocol={"corpus": f"mixed_markov_dataset(seq_len={TRAIN_SEQ}, "
+                   f"num_seqs={TRAIN_SEQS}, seed={TRAIN_SEED})",
+                   "batch": TRAIN_BATCH, "lr": TRAIN_LR, "dtype": "float32",
+                   "remat": True, "tf32": False, "steps": steps,
+                   "protocol_steps": PROTOCOL_STEPS},
+         loss={"step_0": losses[0], f"step_{half}": losses[half],
+               f"step_{steps}": loss},
+         loss_every_tenth={i: losses[i] for i in range(
+             0, steps, max(steps // 10, 1))},
+         ms_per_step=ms_step,
+         tokens_per_s=steps * TRAIN_BATCH * (TRAIN_SEQ - 1) / train_s,
+         peak_memory_gb=peak / 2 ** 30, corpus_s=corpus_s, train_s=train_s,
+         projected_protocol_s=corpus_s + PROTOCOL_STEPS * ms_step / 1e3,
+         checkpoint="bf16 save_params/load_params bit-equal",
+         held_out=f"mixed_markov_dataset(seq_len={P}, num_seqs={B}, "
+                  f"seed={HELD_OUT_SEED})", B=B, P=P, new_tokens=NEW,
+         gamma=GAMMA,
+         acceptance={"snapkv_1024": runs["snapkv"]["stats"].acceptance_rate,
+                     "snapkv_full": 1.0,
+                     "glide_linear": gstats.acceptance_rate},
+         rounds={"snapkv_1024": runs["snapkv"]["stats"].rounds,
+                 "glide_linear": gstats.rounds},
+         tok_s={"ar": rate(runs["ar"]["stats"]),
+                "snapkv_1024": rate(runs["snapkv"]["stats"]),
+                "snapkv_full": rate(runs["snapkv_full"]["stats"]),
+                "glide_linear": rate(gstats)},
+         random_weights_tok_s_llama_3_2_1b=random_tok_s,
+         glide={"corpus": f"mixed_markov_dataset(seq_len={GLIDE_SEQ}, "
+                f"num_seqs={GLIDE_SEQS}, seed={TRAIN_SEED})",
+                "steps": glide_steps, "loss_first": glosses[0],
+                "loss_last": gloss, "train_s": glide_s,
+                "ms_per_step": 1e3 * glide_s / glide_steps,
+                "flash_prefill_launches": glaunch["flash_prefill"]},
+         launches={k: {n: c for n, c in r["launches"].items() if c}
+                   for k, r in runs.items()},
+         invariant1=True, invariant2=True)
+    del p16, gp16
+    torch.cuda.empty_cache()
+    return total
 
 
 def llama8b(torch, dev, profile_steps=8, profile_rounds=2):

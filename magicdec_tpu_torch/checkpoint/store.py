@@ -1,9 +1,11 @@
-"""Loader for the JAX package's npz checkpoint format (port of the reading
-half of magicdec_tpu/checkpoint/store.py).
+"""The JAX package's npz checkpoint format, read and written (port of
+magicdec_tpu/checkpoint/store.py's save_params and load_params).
 
 A checkpoint is a flat .npz of "/"-joined keys. Dtypes numpy lacks
 (bfloat16) are stored as a uint16 bit view plus a `<key>@dtype` tag; they are
-read back as torch tensors through an int16 view, without ml_dtypes.
+written and read back through an int16 view of the tensor, without
+ml_dtypes. A file written here loads in the JAX package and the other way
+round.
 """
 
 from __future__ import annotations
@@ -11,6 +13,38 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+
+def flatten_params(tree, prefix: str = "") -> dict:
+    """A params tree (dicts, lists or tuples of tensors) -> {"/"-joined path:
+    tensor}, dict keys in sorted order as jax.tree_util walks them; None
+    leaves (a tied `output`) are skipped."""
+    if tree is None:
+        return {}
+    if isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, (list, tuple)):
+        items = list(enumerate(tree))
+    else:
+        return {prefix: tree}
+    flat = {}
+    for k, v in items:
+        flat.update(flatten_params(v, f"{prefix}/{k}" if prefix else str(k)))
+    return flat
+
+
+def save_params(path: str, params) -> None:
+    """Write a params tree as the JAX package's save_params does: one entry
+    a leaf under its "/"-joined path, None leaves skipped, a bfloat16 leaf
+    as its uint16 bit view plus a `<key>@dtype` tag "bfloat16"."""
+    flat = {}
+    for key, t in flatten_params(params).items():
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            flat[key] = t.view(torch.int16).numpy().view(np.uint16)
+            flat[key + "@dtype"] = np.str_("bfloat16")
+        else:
+            flat[key] = t.numpy()
+    np.savez(path, **flat)
 
 
 def tensor_from_numpy(arr: np.ndarray, dtype_name: str | None = None

@@ -148,7 +148,9 @@ def glide_forward(glide: Params, target_params: Params, config: ModelArgs,
         ctx = dense.masked_attention_general(
             q, own_k.reshape(B, Sd, Hkv, Dh), own_v.reshape(B, Sd, Hkv, Dh),
             attn_mask)
-    x = x + ctx.reshape(B, T, -1).to(x.dtype) @ glide["wo"]
+    # the context in the block's dtype: an f32 block training against a bf16
+    # target (train.glide_loss) keeps it in f32, as JAX's promotion does
+    x = x + ctx.reshape(B, T, -1).to(glide["wo"].dtype) @ glide["wo"]
 
     # cross-attention into the target's last-layer KV (GQA layout shared),
     # bounded by the verified prefix, so the flash route needs no tree part
@@ -162,7 +164,8 @@ def glide_forward(glide: Params, target_params: Params, config: ModelArgs,
         ctx = dense.masked_attention(qc, tgt_k_last.reshape(B, S, Hkv, Dh),
                                      tgt_v_last.reshape(B, S, Hkv, Dh),
                                      tgt_valid_upto)
-    x = x + ctx.reshape(B, T, -1).to(x.dtype) @ glide["wo_cross"]
+    w = glide["wo_cross"]
+    x = x + ctx.reshape(B, T, -1).to(w.dtype) @ w
 
     # SwiGLU MLP
     h = rms_norm(x, glide["ffn_norm"], c.norm_eps)

@@ -44,6 +44,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from magicdec_tpu_torch.checkpoint.store import tensor_from_numpy
 from magicdec_tpu_torch.device import resolve_device
@@ -159,7 +160,10 @@ def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1])
     xp = _pad_rows(x2)
     if xp.dtype == torch.float32:
-        y = xp @ w
+        # f32 rows against bf16 weights (a GliDe block training in f32
+        # against a bf16 target: train.glide_loss) promote the weights to
+        # f32, as jnp.dot does; a no-op for f32 weights
+        y = xp @ w.float()
     elif xp.is_cuda:
         y = torch.mm(xp, w, out_dtype=torch.float32)
     else:   # the CPU build has no kernel for mm's out_dtype variant
@@ -266,11 +270,18 @@ def _fused_auto(params: Params, x: torch.Tensor, T: int,
 
 def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
                attn_impl: AttnImpl, caches: tuple, B: int, T: int,
-               fused: bool | None = None) -> torch.Tensor:
+               fused: bool | None = None,
+               remat: bool = False) -> torch.Tensor:
     """The decoder stack over padded rows x [Mp, dim]; caches are the full
     stacked [L, ...] tensors, which attn_impl writes in place at layer l.
     fused: see _fused_auto. The fused block runs the B*T token rows
-    unpadded; they are padded to Mp again for the unembedding."""
+    unpadded; they are padded to Mp again for the unembedding.
+
+    remat=True checkpoints each layer (training, as the JAX package's
+    jax.checkpoint over the scan): a layer keeps only its input for the
+    backward pass and recomputes its activations, the attention logits
+    among them, there. It changes no value: remat=False runs the layers as
+    they are."""
     if config.mesh is not None and config.mesh.tp > 1:
         # off under tensor parallelism, as the JAX package's fused_for_mesh:
         # the fused kernels take whole weights and hold no collective
@@ -283,7 +294,12 @@ def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
     if use_fused:
         x = x[:B * T]
     for l in range(config.n_layer):
-        x = _block(x, params, config, attn_impl, caches, l, B, T, use_fused)
+        if remat:
+            x = checkpoint(_block, x, params, config, attn_impl, caches, l, B,
+                           T, use_fused, use_reentrant=False)
+        else:
+            x = _block(x, params, config, attn_impl, caches, l, B, T,
+                       use_fused)
     return _pad_rows(x, rows) if use_fused else x
 
 
@@ -315,15 +331,16 @@ def unembed(params: Params, config: ModelArgs, x: torch.Tensor) -> torch.Tensor:
 
 def forward(params: Params, config: ModelArgs, tokens: torch.Tensor,
             attn_impl: AttnImpl, caches: tuple, last_only: bool = False,
-            fused: bool | None = None) -> torch.Tensor:
+            fused: bool | None = None, remat: bool = False) -> torch.Tensor:
     """tokens [B, T] -> logits float32 [B, T, V] ([B, 1, V] with last_only);
     the caches are written in place. fused: the fused decode block switch
-    (None = auto; see _fused_auto). Under a tp mesh (config.mesh) every
-    rank returns the same full logits: the vocab columns are gathered in
-    rank order, so every rank takes the same argmax."""
+    (None = auto; see _fused_auto); remat: checkpoint each layer (see
+    run_layers). Under a tp mesh (config.mesh) every rank returns the same
+    full logits: the vocab columns are gathered in rank order, so every
+    rank takes the same argmax."""
     B, T = tokens.shape
     x = _pad_rows(embed(params, config, tokens.reshape(-1)), row_bucket(B, T))
-    x = run_layers(params, config, x, attn_impl, caches, B, T, fused)
+    x = run_layers(params, config, x, attn_impl, caches, B, T, fused, remat)
     if last_only:
         x = _pad_rows(x[:B * T].reshape(B, T, -1)[:, -1], row_bucket(B, 1))
         T = 1

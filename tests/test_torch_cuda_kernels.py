@@ -734,3 +734,98 @@ def test_card_sharded_form_bitequal_to_whole(cuda, form, D):
                 assert torch.equal(_bits(o), _bits(want))
             continue
         assert torch.equal(_bits(torch.cat(outs, dim=axis)), _bits(whole()))
+
+
+# ---------------------------------------------------------------------------
+# training on the card (magicdec_tpu_torch/train.py): plain ops and cuBLAS
+# products, and flash_prefill in the frozen target's forward
+# ---------------------------------------------------------------------------
+
+def _on(tree, dev):
+    """A params tree (dicts of tensors, None leaves) on dev."""
+    if tree is None or torch.is_tensor(tree):
+        return None if tree is None else tree.to(dev)
+    return {k: _on(v, dev) for k, v in tree.items()}
+
+
+def _three_train_steps(dev, cfg, batches):
+    """Three make_train_step steps from seed-0 f32 params (scale 0.1) on
+    dev, TF32 off: (params before, params after, losses, first moments)."""
+    from magicdec_tpu_torch import train
+    from magicdec_tpu_torch.models import llama
+
+    params = llama.init_params(cfg, torch.float32, scale=0.1, seed=0,
+                               device="cpu")
+    p0 = [p.clone() for p in train.leaves_of(params)]
+    params = _on(params, dev)
+    opt = train.make_optimizer(1e-2, 40)
+    step = train.make_train_step(cfg, opt)
+    state = opt.init(train.leaves_of(params))
+    losses = []
+    with train.highest_precision():
+        for toks in batches:
+            params, state, loss = step(params, state, toks.to(dev))
+            losses.append(float(loss))
+    return (p0, [p.detach().cpu() for p in train.leaves_of(params)], losses,
+            [m.cpu() for m in state["mu"]])
+
+
+@pytest.mark.cuda
+def test_card_three_train_steps_match_cpu(cuda):
+    """Three f32 steps on the card against the same steps on the CPU: the
+    losses within 1e-5 relative, each leaf's first moment (the gradients'
+    average) within 1e-4 of its largest element, each leaf's params within
+    1e-4 of its update (mean error over mean update, as
+    tests/test_torch_train.py holds the port to JAX)."""
+    from magicdec_tpu_torch.data.converters import mixed_markov_dataset
+    from magicdec_tpu_torch.models.config import ModelArgs
+
+    cfg = ModelArgs.from_name("test-tiny").replace(tie_word_embeddings=True)
+    batches = [torch.from_numpy(mixed_markov_dataset(
+        seq_len=64, num_seqs=4, vocab_size=cfg.vocab_size, seed=10 + i))
+        for i in range(3)]
+    p0, cpu, cpu_loss, cpu_mu = _three_train_steps("cpu", cfg, batches)
+    _, card, card_loss, card_mu = _three_train_steps(cuda, cfg, batches)
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-5)
+    for a, b in zip(card_mu, cpu_mu):
+        assert float((a - b).abs().max() / b.abs().max()) <= 1e-4
+    for a, b, s in zip(card, cpu, p0):
+        assert float((a - b).abs().mean() / (b - s).abs().mean()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_card_target_last_kv_takes_flash_prefill(cuda, monkeypatch):
+    """_target_last_kv of a bf16 target over a whole 1024-token sequence on
+    the card: one flash_prefill launch a layer, each output within the
+    kernel's per-element limit of its plain version on the same inputs,
+    and the returned K/V the last layer of the cache those launches read."""
+    from magicdec_tpu_torch import train
+    from magicdec_tpu_torch.engine import attention_impls as impls
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+
+    cfg = ModelArgs.from_name("llama-3.2-1b").replace(
+        n_layer=2, dim=512, n_head=8, n_kv_head=4, intermediate_size=1024,
+        vocab_size=1024)
+    params = llama.init_params(cfg, torch.bfloat16, scale=0.1, seed=0,
+                               device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 1024)).astype(np.int32))
+    calls = []
+    real = impls.flash_prefill
+
+    def spy(q, ck, cv, l, valid, s_cap=None):
+        out = real(q, ck, cv, l, valid, s_cap=s_cap)
+        ref, limit = tfd.plain_f32_and_limit(q, ck, cv, l, valid, s_cap)
+        calls.append((ck, cv, bool(((out.float() - ref).abs()
+                                    <= limit).all())))
+        return out
+
+    monkeypatch.setattr(impls, "flash_prefill", spy)
+    before = tfd.flash_prefill.launches
+    k, v = train._target_last_kv(params, cfg, toks, device=cuda)
+    assert tfd.flash_prefill.launches - before == cfg.n_layer
+    assert len(calls) == cfg.n_layer and all(ok for _, _, ok in calls)
+    ck, cv, _ = calls[-1]
+    assert k.dtype == torch.bfloat16 and k.shape == (2, 1024, 4 * 64)
+    assert torch.equal(k, ck[-1]) and torch.equal(v, cv[-1])

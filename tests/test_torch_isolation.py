@@ -9,6 +9,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -37,6 +38,8 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "magicdec_tpu_torch.ops.fused_block" in mods
     assert "magicdec_tpu_torch.models.glide" in mods
     assert "magicdec_tpu_torch.engine.glide_engine" in mods
+    assert "magicdec_tpu_torch.train" in mods
+    assert "magicdec_tpu_torch.data.converters" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
@@ -57,6 +60,7 @@ def test_port_imports_without_jax_or_the_jax_package():
 
 
 def test_entry_points_raise_without_a_gpu(monkeypatch):
+    from magicdec_tpu_torch import train
     from magicdec_tpu_torch.engine.backend import Engine
     from magicdec_tpu_torch.models import glide, llama
     from magicdec_tpu_torch.models.config import ModelArgs
@@ -73,6 +77,14 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         glide.init_glide_params(cfg)
     assert glide.init_glide_params(cfg, device="cpu")["wqkv"].device.type == "cpu"
+    data = np.ones((4, 16), np.int32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train(cfg, data, steps=2, batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.train_glide(params, cfg, data, steps=2, batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train._target_last_kv(params, cfg,
+                              torch.ones((1, 8), dtype=torch.int32))
     # an explicit CPU request is honoured
     assert Engine(cfg, params, batch_size=1, max_len=128,
                   device="cpu").device.type == "cpu"
