@@ -31,6 +31,10 @@ the rank's KV-head columns; the cluster slot tables and counts are the same
 on every rank: the k-means distances and the centroid scores are sums over
 all heads, all-reduced before their argmin and top-k.
 
+HostClusterStore keeps the cluster K/V bytes in the host wave buffer
+(engine/wave_buffer.py) instead, for contexts larger than the card's
+memory; engine/offload.py is the generation path built on that layout.
+
 As elsewhere in the port, the buffers, the index and the store are written
 in place. Where the JAX package runs the rounds inside one lax.while_loop,
 the port runs a Python loop over rounds (engine/spec.py) with one host read
@@ -48,6 +52,7 @@ from magicdec_tpu_torch.engine import attention_impls as impls
 from magicdec_tpu_torch.engine.attention_impls import (_flat, _positions,
                                                        _Rotary, _Slots)
 from magicdec_tpu_torch.engine.sampling import argmax_tokens
+from magicdec_tpu_torch.engine.wave_buffer import HostBlockStore
 from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.models.config import ModelArgs
 from magicdec_tpu_torch.ops.flash_decode import flash_decode_stacked_masked
@@ -533,3 +538,31 @@ class RetroState(RoundBuffer):
                                  self.tail_base, self.indexed_upto,
                                  age_max=self.age_max, cap=self.cap,
                                  mesh=mesh)
+
+
+class HostClusterStore(HostBlockStore):
+    """Offload variant of the cluster index's store: the cluster K/V bytes
+    live in the host wave buffer (one slot per (layer, sequence,
+    cluster)), and gather_clusters / fetch pull the selected clusters into
+    one contiguous block (on the host, or through a pinned buffer onto a
+    device). This is the capacity path, for contexts larger than the
+    card's memory: selection still happens on the device from the
+    centroids; only member K/V bytes live on the host.
+
+    Built from a target cache and build_cluster_index's slot table
+    [L, B, C, cap] (-1 padding; pad members hold the clipped row 0 and are
+    masked by member_valid), one layer at a time."""
+
+    def __init__(self, config: ModelArgs, cache: KVCache,
+                 cluster_slots: torch.Tensor, cap: int):
+        L, B, S, HD = cache.k.shape
+        C = cluster_slots.shape[2]
+        super().__init__(L, B, C, cap, HD, cache.k.dtype)
+        self.shape = (L, B, C, cap, HD)
+        b_idx = torch.arange(B, device=cache.k.device)[:, None]
+        for l in range(L):
+            src = cluster_slots[l].clamp(0, S - 1).reshape(B, C * cap).long()
+            k = cache.k[l][b_idx, src].reshape(B, C, cap, HD)
+            v = cache.v[l][b_idx, src].reshape(B, C, cap, HD)
+            self.put_layer(l, torch.stack([k, v], dim=2))
+        self.member_valid = cluster_slots >= 0

@@ -829,3 +829,69 @@ def test_card_target_last_kv_takes_flash_prefill(cuda, monkeypatch):
     ck, cv, _ = calls[-1]
     assert k.dtype == torch.bfloat16 and k.shape == (2, 1024, 4 * 64)
     assert torch.equal(k, ck[-1]) and torch.equal(v, cv[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_pinned_fetch_gives_the_store_bytes(cuda, dtype):
+    """HostBlockStore.fetch on the card: the wave buffer's gather into a
+    pinned buffer and its non-blocking copy give the stored blocks bit for
+    bit, across alternating staging buffers and a staging buffer that
+    grows, with the host gather of the next fetch overlapping the copy of
+    the one before."""
+    from magicdec_tpu_torch.engine.wave_buffer import HostBlockStore
+
+    L, B, C, cap, HD = 2, 3, 16, 32, 128
+    g = torch.Generator().manual_seed(0)
+    blocks = torch.randn((L, B, C, 2, cap, HD), generator=g).to(dtype)
+    store = HostBlockStore(L, B, C, cap, HD, dtype)
+    for l in range(L):
+        store.put_layer(l, blocks[l].to(cuda))
+    rng = np.random.default_rng(1)
+    got, want = [], []
+    for i, n in enumerate((4, 4, 9, 2, 16, 16)):
+        top = rng.integers(0, C, (B, n))
+        got.append(store.fetch(i % L, top, cuda))
+        want.append(blocks[i % L][torch.arange(B)[:, None],
+                                  torch.from_numpy(top)])
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.is_cuda and a.dtype == dtype
+        assert torch.equal(a.cpu(), b)
+    staging = store._staging[cuda]
+    assert staging.copies == 6 and staging.bytes == sum(
+        b.numel() * b.element_size() for b in want)
+    assert all(buf.is_pinned() for buf in staging._bufs)
+
+
+@pytest.mark.cuda
+def test_card_full_budget_serving_accepts_exactly_one(cuda):
+    """A small f32 ServeEngine on the card at full budget (budget = prompt):
+    every live row accepts every draft, and each served stream equals the
+    solo stream of its prompt on the card."""
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.serve import Request, ServeEngine
+    from magicdec_tpu_torch.engine.spec import generate_selfspec
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+
+    cfg = ModelArgs.from_name("llama-3.2-1b").replace(
+        n_layer=2, dim=256, n_head=4, n_kv_head=2, intermediate_size=512,
+        vocab_size=512)
+    params = llama.init_params(cfg, torch.float32, scale=0.3, seed=0,
+                               device=cuda)
+    rng = np.random.default_rng(3)
+    P, new_lens = 256, [24, 40, 16, 32, 8]
+    prompts = [rng.integers(0, cfg.vocab_size, (P,)).astype(np.int32)
+               for _ in new_lens]
+    srv = ServeEngine(cfg, params, batch_size=2, max_len=P + 64,
+                      draft_budget=P, gamma=4, max_new_cap=40)
+    done = srv.run([Request(i, p, n) for i, (p, n)
+                    in enumerate(zip(prompts, new_lens))])
+    assert srv.acceptance_rate == 1.0 and srv.admissions == 5
+    for c in done:
+        eng = Engine(cfg, params, batch_size=1, max_len=P + 64,
+                     spec="snapkv", draft_budget=P)
+        out, _, _ = generate_selfspec(eng, prompts[c.req_id][None], 4,
+                                      new_lens[c.req_id])
+        assert np.array_equal(c.tokens, out[0, :new_lens[c.req_id]].cpu())

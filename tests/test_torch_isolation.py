@@ -40,6 +40,9 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "magicdec_tpu_torch.engine.glide_engine" in mods
     assert "magicdec_tpu_torch.train" in mods
     assert "magicdec_tpu_torch.data.converters" in mods
+    assert "magicdec_tpu_torch.engine.serve" in mods
+    assert "magicdec_tpu_torch.engine.offload" in mods
+    assert "magicdec_tpu_torch.engine.wave_buffer" in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
@@ -88,6 +91,46 @@ def test_entry_points_raise_without_a_gpu(monkeypatch):
     # an explicit CPU request is honoured
     assert Engine(cfg, params, batch_size=1, max_len=128,
                   device="cpu").device.type == "cpu"
+
+
+def test_serve_and_offload_raise_without_a_gpu(monkeypatch):
+    """ServeEngine, the offload entry points and ClusterLRU run on the card
+    unless given device='cpu'; with no GPU and no device they raise."""
+    from magicdec_tpu_torch.engine import offload
+    from magicdec_tpu_torch.engine.serve import ServeEngine
+    from magicdec_tpu_torch.engine.wave_buffer import HostBlockStore
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+
+    cfg = ModelArgs.from_name("test-tiny")
+    params = llama.init_params(cfg, device="cpu")
+    HD = cfg.n_kv_head * cfg.head_dim
+    store = HostBlockStore(cfg.n_layer, 1, 4, 32, HD, torch.float32)
+    tokens = np.ones((1, 128), np.int32)
+    kw = dict(n_clusters=4, cap=32, tail_keep=32)
+    state, buffer0 = offload.offload_prefill(params, cfg, store, tokens,
+                                             device="cpu", **kw)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params, batch_size=1, max_len=256, draft_budget=64)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        offload.offload_prefill(params, cfg, store, tokens, **kw)
+    gen = dict(nprobe=2, cap=32)
+    for fn in (offload.offload_generate, offload.offload_generate_hostloop):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(params, cfg, state, store, buffer0, 4, **gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        offload.offload_generate_spec(params, cfg, state, store, buffer0, 4,
+                                      gamma=2, **gen)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        offload.ClusterLRU(store, 8)
+    # an explicit CPU request is honoured
+    srv = ServeEngine(cfg, params, batch_size=1, max_len=256,
+                      draft_budget=64, device="cpu")
+    assert srv.frame.device.type == srv.stage.device.type == "cpu"
+    out, _ = offload.offload_generate(params, cfg, state, store, buffer0, 4,
+                                      device="cpu", **gen)
+    assert out.shape == (1, 4) and out.device.type == "cpu"
 
 
 def _run_smoke(cwd):
