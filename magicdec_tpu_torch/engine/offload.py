@@ -17,11 +17,12 @@ memory (port of magicdec_tpu/engine/offload.py).
 Where the JAX package crosses to the host through an ordered io_callback
 inside a jitted step (offload_generate) or between two jitted layer halves
 (offload_generate_hostloop), the port's eager layer loop calls the host
-between the halves in both; each layer's cluster selection is read to the
-host there, a synchronization the JAX package pays too. Both entry points
-stay, and run the same per-token program, so they emit the same tokens on
-any device. The fetch function is injected, so the same decode step can
-serve clusters from a device store instead (device_fetch_fn).
+between the halves; each layer's cluster selection is read to the host
+there, a synchronization the JAX package pays too. Both entry points stay:
+the hostloop is offload_generate with an optional ClusterLRU as its fetch,
+so the two emit the same tokens on any device. The fetch function is
+injected, so the same decode step can serve clusters from a device store
+instead (device_fetch_fn).
 
 Every entry point runs on the current CUDA device unless `device` says
 otherwise; with no GPU and no device it raises. A generation clones the
@@ -289,11 +290,6 @@ def _attend_body(lp, config: ModelArgs, x, q, k_sel, v_sel, mem_ok,
     return _post_attn(lp, config, x, ctx)
 
 
-# up to the cluster selection: (q rotated, top_c), the token's K/V appended
-# to the tail slices in place (the JAX package jits this half apart)
-_hostloop_part1 = _part1_body
-
-
 def _hostloop_part2(lp, config: ModelArgs, x, q, blocks, mem_ok, tail_k_l,
                     tail_v_l, tail_len):
     """After the fetch: attend [clusters (blocks [B, nprobe, 2, cap, HD]) |
@@ -321,13 +317,11 @@ def _decode_step_fn(config: ModelArgs, fetch_fn, *, nprobe: int):
     K/V into state's tails in place and returns (next token [B, 1], the
     state with tail_len + 1)."""
 
-    def step(params, state: OffloadState, tok, layers=None):
-        layers = layers or [_layer_params(params, l)
-                            for l in range(config.n_layer)]
+    def step(params, state: OffloadState, tok, layers):
         positions = (state.tail_base + state.tail_len)[:, None]
         x = _embed(params, tok)
         for l, lp in enumerate(layers):
-            q, top_c = _hostloop_part1(
+            q, top_c = _part1_body(
                 lp, config, x, positions, state.centroids[l],
                 state.tail_k[l], state.tail_v[l], state.tail_len, nprobe)
             blocks = fetch_fn(l, top_c)
@@ -410,43 +404,25 @@ def offload_generate(params, config: ModelArgs, state: OffloadState, store,
     return torch.cat(toks, dim=1), state
 
 
-@torch.inference_mode()
 def offload_generate_hostloop(params, config: ModelArgs, state: OffloadState,
                               store, buffer0, max_new_tokens: int, *,
                               nprobe: int, cap: int,
                               lru: "ClusterLRU" = None, device=None):
     """Offload decode with the per-layer fetch in the host loop between the
     two layer halves (the JAX package's form for backends where an
-    io_callback hangs). The same per-token program as offload_generate, so
-    the same tokens.
+    io_callback hangs). In eager PyTorch that is offload_generate itself:
+    the same per-token program, so the same tokens.
 
     `lru`: an optional device-resident block cache (ClusterLRU); fetches
     then hit device memory for resident clusters and the host link only on
     misses."""
-    dev = _resolve(device, config, params, state.tail_k, buffer0)
-    _check_tail(state, max_new_tokens - 1, "offload_generate_hostloop")
-    layers = [_layer_params(params, l) for l in range(config.n_layer)]
-    state = _cloned(state)
-    tail_len = state.tail_len
-    toks = [buffer0]
-    tok = buffer0
-    for _ in range(max_new_tokens - 1):
-        positions = (state.tail_base + tail_len)[:, None]
-        x = _embed(params, tok)
-        for l, lp in enumerate(layers):
-            q, top_c = _hostloop_part1(
-                lp, config, x, positions, state.centroids[l],
-                state.tail_k[l], state.tail_v[l], tail_len, nprobe)
-            top_np = top_c.cpu().numpy()
-            blocks = (lru.fetch(l, top_np) if lru is not None
-                      else store.fetch(l, top_np, dev))
-            x = _hostloop_part2(lp, config, x, q, blocks,
-                                _member_ok(state.member_valid[l], top_c),
-                                state.tail_k[l], state.tail_v[l], tail_len)
-        tok = argmax_tokens(_logits(params, config, x))
-        tail_len = tail_len + 1
-        toks.append(tok)
-    return torch.cat(toks, dim=1), replace(state, tail_len=tail_len)
+    fetch_fn = None
+    if lru is not None:
+        def fetch_fn(l, top_c):
+            return lru.fetch(l, top_c.cpu().numpy())
+    return offload_generate(params, config, state, store, buffer0,
+                            max_new_tokens, nprobe=nprobe, cap=cap,
+                            fetch_fn=fetch_fn, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -479,7 +455,7 @@ def _spec_draft_round(params, layers, config: ModelArgs, tok0, pos0, draft_k,
 def _spec_verify_l1(lp, config: ModelArgs, x_all, pos0, cent_l, tail_k_l,
                     tail_v_l, tail_len0, nprobe: int, T: int):
     """Verify, a layer's first half: the per-token program of
-    _hostloop_part1 over the round's T = gamma+1 tokens ([B, 1] shapes, so
+    _part1_body over the round's T = gamma+1 tokens ([B, 1] shapes, so
     selection and numerics are the AR steps'). Returns (q [B, T, Hq, D],
     top_c [B, T, nprobe])."""
     qs, tops = [], []
@@ -662,6 +638,7 @@ class ClusterLRU:
         self._dir = [[OrderedDict() for _ in range(B)] for _ in range(L)]
         self.hits = 0
         self.misses = 0
+        self.evictions = 0
 
     @property
     def hit_rate(self) -> float:
@@ -707,6 +684,7 @@ class ClusterLRU:
                     slot = len(d)
                 else:
                     _, slot = d.popitem(last=False)      # evict the LRU
+                    self.evictions += 1
                 d[cid] = slot
                 out[b, j] = slot
                 miss_ids.append(cid)

@@ -19,8 +19,9 @@ installs queued requests into the freed rows:
 
 The staging Engine sizes its draft cache per prompt (budget + max_len - P,
 so no draft append is dropped); the frame's draft rows hold the largest of
-those, for the shortest prompt the frame admits, and _install_row copies
-the staging row into the front of the frame row. The JAX frame keeps
+those for the prompts actually served (run sizes them from its queue, and
+an admission of a shorter prompt grows them, rows kept), and _install_row
+copies the staging row into the front of the frame row. The JAX frame keeps
 budget + 64 draft slots and drops draft appends past them; streams are
 the same either way (the verify decides), rounds only while no row has
 outgrown those 64 slots.
@@ -122,10 +123,6 @@ class ServeEngine:
         self.max_new_cap = max_new_cap
         self.eot = _eot_array(eot_ids, dev)
         self.eot_ids = tuple(eot_ids)
-        # the shortest prompt encode accepts (a positive multiple of the
-        # chunk, at least the budget) has the largest staging draft
-        shortest = max(-(-draft_budget // prefill_chunk), 1) * prefill_chunk
-        self.frame._new_draft(draft_budget + self.frame.max_len - shortest)
         B = batch_size
         cap = max_new_cap + gamma + 2
         self.buffer0 = torch.zeros((B, 1), dtype=torch.int32, device=dev)
@@ -143,11 +140,33 @@ class ServeEngine:
 
     # -- admission ---------------------------------------------------------
 
+    @torch.inference_mode()
+    def _fit_draft(self, prompt_len: int):
+        """Grow the frame's draft rows to the staging draft of a prompt of
+        prompt_len tokens (budget + max_len - prompt_len slots), keeping
+        the rows installed so far. Sized to the prompts served rather than
+        the shortest one the frame could admit, which would make each draft
+        row about as long as its target cache row."""
+        frame = self.frame
+        need = frame.draft_budget + frame.max_len - prompt_len
+        old = frame.draft
+        if old is not None and need <= old.size:
+            return
+        frame._new_draft(need)
+        if old is None:
+            return
+        new = frame.draft
+        new.k[:, :, :old.size] = old.k
+        new.v[:, :, :old.size] = old.v
+        new.lengths.copy_(old.lengths)
+        new.evicted.copy_(old.evicted)
+
     def _admit(self, row: int, req: Request):
         if req.max_new_tokens > self.max_new_cap:
             raise ValueError(f"request {req.req_id}: max_new_tokens "
                              f"{req.max_new_tokens} > max_new_cap "
                              f"{self.max_new_cap}")
+        self._fit_draft(len(req.prompt))
         self.stage.clear_kv()
         tok = self.stage.encode(np.asarray(req.prompt)[None, :])
         _install_row(self.frame.cache, self.frame.draft, self.buffer0,
@@ -182,6 +201,8 @@ class ServeEngine:
         queue = list(requests)
         done: list[Completion] = []
         B = self.frame.batch_size
+        if queue:                   # one draft allocation for the whole queue
+            self._fit_draft(min(len(r.prompt) for r in queue))
         for row in range(B):                        # initial fill
             if queue and self.row_req[row] is None:
                 self._admit(row, queue.pop(0))

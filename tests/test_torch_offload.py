@@ -190,7 +190,7 @@ def test_lru_hostloop_stream_identical(tparams, port):
     out_lru, _ = toff.offload_generate_hostloop(
         tparams, TCFG, state, store, buffer0, NEW, lru=lru, device="cpu", **KW)
     assert torch.equal(out_lru, out_plain)
-    assert lru.misses > 0
+    assert lru.misses > 0 and lru.evictions > 0
 
 
 # ---------------------------------------------------------------------------

@@ -168,3 +168,31 @@ def test_install_row_copies_the_staging_row_bit_for_bit(tparams, prompts):
     assert int(frame.cache.lengths[0]) == PREFIX
     with pytest.raises(ValueError, match="max_new_cap"):
         srv._admit(1, Request(2, prompts[2], 33))
+
+
+def test_frame_draft_grows_for_a_shorter_prompt_and_keeps_live_rows(tparams,
+                                                                    prompts):
+    """The frame's draft rows are sized to the prompts served: two 96-token
+    requests serve two rounds, then a 64-token request arrives and grows the
+    draft mid-serve. The live rows keep their draft bytes, and every stream
+    still equals its solo stream."""
+    rng = np.random.default_rng(5)
+    long_ = [rng.integers(0, TCFG.vocab_size, size=(96,)).astype(np.int32)
+             for _ in range(2)]
+    srv = ServeEngine(TCFG, tparams, max_new_cap=32, device="cpu", **KW)
+    first = srv.run([Request(0, long_[0], 20), Request(1, long_[1], 12)],
+                    max_rounds=2)
+    assert first == [] and srv.frame.draft.size == BUDGET + MAX_LEN - 96
+    frame = srv.frame
+    keep = frame.draft.k.clone()
+    lengths = frame.draft.lengths.clone()
+    srv._fit_draft(PREFIX)
+    assert frame.draft.size == BUDGET + MAX_LEN - PREFIX
+    assert torch.equal(frame.draft.k[:, :, :keep.shape[2]], keep)
+    assert torch.equal(frame.draft.lengths, lengths)
+    done = first + srv.run([Request(2, prompts[0], 16)])
+    want = {0: _solo(tparams, long_[0], 20), 1: _solo(tparams, long_[1], 12),
+            2: _solo(tparams, prompts[0], 16)}
+    assert sorted(c.req_id for c in done) == [0, 1, 2]
+    for c in done:
+        np.testing.assert_array_equal(c.tokens, want[c.req_id])
