@@ -174,8 +174,9 @@ exits non-zero):
                 as each path implies (they
                 are the launches of the head_dim-128 kernel entries); then
                 the step profile of an AR step and a SnapKV round
- 12e. tensor_parallel  llama-3.1-8b at full width in a world of two ranks
-                on the one card (parallel/launch.run_world: two processes,
+ 12e. tensor_parallel  llama-3.1-8b at full width, its first 16 of 32
+                layers (TP8B_LAYERS: the script's time), in a world of two
+                ranks on the one card (parallel/launch.run_world: two processes,
                 gloo over CUDA tensors, each rank drawing its shard of the
                 seeded weights a layer at a time), B=8, P=4096, 16 new
                 tokens (two ranks share the card), gamma 6: AR, SnapKV 1024
@@ -189,6 +190,25 @@ exits non-zero):
                 with the row-parallel partials rounded as tp=2 rounds them
                 (_TpRounding); their distance to plain tp=1's and the share
                 of the tp AR stream equal to tp=1's are printed
+ 12j. tp_1b     llama-3.2-1b at full width in a world of two ranks on the
+                one card (gloo), B=8, P=4096, 16 new tokens, gamma 6:
+                SqueezedAttention 1024, GliDe linear and tree (2,2) with the
+                glide phase's random block, the f32 tree (2,2) at P=1024,
+                int8 and int4 SnapKV 1024 and full budget (the weights
+                quantized whole, then cut by the Engine); the ranks' streams
+                equal, each speculative stream equal to its tp AR stream
+                (the f32 tree's to the f32 one; the bf16 tree's share is
+                printed), full budgets exactly 1.0, the bf16, int8 and int4
+                first decode step's logits bit-equal to tp=1's under
+                _TpRounding, each rank's launch counts as its path implies
+                (int4_matmul at the tp=2 shard shapes, which it checks)
+ 12k. dp_tp     the same model in a world of four ranks on the one card, a
+                dp=2 x tp=2 mesh (each rank 4 of the 8 rows and its heads):
+                AR, SnapKV 1024 and full budget, StreamingLLM full budget;
+                the gathered [B, N] streams equal on every rank, lossless,
+                full budgets exactly 1.0, the share of rows equal to
+                tp_1b's AR printed; the sub-mesh make_mesh(dp=1, tp=2) of
+                ranks 0-1 (ranks 2-3 get None) gives tp_1b's AR stream
  12f. nccl_world_of_one  one rank with the nccl backend: an all-reduce, then
                 llama-3.2-1b AR (8 tokens) with the mesh bit-equal to the
                 stream without it
@@ -250,7 +270,12 @@ exits non-zero):
                 CTAs an SM) on both gathers' timed shapes at both head
                 dims, each bit-checked, with index_select timed in the same
                 call
- 13b. sharded_kernels  each per-shard form at llama-3.1-8b's heads cut into
+ 13c. times_int4_tp2  int4_matmul at llama-3.2-1b's tp=2 shard shapes (the
+                four products tp_1b's ranks ran), 128 and 256 rows, within
+                its limit, timed beside its plain version, its bound and
+                the two yardsticks
+ 13b. sharded_kernels  each per-shard form (flash_stacked_lse among them)
+                at llama-3.1-8b's heads cut into
                 tp=2 and tp=4 shards: the shards' outputs concatenated
                 bit-equal to the kernel's on the whole tensors, each shard
                 within its plain version's limit; each form timed at the
@@ -419,13 +444,19 @@ def main(argv=None) -> int:
     launches_tp = tensor_parallel(torch, dev, ref8b)
     del ref8b
     clock.mark("tensor_parallel")
+    launches_1b, tp_ar = tp_1b(torch, dev)
+    clock.mark("tp_1b")
+    launches_dp = dp_tp(torch, dev, tp_ar)
+    clock.mark("dp_tp")
     nccl_world_of_one(torch, dev)
     clock.mark("nccl_world_of_one")
     kernels = (time_kernels(torch, dev, errs, launches)
                + time_int4(torch, dev, errs, launches)
+               + time_int4_tp(torch, dev, launches_1b)
                + time_weight_kernels(torch, dev, errs, launches)
                + time_kernels(torch, dev, errs, launches128, D=128)
-               + sharded_kernels(torch, dev, launches_tp))
+               + sharded_kernels(torch, dev, _add(_add(
+                   launches_tp, launches_1b), launches_dp)))
     clock.mark("times_and_sharded_kernels")
     gather_variants(torch, dev)
     step_profile(torch, dev)
@@ -1455,6 +1486,9 @@ SHARDED = {
                                    "page_gather_single"),
     "centroid_scores_sharded": ("ops.gemm_softmax", "centroid_scores_sharded",
                                 "centroid_scores"),
+    "flash_decode_stacked_lse_sharded": ("engine.attention_impls",
+                                         "flash_stacked_lse",
+                                         "flash_decode_stacked_lse"),
 }
 KERNELS = ("flash_decode_stacked", "flash_decode_intervals",
            "flash_decode_stacked_masked", "page_gather", "flash_prefill",
@@ -2729,14 +2763,17 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
     matching AR before a divergence is printed. Then the step profile of an
     AR step and of a SnapKV round. Returns the runs' summed launch counts
     (the launches of the head_dim-128 kernel entries) and what
-    tensor_parallel compares with: the AR stream and the first decode
-    step's logits [B, V] (f32, on the host), plain and under _TpRounding."""
+    tensor_parallel compares with, at its depth (the first TP8B_LAYERS
+    layers of the same weights): the AR stream of TP_NEW tokens and its
+    first decode step's logits [B, V] (f32, on the host), plain and under
+    _TpRounding."""
     import numpy as np
 
-    from magicdec_tpu_torch.engine import attention_impls as impls
     from magicdec_tpu_torch.engine.backend import Engine
     from magicdec_tpu_torch.engine.glide_engine import GlideEngine, SpecTree
-    from magicdec_tpu_torch.engine.spec import _eot_array, snapkv_round
+    from magicdec_tpu_torch.engine.spec import (_eot_array,
+                                                generate_autoregressive,
+                                                snapkv_round)
     from magicdec_tpu_torch.models import llama
     from magicdec_tpu_torch.models.config import ModelArgs
     from magicdec_tpu_torch.models.glide import init_glide_params
@@ -2768,19 +2805,25 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
         if acc != 1.0:
             fail(f"llama8b {name}: full-budget acceptance {acc} != 1.0 "
                  f"(invariant 2)")
-    # the first decode step's logits, plain and with the row-parallel
-    # partials rounded as tp=2 rounds them (tensor_parallel's references)
+    # tensor_parallel's references, at its depth (the first TP8B_LAYERS
+    # layers): the AR stream of TP_NEW tokens and its first decode step's
+    # logits, plain and with the row-parallel partials rounded as tp=2
+    # rounds them
     first_logits = {}
+    cut_cfg = cfg.replace(n_layer=TP8B_LAYERS)
+    cut = _first_layers(params, TP8B_LAYERS)
     for name in ("plain", "tp_rounding"):
         with (_TpRounding(llama, cfg.dim) if name == "tp_rounding"
               else contextlib.nullcontext()):
-            eng = Engine(cfg, params, batch_size=B, max_len=MAX_LEN)
-            tok = eng.encode(prompt)
-            first_logits[name] = llama.forward(
-                params, cfg, tok, impls.target_attn(cfg, eng.cache.lengths, 1),
-                (eng.cache.k, eng.cache.v))[:, 0].cpu()
-        del eng, tok
+            with _FirstDecodeLogits(llama) as first:
+                out, _ = generate_autoregressive(
+                    Engine(cut_cfg, cut, batch_size=B, max_len=MAX_LEN),
+                    prompt, TP_NEW)
+        first_logits[name] = first.logits
+        if name == "plain":
+            tp_ar = out.cpu()
         torch.cuda.empty_cache()
+    del cut
 
     tree = SpecTree((2, 2))
     gp = init_glide_params(cfg, torch.bfloat16, scale=GLIDE_SCALE,
@@ -2846,7 +2889,7 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
          launches={k: r["launches"] for k, r in runs.items()},
          tree_share_matching_ar_before_divergence=share,
          step_profile=prof, invariant1=True, invariant2=True)
-    return total, dict(ar=ar, logits=first_logits)
+    return total, dict(ar=tp_ar, logits=first_logits)
 
 
 # ---------------------------------------------------------------------------
@@ -2855,6 +2898,10 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
 
 TP = 2                      # two ranks share the one card over gloo
 TP_NEW = 16                 # new tokens a tp run (the time two ranks take)
+# tensor_parallel's depth: llama-3.1-8b's first 16 of 32 layers, so the
+# script keeps to its time with the llama-3.2-1b worlds of tp_1b and dp_tp
+# (PERF.md, the findings on data parallelism); every width is the model's
+TP8B_LAYERS = 16
 TP_PATHS = (("ar", None, 0), ("snapkv", "snapkv", BUDGET),
             ("snapkv_full", "snapkv", P),
             ("streaming_full", "streaming", STREAM_FULL),
@@ -2867,7 +2914,9 @@ class _TpRounding:
     """Within it, the model's row-parallel products (wo and w_down: the
     2-D weights with `dim` columns) run on one card as TP tp=2 ranks run
     them: K cut in two contiguous halves, each half's product rounded to
-    the weights' dtype, the halves added (the all-reduce of two values).
+    the weights' dtype, the halves added (the all-reduce of two values);
+    quantized weights are cut as the ranks hold them, the column-parallel
+    ones too (_quantized).
     The other products and the attention are the same arithmetic at tp=1
     and tp=2, so llama8b's first decode step under it must give the tp=2
     world's logits bit for bit. Against plain tp=1 they differ by that
@@ -2878,9 +2927,46 @@ class _TpRounding:
 
     def __init__(self, llama, dim):
         self.llama, self.dim, self.orig = llama, dim, llama.qmatmul
+        self.shards = {}
+
+    def _quantized(self, x, w):
+        """A quantized product (int8 or int4, one layer) as the tp ranks run
+        it: each rank's shard cut by parallel/sharding as the Engine cuts it
+        (int4_matmul then plans its K splits at the shard's K and N/2), the
+        row-parallel outputs (a `dim`-wide output) added, the
+        column-parallel ones concatenated."""
+        import torch
+
+        from magicdec_tpu_torch.parallel import sharding
+        from magicdec_tpu_torch.quant.int8 import Int4ColWeight
+
+        int8 = isinstance(w, dict)
+        out = tuple(w["s"].shape[1:]) if int8 else tuple(w.out_shape)
+        row = out == (self.dim,)
+        K = x.shape[-1]
+        key = (w["qT"] if int8 else w.q4).data_ptr()
+        if key not in self.shards:
+            whole = ({k: t[None] for k, t in w.items()} if int8
+                     else Int4ColWeight(w.q4[None], w.s4[None], w.out_shape))
+            cut = sharding._shard_int8 if int8 else sharding._shard_int4
+            self.shards[key] = [cut(whole, "wo" if row else "wqkv",
+                                    K if row else out[-1],
+                                    sharding.Mesh(tp=TP, rank=r,
+                                                  backend="gloo",
+                                                  device=x.device))
+                                for r in range(TP)]
+        parts = []
+        for r, sh in enumerate(self.shards[key]):
+            sh = {k: t[0] for k, t in sh.items()} if int8 else sh[0]
+            xr = x[:, r * K // TP:(r + 1) * K // TP].contiguous() if row else x
+            parts.append(self.orig(xr, sh))
+        return parts[0] + parts[1] if row else torch.cat(parts, dim=-1)
 
     def _qmatmul(self, x, w):
-        if not isinstance(w, dict) and w.dim() == 2 and w.shape[1] == self.dim:
+        from magicdec_tpu_torch.quant.int8 import Int4ColWeight
+        if isinstance(w, (dict, Int4ColWeight)):
+            return self._quantized(x, w)
+        if w.dim() == 2 and w.shape[1] == self.dim:
             K = w.shape[0] // TP
             return (self.orig(x[:, :K].contiguous(), w[:K].contiguous())
                     + self.orig(x[:, K:].contiguous(), w[K:].contiguous()))
@@ -2925,7 +3011,7 @@ def _tp_engine_kw(mesh):
 def tp_rank(mesh, prompt):
     """One rank of the tensor_parallel world: llama-3.1-8b's shard of this
     rank (drawn a layer at a time from the seeded stream of init_params,
-    seed 0, scale 0.3, bf16), the paths of TP_PATHS and the asymmetric
+    seed 0, scale 0.3, bf16; its first TP8B_LAYERS layers kept), the paths of TP_PATHS and the asymmetric
     two-model SD (the rank's target shard; a 2-layer draft of the same
     widths, seed 1, whole on every rank), each with its launch counts
     (zeroed before it) held to what the path implies on this rank, and the
@@ -2942,11 +3028,12 @@ def tp_rank(mesh, prompt):
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = ModelArgs.from_name(MODEL_OF_D[128])
-    L, chunks = cfg.n_layer, P // 128
     kw = _tp_engine_kw(mesh)
     t0 = time.perf_counter()
-    params = sharding.init_sharded_params(cfg, mesh, torch.bfloat16,
-                                          scale=0.3, seed=0)
+    params = _first_layers(sharding.init_sharded_params(
+        cfg, mesh, torch.bfloat16, scale=0.3, seed=0), TP8B_LAYERS, copy=True)
+    cfg = cfg.replace(n_layer=TP8B_LAYERS)
+    L, chunks = cfg.n_layer, P // 128
     torch.cuda.synchronize()
     res = dict(rank=mesh.rank, backend=mesh.backend,
                init_s=time.perf_counter() - t0,
@@ -3001,7 +3088,8 @@ def tp_rank(mesh, prompt):
 
 
 def tensor_parallel(torch, dev, ref):
-    """llama-3.1-8b at full width in a world of TP=2 ranks on the one card
+    """llama-3.1-8b at full width (its first TP8B_LAYERS layers) in a world
+    of TP=2 ranks on the one card
     (gloo, CUDA tensors; each rank a process with its own shard), B=8,
     P=4096, TP_NEW new tokens, gamma 6: AR, SnapKV 1024 and full budget,
     StreamingLLM full budget, Quest 1024, RetroInfer 1024 and two-model SD
@@ -3062,7 +3150,8 @@ def tensor_parallel(torch, dev, ref):
         for run in rank["runs"].values():
             total = _add(total, run["launches"])
     line(phase="tensor_parallel", model=MODEL_OF_D[128], dtype="bfloat16",
-         tp=TP, backend="gloo", device_per_rank=[str(dev)] * TP,
+         layers=TP8B_LAYERS, layers_cut_from=cfg.n_layer, tp=TP,
+         backend="gloo", device_per_rank=[str(dev)] * TP,
          note="two ranks time-share one card over gloo: no deployment "
               "tok/s", B=B, P=P, new_tokens=TP_NEW, gamma=GAMMA,
          budget=BUDGET, draft_layers=DRAFT_LAYERS, world_s=world_s,
@@ -3138,6 +3227,407 @@ def nccl_world_of_one(torch, dev):
          stream_equal=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 12j-12k: what tensor parallelism left out, at llama-3.2-1b full
+# width: GliDe, SqueezedAttention and quantized weights under tp, and a
+# dp x tp world with a sub-mesh
+# ---------------------------------------------------------------------------
+
+# the int4 products' shapes (K, N/2) a tp=2 rank of llama-3.2-1b holds
+INT4_TP2_SHAPES = {"wqkv": (2048, 768), "wo": (1024, 1024),
+                   "w_gate_up": (2048, 4096), "w_down": (4096, 1024)}
+
+
+def _first_layers(params, n, copy=False):
+    """The params of a model cut to its first n layers (the same weights,
+    a view unless copy)."""
+    return dict(params, layers={k: (v[:n].clone() if copy else v[:n])
+                                for k, v in params["layers"].items()})
+
+
+def _tp_expect(L, spec, chunks=None, mode=None):
+    """_path_launches on a tp rank of a TP_NEW-token run with `chunks`
+    prefill chunks (None: P's), and int4_matmul 4 L a forward (prefill
+    chunks included) for int4 weights."""
+    chunks = P // 128 if chunks is None else chunks
+    new = TP_NEW
+
+    def launches(result):
+        want = _path_launches(L, spec, new, sharded=True)(result)
+        want["flash_prefill"] = want["flash_prefill_sharded"] = L * chunks
+        if mode == "int4":
+            r = result[-1].rounds
+            steps = new - 1 if spec is None else (GAMMA + 1) * r
+            want["int4_matmul"] = 4 * L * (chunks + steps)
+        return want
+    return launches
+
+
+def _glide_tp_expect(L, chunks, tree):
+    """_glide_expect on a tp rank: the target's prefill and verify run
+    through the per-shard forms (the tree verify's prefix part through
+    flash_stacked_lse), the glide's own attention through the kernels."""
+    base = _glide_expect(L, chunks, tree)
+
+    def launches(result):
+        want = base(result)
+        want["flash_prefill_sharded"] = L * chunks
+        if tree is None:
+            want["flash_decode_stacked_sharded"] = want["flash_decode_stacked"]
+        else:
+            want["flash_decode_stacked_lse_sharded"] = want[
+                "flash_decode_stacked_lse"]
+        return want
+    return launches
+
+
+def tp1b_rank(mesh, prompt):
+    """One rank of the tp_1b world (tp=2): llama-3.2-1b's seeded bf16
+    weights (seed 0, scale 0.3), cut by the Engine, run AR (keeping the
+    first decode step's logits), SqueezedAttention 1024, GliDe linear and
+    tree (2,2) with the glide phase's random block (cut by GlideEngine);
+    in float32 with the prompt cut to GLIDE_F32_P, AR and the GliDe tree
+    (2,2); then the weights quantized whole on the rank (int8, int4) and
+    cut by the Engine: AR (logits kept), SnapKV 1024 and full budget. Each
+    run's launch counts (zeroed before it) are held to what its path
+    implies on this rank. Returns numpy results and the int4 shards' q4
+    shapes."""
+    import torch
+
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.glide_engine import GlideEngine, SpecTree
+    from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
+                                                generate_selfspec)
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.models.glide import init_glide_params
+    from magicdec_tpu_torch.quant.int8 import quantize_params
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelArgs.from_name(MODEL_OF_D[64])
+    L, chunks = cfg.n_layer, P // 128
+    kw = _tp_engine_kw(mesh)
+    dev = mesh.device
+    params = llama.init_params(cfg, torch.bfloat16, scale=0.3, seed=0,
+                               device=dev)
+    res = dict(rank=mesh.rank, runs={}, logits={})
+    tree = SpecTree((2, 2))
+
+    def drive(name, go, expect):
+        (out, counts, stats), used, seconds = _drive(
+            torch, f"tp_1b rank {mesh.rank} {name}", go, expect)
+        res["runs"][name] = dict(
+            out=out.cpu().numpy(), counts=counts.cpu().numpy(),
+            acceptance=stats.acceptance_rate, rounds=stats.rounds,
+            tok_s=stats.generated_tokens / stats.wall_time_s,
+            decode_s=stats.wall_time_s, run_s=seconds, launches=used)
+
+    def ar(p, pr, logits=None, **ekw):
+        def go():
+            eng = Engine(cfg, p, **{**kw, **ekw})
+            if logits == "int4":
+                res["int4_q4_shapes"] = {
+                    k: tuple(w.q4.shape[1:])
+                    for k, w in eng.params["layers"].items()
+                    if k in INT4_TP2_SHAPES}
+            with _FirstDecodeLogits(llama) as first:
+                out, stats = generate_autoregressive(eng, pr, TP_NEW)
+            if logits:
+                res["logits"][logits] = first.logits.numpy()
+            return out, torch.full((B,), TP_NEW, dtype=torch.int32), stats
+        return go
+
+    def spec(p, mode, budget):
+        return lambda: generate_selfspec(
+            Engine(cfg, p, spec=mode, draft_budget=budget, **kw), prompt,
+            GAMMA, TP_NEW)
+
+    def glide(p, gp, pr, branching, **ekw):
+        return lambda: GlideEngine(Engine(cfg, p, **{**kw, **ekw}), gp).generate(
+            pr, TP_NEW, gamma=GAMMA,
+            tree=None if branching is None else SpecTree(branching))
+
+    drive("ar", ar(params, prompt, "bf16"), _tp_expect(L, None))
+    drive("squeeze", spec(params, "squeeze", BUDGET), _tp_expect(L, "squeeze"))
+    gp = init_glide_params(cfg, torch.bfloat16, scale=GLIDE_SCALE,
+                           seed=GLIDE_SEED, device=dev)
+    drive("glide_linear", glide(params, gp, prompt, None),
+          _glide_tp_expect(L, chunks, None))
+    drive("glide_tree_2_2", glide(params, gp, prompt, (2, 2)),
+          _glide_tp_expect(L, chunks, tree))
+    del gp
+    p32 = _to(params, torch.float32)
+    gp32 = init_glide_params(cfg, torch.float32, scale=GLIDE_SCALE,
+                             seed=GLIDE_SEED, device=dev)
+    pr32, c32 = prompt[:, :GLIDE_F32_P], GLIDE_F32_P // 128
+    max_len = GLIDE_F32_P + TP_NEW + 2 * GAMMA + 16
+    drive("f32_ar", ar(p32, pr32, max_len=max_len),
+          _tp_expect(L, None, chunks=c32))
+    drive("f32_glide_tree_2_2", glide(p32, gp32, pr32, (2, 2),
+                                      max_len=max_len),
+          _glide_tp_expect(L, c32, tree))
+    del p32, gp32
+    torch.cuda.empty_cache()
+    for mode in ("int8", "int4"):
+        q = quantize_params(params, mode)
+        drive(f"{mode}_ar", ar(q, prompt, mode), _tp_expect(L, None,
+                                                             mode=mode))
+        drive(f"{mode}_snapkv", spec(q, "snapkv", BUDGET),
+              _tp_expect(L, "snapkv", mode=mode))
+        drive(f"{mode}_snapkv_full", spec(q, "snapkv", P),
+              _tp_expect(L, "snapkv", mode=mode))
+        del q
+        torch.cuda.empty_cache()
+    res["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return res
+
+
+def _tp1_refs(torch, dev, prompt):
+    """tp_1b's references on one card: llama-3.2-1b's first decode step's
+    logits [B, V] with bf16, int8 and int4 weights under _TpRounding (tp=1
+    with tp=2's cuts and roundings of the products)."""
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.spec import generate_autoregressive
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.quant.int8 import quantize_params
+
+    cfg = ModelArgs.from_name(MODEL_OF_D[64])
+    params = llama.init_params(cfg, torch.bfloat16, scale=0.3, seed=0,
+                               device=dev)
+    refs = {}
+    for mode in ("bf16", "int8", "int4"):
+        w = params if mode == "bf16" else quantize_params(params, mode)
+        with _TpRounding(llama, cfg.dim), _FirstDecodeLogits(llama) as first:
+            generate_autoregressive(Engine(cfg, w, batch_size=B,
+                                           max_len=MAX_LEN), prompt, 2)
+        refs[mode] = first.logits.numpy()
+        del w
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return refs
+
+
+def tp_1b(torch, dev):
+    """What tensor parallelism left out, at llama-3.2-1b full width (B=8,
+    P=4096, TP_NEW new tokens, gamma 6) in a world of TP=2 ranks on the one
+    card (gloo): SqueezedAttention 1024, GliDe linear and tree (2,2), the
+    float32 GliDe tree (2,2) at P=GLIDE_F32_P, int8 and int4 SnapKV 1024
+    and full budget (tp1b_rank). The ranks' streams and logits must be
+    equal; SqueezedAttention's and GliDe linear's streams must equal the
+    tp AR stream, the float32 tree's the float32 tp AR stream, each
+    quantized SnapKV stream its tp AR stream; the full budgets accept
+    exactly 1.0; the first decode step's logits (bf16, int8, int4) are
+    bit-equal to tp=1's under _TpRounding; the int4 shards' q4 are the
+    tp=2 shard shapes, at which int4_matmul ran. The bf16 tree stream's
+    share matching AR before a divergence is printed. Returns the launch
+    counts summed over the ranks and runs, and the bf16 tp AR stream."""
+    import numpy as np
+
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.parallel.launch import run_world
+
+    cfg = ModelArgs.from_name(MODEL_OF_D[64])
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, P))
+    t0 = time.perf_counter()
+    refs = _tp1_refs(torch, dev, prompt)
+    refs_s = time.perf_counter() - t0
+    RENDEZVOUS.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = run_world(tp1b_rank, tp=TP, backend="gloo", devices=[dev] * TP,
+                      args=(prompt,), rendezvous_dir=str(RENDEZVOUS),
+                      timeout_s=900)
+    world_s = time.perf_counter() - t0
+    r0 = ranks[0]
+    for other in ranks[1:]:
+        for key, lg in r0["logits"].items():
+            if not np.array_equal(other["logits"][key], lg):
+                fail(f"tp_1b: the ranks' {key} logits differ")
+        for name, run in r0["runs"].items():
+            if not np.array_equal(other["runs"][name]["out"], run["out"]):
+                fail(f"tp_1b {name}: the ranks' streams differ")
+    runs = r0["runs"]
+    against = {"squeeze": "ar", "glide_linear": "ar",
+               "f32_glide_tree_2_2": "f32_ar", "int8_snapkv": "int8_ar",
+               "int8_snapkv_full": "int8_ar", "int4_snapkv": "int4_ar",
+               "int4_snapkv_full": "int4_ar"}
+    for name, ar in against.items():
+        _check_stream(torch, f"tp_1b {name}", runs[name]["out"],
+                      runs[name]["counts"], runs[ar]["out"], cfg.vocab_size,
+                      new=TP_NEW)
+    for name in ("int8_snapkv_full", "int4_snapkv_full"):
+        if runs[name]["acceptance"] != 1.0:
+            fail(f"tp_1b {name}: full-budget acceptance "
+                 f"{runs[name]['acceptance']} != 1.0 (invariant 2)")
+    for mode, want in refs.items():
+        if not np.array_equal(r0["logits"][mode], want):
+            err = float(np.abs(r0["logits"][mode] - want).max())
+            fail(f"tp_1b: the {mode} first decode step's logits are not "
+                 f"those of tp=1 under _TpRounding (max abs diff {err})")
+    for rank in ranks:
+        if rank["int4_q4_shapes"] != INT4_TP2_SHAPES:
+            fail(f"tp_1b: rank {rank['rank']}'s int4 shards hold q4 "
+                 f"{rank['int4_q4_shapes']}, not {INT4_TP2_SHAPES}")
+    tree = runs["glide_tree_2_2"]
+    share = _prefix_share(torch, torch.as_tensor(tree["out"][:, :TP_NEW]),
+                          np.minimum(tree["counts"], TP_NEW),
+                          torch.as_tensor(runs["ar"]["out"]))
+    total = _zero()
+    for rank in ranks:
+        for run in rank["runs"].values():
+            total = _add(total, run["launches"])
+    line(phase="tp_1b", model=MODEL_OF_D[64], dtype="bfloat16", tp=TP,
+         backend="gloo", B=B, P=P, f32_P=GLIDE_F32_P, new_tokens=TP_NEW,
+         gamma=GAMMA, budget=BUDGET, world_s=world_s, refs_s=refs_s,
+         note="two ranks time-share one card over gloo: no deployment "
+              "tok/s",
+         peak_gb_per_rank=[r["peak_gb"] for r in ranks],
+         int4_q4_shapes=r0["int4_q4_shapes"],
+         tok_s={k: r["tok_s"] for k, r in runs.items()},
+         acceptance={k: r["acceptance"] for k, r in runs.items()
+                     if not k.endswith("ar")},
+         rounds={k: r["rounds"] for k, r in runs.items()},
+         run_s={k: r["run_s"] for k, r in runs.items()},
+         decode_s={k: r["decode_s"] for k, r in runs.items()},
+         launches_rank0={k: _nonzero(r["launches"]) for k, r in runs.items()},
+         first_step_logits_bit_equal_to_tp1_with_tp_rounding=sorted(refs),
+         glide_tree_share_matching_ar_before_divergence=share,
+         invariant1=True, invariant2=True)
+    return total, runs["ar"]["out"]
+
+
+def dptp_rank(mesh, prompt):
+    """One rank of the dp_tp world (dp=2 x tp=2, four ranks on the one
+    card): llama-3.2-1b's seeded bf16 weights, each rank holding its tp
+    shard and its dp block of B/2 rows; AR, SnapKV 1024 and full budget,
+    StreamingLLM full budget, each with its launch counts held on this
+    rank; then the sub-mesh make_mesh(dp=1, tp=2) (ranks 0-1; the others
+    get None and run nothing on it) runs AR. Returns numpy results, every
+    stream the whole batch's [B, N]."""
+    import torch
+
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
+                                                generate_selfspec)
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.parallel import sharding
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = ModelArgs.from_name(MODEL_OF_D[64])
+    L = cfg.n_layer
+    params = llama.init_params(cfg, torch.bfloat16, scale=0.3, seed=0,
+                               device=mesh.device)
+    sub = sharding.make_mesh(dp=1, tp=TP, device=mesh.device)
+    res = dict(layout=(mesh.dp, mesh.dp_rank, mesh.tp, mesh.rank),
+               sub=None if sub is None else (sub.dp, sub.dp_rank, sub.tp,
+                                             sub.rank), runs={})
+
+    def run(name, m, spec, budget):
+        def go():
+            eng = Engine(cfg, params, spec=spec, draft_budget=budget,
+                         **_tp_engine_kw(m))
+            if spec is None:
+                out, stats = generate_autoregressive(eng, prompt, TP_NEW)
+                return out, torch.full((B,), TP_NEW, dtype=torch.int32), stats
+            return generate_selfspec(eng, prompt, GAMMA, TP_NEW)
+
+        (out, counts, stats), used, seconds = _drive(
+            torch, f"dp_tp rank {mesh.dp_rank},{mesh.rank} {name}", go,
+            _path_launches(L, spec, TP_NEW, sharded=True))
+        res["runs"][name] = dict(
+            out=out.cpu().numpy(), counts=counts.cpu().numpy(),
+            acceptance=stats.acceptance_rate, rounds=stats.rounds,
+            tok_s=stats.generated_tokens / stats.wall_time_s,
+            decode_s=stats.wall_time_s, run_s=seconds, launches=used)
+
+    for name, spec, budget in DP_TP_PATHS:
+        run(name, mesh, spec, budget)
+    if sub is not None:
+        run("sub_ar", sub, None, 0)
+    return res
+
+
+# the dp_tp world's runs on its dp=2 x tp=2 mesh
+DP_TP_PATHS = (("ar", None, 0), ("snapkv", "snapkv", BUDGET),
+               ("snapkv_full", "snapkv", P),
+               ("streaming_full", "streaming", STREAM_FULL))
+
+
+def dp_tp(torch, dev, tp_ar):
+    """llama-3.2-1b at full width (B=8, P=4096, TP_NEW new tokens, gamma
+    6) in a world of four ranks on the one card (gloo) with a dp=2 x tp=2
+    mesh (dptp_rank): AR, SnapKV 1024 and full budget, StreamingLLM full
+    budget; every rank must return the same gathered [B, N] stream, the
+    speculative streams equal the dp AR stream, the full budgets accept
+    exactly 1.0; the share of rows equal to tp_1b's tp=2 AR stream is
+    printed (a dp rank pads its B/2 rows to another row bucket than B
+    rows, so bf16 rows may differ in low bits: models/llama.py). In the
+    same world the sub-mesh make_mesh(dp=1, tp=2) is ranks 0-1 (ranks 2-3
+    get None) and its AR stream must equal tp_1b's. Returns the launch
+    counts summed over the ranks and runs."""
+    import numpy as np
+
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.parallel.launch import run_world
+
+    cfg = ModelArgs.from_name(MODEL_OF_D[64])
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, P))
+    RENDEZVOUS.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = run_world(dptp_rank, tp=TP, dp=2, backend="gloo",
+                      devices=[dev] * (2 * TP), args=(prompt,),
+                      rendezvous_dir=str(RENDEZVOUS), timeout_s=900)
+    world_s = time.perf_counter() - t0
+    for r, rank in enumerate(ranks):
+        if rank["layout"] != (2, r // TP, TP, r % TP):
+            fail(f"dp_tp: rank {r} has the mesh layout {rank['layout']}")
+        if rank["sub"] != ((1, 0, TP, r) if r < TP else None):
+            fail(f"dp_tp: rank {r} has the sub-mesh layout {rank['sub']}")
+    r0 = ranks[0]
+    for rank in ranks[1:]:
+        for name, run in rank["runs"].items():
+            if not np.array_equal(run["out"], r0["runs"][name]["out"]):
+                fail(f"dp_tp {name}: the ranks' gathered streams differ")
+    runs = r0["runs"]
+    for name, run in runs.items():
+        if run["out"].shape[0] != B:
+            fail(f"dp_tp {name}: a stream of {run['out'].shape[0]} rows, "
+                 f"not the batch's {B}")
+        if name not in ("ar", "sub_ar"):
+            _check_stream(torch, f"dp_tp {name}", run["out"], run["counts"],
+                          runs["ar"]["out"], cfg.vocab_size, new=TP_NEW)
+    for name in ("snapkv_full", "streaming_full"):
+        if runs[name]["acceptance"] != 1.0:
+            fail(f"dp_tp {name}: full-budget acceptance "
+                 f"{runs[name]['acceptance']} != 1.0 (invariant 2)")
+    if not np.array_equal(runs["sub_ar"]["out"], tp_ar):
+        fail("dp_tp: the sub-mesh's AR stream differs from tp_1b's")
+    rows_equal = float((runs["ar"]["out"][:, :TP_NEW] == tp_ar[:, :TP_NEW])
+                       .all(axis=1).mean())
+    total = _zero()
+    for rank in ranks:
+        for run in rank["runs"].values():
+            total = _add(total, run["launches"])
+    line(phase="dp_tp", model=MODEL_OF_D[64], dtype="bfloat16", dp=2, tp=TP,
+         world=2 * TP, backend="gloo", B=B, rows_per_dp_rank=B // 2, P=P,
+         new_tokens=TP_NEW, gamma=GAMMA, budget=BUDGET, world_s=world_s,
+         note="four ranks time-share one card over gloo: no deployment "
+              "tok/s",
+         layouts=[r["layout"] for r in ranks], sub=[r["sub"] for r in ranks],
+         tok_s={k: r["tok_s"] for k, r in runs.items()},
+         acceptance={k: r["acceptance"] for k, r in runs.items()
+                     if not k.endswith("ar")},
+         rounds={k: r["rounds"] for k, r in runs.items()},
+         run_s={k: r["run_s"] for k, r in runs.items()},
+         decode_s={k: r["decode_s"] for k, r in runs.items()},
+         launches_rank0={k: _nonzero(r["launches"]) for k, r in runs.items()},
+         ar_rows_equal_to_tp2_share=rows_equal, sub_mesh_ar_equals_tp2=True,
+         invariant1=True, invariant2=True)
+    return total
+
+
 def _bit_equal(torch, got, want):
     """Whether two tensors hold the same bits (-0.0 and 0.0 differ)."""
     def bits(t):
@@ -3156,20 +3646,22 @@ def sharded_kernels(torch, dev, launches, L=16):
     _flash_intervals (the StreamingLLM draft, 1088 slots, sink rows apart),
     _tail_attend (the masked form over the Quest round buffer, 70% of the
     top bits), page_gather_sharded (7 of 33 pages of 128 rows),
-    page_gather_single_sharded (28 of 130 clusters of 64 rows) and
-    centroid_scores_sharded (130 f32 centroids). The ranks' outputs
+    page_gather_single_sharded (28 of 130 clusters of 64 rows),
+    centroid_scores_sharded (130 f32 centroids) and flash_stacked_lse
+    (the GliDe tree (2,2) verify's prefix part: ctx, m and l at T=7). The
+    ranks' outputs
     concatenated must be bit-equal to the kernel's output on the whole
     tensors, and each rank's within its plain version's limit (the
     attention forms: fd.plain_f32_and_limit's; the gathers bit-exact;
-    centroid_scores 1e-5 + 1e-5 |plain|). Then each form's device time at
+    centroid_scores 1e-5 + 1e-5 |plain|; the lse form's m and l within
+    fd.lse_limits). Then each form's device time at
     the tp=2 shard (rank 0), from a replayed CUDA graph, beside the kernel
     on the whole tensors at the same lengths, its plain version, its bound
     (the shard's bytes at 3.35 TB/s or its FLOPs at 989 TFLOP/s bf16, 67
     TFLOP/s f32 for centroid_scores, counting the slots each sequence
     reads) and one PyTorch call on the same shard (SDPA; index_select).
-    `launches` are the
-    tensor_parallel phase's counts (both ranks). Returns the kernels-line
-    rows."""
+    `launches` are the counts of the tensor_parallel, tp_1b and dp_tp
+    phases (every rank). Returns the kernels-line rows."""
     import torch.nn.functional as F
 
     from magicdec_tpu_torch.engine import attention_impls as impls
@@ -3289,6 +3781,22 @@ def sharded_kernels(torch, dev, launches, L=16):
             mesh=mesh(tp, r)),
         lambda l: gs.centroid_scores(qs[1], cview(cents[l])), 1, scores_plain)
 
+    def lse_plain(tp, r, l):
+        q, kk, vv = (block(qs[7], tp, r, 2), block(k[l:l + 1], tp, r, 3),
+                     block(v[l:l + 1], tp, r, 3))
+        want = fd.attention_plain_lse(q.float(), kk.float(), vv.float(), 0,
+                                      valid[7])
+        return ("lse", want) + fd.plain_f32_and_limit(q, kk, vv, 0, valid[7])
+
+    # the GliDe tree (2,2) verify's prefix part: (ctx, m, l) at T=7
+    forms["flash_decode_stacked_lse_sharded"] = attention(
+        lambda tp, r, l: impls.flash_stacked_lse(
+            block(qs[7], tp, r, 2), block(k, tp, r, 3), block(v, tp, r, 3),
+            l, valid[7], mesh=mesh(tp, r)),
+        lambda l: fd.flash_decode_stacked(qs[7], k, v, l, valid[7],
+                                          return_lse=True),
+        lse_plain)
+
     # the checks: layers 0 and L - 1
     errs, ratios = {}, {}
     for name, (form, kern, axis, plain) in forms.items():
@@ -3297,15 +3805,23 @@ def sharded_kernels(torch, dev, launches, L=16):
             whole = kern(l)
             for tp in (2, 4):
                 outs = [form(tp, r, l) for r in range(tp)]
-                if not _bit_equal(torch, torch.cat(outs, dim=axis), whole):
+                parts = zip(*outs) if isinstance(whole, tuple) else [outs]
+                wholes = whole if isinstance(whole, tuple) else [whole]
+                if not all(_bit_equal(torch, torch.cat(p, dim=axis), w_)
+                           for p, w_ in zip(parts, wholes)):
                     fail(f"sharded_kernels {name}: the tp={tp} shards "
                          f"concatenated are not the whole kernel's bits "
                          f"(layer {l})")
                 for r, out in enumerate(outs):
                     ref = plain(tp, r, l)
-                    if isinstance(ref, tuple):
-                        _check_out(torch, f"{name} tp{tp} r{r} l{l}", out,
-                                   ref[0], ref[1], e, rt)
+                    what = f"{name} tp{tp} r{r} l{l}"
+                    if isinstance(ref, tuple) and isinstance(ref[0], str):
+                        e_, r_ = {}, {}
+                        _hold_lse(torch, fd, what, out, ref[1], ref[2],
+                                  ref[3], torch.bfloat16, e_, r_)
+                        e[what], rt[what] = e_[what], max(r_[what].values())
+                    elif isinstance(ref, tuple):
+                        _check_out(torch, what, out, ref[0], ref[1], e, rt)
                     elif not _bit_equal(torch, out, ref):
                         fail(f"sharded_kernels {name}: tp={tp} rank {r} "
                              f"differs from its plain version (layer {l})")
@@ -3348,7 +3864,9 @@ def sharded_kernels(torch, dev, launches, L=16):
                 lambda l: pg.page_gather_single_sharded(
                     x["store"], l, clusters, page1, mesh=m),
             "centroid_scores_sharded": lambda l: gs.centroid_scores_sharded(
-                x["q1"], cv[l], mesh=m)})
+                x["q1"], cv[l], mesh=m),
+            "flash_decode_stacked_lse_sharded": lambda l: impls.flash_stacked_lse(
+                x["q7"], x["k"], x["v"], l, valid[7], mesh=m)})
         return out
 
     def bound(bytes_, flops, peak=BF16_FLOPS_PER_S):
@@ -3394,6 +3912,11 @@ def sharded_kernels(torch, dev, launches, L=16):
                                                   mask),
             bound(attn_bytes(int(val.amax(1).sum()), q, val.numel()),
                   4 * int(val.sum()) * hq * D))
+    timed["flash_decode_stacked_lse_sharded"] = (
+        lambda l: fd.attention_plain_lse(s["q7"], s["k"], s["v"], l,
+                                         valid[7]),
+        timed["flash_decode_stacked_sharded_T7"][1],
+        timed["flash_decode_stacked_sharded_T7"][2])
     val_p = valid[128]
     mask_p = (slot_s[None, None, :P] < val_p[:, :, None])[:, None]
     timed["flash_prefill_sharded"] = (
@@ -3467,7 +3990,9 @@ def sharded_kernels(torch, dev, launches, L=16):
           "page_gather_single_sharded":
           "magicdec_tpu/ops/pallas/page_gather.py:178",
           "centroid_scores_sharded":
-          "magicdec_tpu/ops/pallas/gemm_softmax.py:69"}
+          "magicdec_tpu/ops/pallas/gemm_softmax.py:69",
+          "flash_decode_stacked_lse_sharded":
+          "magicdec_tpu/engine/attention_impls.py:81"}
     rows = []
     for name, (_, _, base) in SHARDED.items():
         key = name + "_T1" if name == "flash_decode_stacked_sharded" else name
@@ -4183,6 +4708,78 @@ def time_int4(torch, dev, errs, launches, L=16):
              "max_abs_err": errs["int4_matmul"], "ms": gu["ms"],
              "plain_ms": gu["plain_ms"], "bound_ms": gu["bound_ms"],
              "bound_by": gu["bound_by"],
+             "library_ms": lib if isinstance(lib, float)
+             else gu["bf16_mm_dequantized_ms"]}]
+
+
+def time_int4_tp(torch, dev, launches, L=16):
+    """int4_matmul at llama-3.2-1b's tp=2 shard shapes (INT4_TP2_SHAPES:
+    the four products a rank of tp_1b ran, K and N/2 of the shard, whose
+    launch_plan the kernel takes), at 256 rows (a B=8 decode step's
+    bucket) and 128 (a dp=2 rank's B=4), bf16 x, L layers of weights
+    cycled: each output within int4_matmul_plain_f32_and_limit, device ms
+    (CUDA graph), eager ms, the plain version and the bound (the shard's
+    packed weight, scales and x read once, the output written once, over
+    3.35 TB/s; 2 M K N over 989 TFLOP/s); yardsticks the port never calls:
+    torch._weight_int4pack_mm and the bf16 mm of the dequantized shard.
+    Returns the kernels-line row: w_gate_up's shard at 256 rows (as
+    int4_matmul's row), its launches those of tp_1b's int4 runs (both
+    ranks)."""
+    from magicdec_tpu_torch.ops import int4_matmul as im
+
+    saved = _counts()
+    g = torch.Generator(device=dev).manual_seed(91)
+    res, err = {}, 0.0
+    for name, (K, N2) in INT4_TP2_SHAPES.items():
+        N = 2 * N2
+        packs = [im.pack_int4_cols(torch.randn(
+            (K, N), generator=g, device=dev) * 0.02) for _ in range(L)]
+        deq = [((im.unpack_int4_cols(q).float() - 8.0)
+                * s.repeat_interleave(128, 0)).to(torch.bfloat16)
+               for q, s in packs]
+        try:
+            fns = [_int4pack_mm(torch, q, s) for q, s in packs]
+            if fns[0] is None:
+                fns = "unavailable: no torch._weight_int4pack_mm"
+        except (RuntimeError, NotImplementedError) as e:
+            fns = f"unavailable: {str(e).splitlines()[0][:120]}"
+        for M in (128, 256):
+            x = torch.randn((M, K), generator=g, device=dev,
+                            dtype=torch.bfloat16)
+            ref, limit = im.int4_matmul_plain_f32_and_limit(x, *packs[0])
+            diff = (im.int4_matmul(x, *packs[0]).float() - ref).abs()
+            if bool((diff > limit).any()):
+                fail(f"int4_matmul at the tp=2 shard {name} (K={K}, "
+                     f"N={N}), M={M}: outside the limit")
+            err = max(err, float(diff.max()))
+            t_k, t_e = _device_and_eager_ms(
+                torch, lambda l: im.int4_matmul(x, *packs[l]), L)
+            t_p = _time_ms(torch, lambda l: im.int4_matmul_plain(
+                x, *packs[l]), L, graph=True)
+            t_mm = _time_ms(torch, lambda l: x @ deq[l], L, graph=True)
+            t_pack = fns if isinstance(fns, str) else _time_ms(
+                torch, lambda l: fns[l](x), L, graph=True)
+            bytes_ = (K * N // 2 + K // 128 * N * 4) + 2 * M * (K + N)
+            b_ms, b_by = _bound(bytes_, 2 * M * K * N)
+            res[f"{name}_M{M}"] = dict(
+                K=K, N=N, ms=t_k, eager_ms=t_e, plain_ms=t_p, bound_ms=b_ms,
+                bound_by=b_by, splits=len(im.launch_plan(K, N2)),
+                weight_int4pack_mm_ms=t_pack, bf16_mm_dequantized_ms=t_mm)
+        del packs, deq, fns
+        torch.cuda.empty_cache()
+    _set_counts(saved)
+    line(phase="times_int4_tp2", model=MODEL_OF_D[64], tp=TP, shards=res,
+         max_abs_err=err, launches_tp_1b=launches["int4_matmul"],
+         library="weight_int4pack_mm where available, else bf16 mm of the "
+                 "dequantized shard")
+    gu = res["w_gate_up_M256"]
+    lib = gu["weight_int4pack_mm_ms"]
+    return [{"name": "int4_matmul_tp2_shards", "route": "cuda",
+             "source": "magicdec_tpu_torch/csrc/int4_matmul.cu",
+             "replaces": "magicdec_tpu/ops/pallas/int4_matmul.py:131",
+             "launches": launches["int4_matmul"], "max_abs_err": err,
+             "ms": gu["ms"], "plain_ms": gu["plain_ms"],
+             "bound_ms": gu["bound_ms"], "bound_by": gu["bound_by"],
              "library_ms": lib if isinstance(lib, float)
              else gu["bf16_mm_dequantized_ms"]}]
 

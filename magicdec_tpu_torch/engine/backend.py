@@ -19,12 +19,15 @@ Speculation modes: spec=None (baseline), "snapkv", "streaming", and
 "quest", "retro" and "squeeze", which draft out of the target cache through
 a round buffer that generate_selfspec allocates (no draft cache).
 
-Tensor parallelism: Engine(..., mesh=parallel.sharding.make_mesh(...)) in
-every rank of a world (parallel/launch.run_world) shards the params and
+Parallelism: Engine(..., mesh=parallel.sharding.make_mesh(dp, tp)) in every
+rank of a mesh (parallel/launch.run_world) shards the params over tp and
 runs the rank's layers with sharding.local_config, so its caches hold the
 rank's KV heads; replicate_tp=True keeps the model whole on every rank (the
-asymmetric-TP draft of engine/longspec.py). mesh=None is the single-device
-path.
+asymmetric-TP draft of engine/longspec.py). Under dp the caches hold the
+rank's B/dp rows: batch_size stays the whole batch, encode takes the whole
+[B, P] prompt and keeps the rank's rows (sharding.shard_tokens), and the
+decode-side calls (inference, verify, speculate) take and return the
+rank's rows. mesh=None is the single-device path.
 """
 
 from __future__ import annotations
@@ -181,10 +184,12 @@ class Engine:
     package's sizing (max_len before rounding); squeeze_threshold is the
     normalised mass a cluster needs to be attended.
 
-    mesh: a tensor-parallel mesh (parallel/sharding.make_mesh); the params
-    may be the whole tree or the rank's shards (init_sharded_params), and
-    self.config is the rank's local config. replicate_tp keeps every weight
-    and cache whole on every rank."""
+    mesh: a dp x tp mesh (parallel/sharding.make_mesh); the params may be
+    the whole tree (plain or quantized) or the rank's plain shards
+    (init_sharded_params), and self.config is the rank's local config
+    (self.model_config the whole model's). replicate_tp keeps every weight
+    and cache column whole on every rank. batch_size is the whole batch;
+    the caches hold local_batch = batch_size / dp rows."""
 
     def __init__(self, config: ModelArgs, params, *, batch_size: int,
                  max_len: int, spec: Optional[str] = None,
@@ -202,16 +207,15 @@ class Engine:
         if spec and draft_budget <= 0:
             raise ValueError("speculation needs draft_budget > 0")
         self.mesh = mesh
+        self.model_config = config
+        dp = 1 if mesh is None else mesh.dp
+        if batch_size % dp:
+            raise ValueError(f"batch {batch_size} does not divide dp={dp}")
         if mesh is not None:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's "
                                  f"{mesh.device}")
             device = mesh.device
-            sharded = mesh.tp > 1 and not replicate_tp
-            if sharded and spec == "squeeze":
-                raise NotImplementedError(
-                    "SqueezedAttention under tensor parallelism is not ported "
-                    "(ROADMAP A14b)")
             params = sharding.shard_params(params, mesh, config, replicate_tp)
             if not replicate_tp:
                 config = sharding.local_config(config, mesh)
@@ -223,6 +227,7 @@ class Engine:
         self.config = config
         self.params = params
         self.batch_size = batch_size
+        self.local_batch = batch_size // dp
         self.max_len = -(-max_len // 128) * 128     # tile alignment
         self.spec = spec
         self.draft_budget = draft_budget
@@ -251,13 +256,13 @@ class Engine:
 
     def _create_cache(self):
         c = self.config
-        self.cache = KVCache.create(c.n_layer, self.batch_size, self.max_len,
+        self.cache = KVCache.create(c.n_layer, self.local_batch, self.max_len,
                                     c.n_kv_head, c.head_dim, self.kv_dtype,
                                     self.device)
 
     def _new_draft(self, size: int):
         c = self.config
-        self.draft = DraftKVCache.create(c.n_layer, self.batch_size, size,
+        self.draft = DraftKVCache.create(c.n_layer, self.local_batch, size,
                                          c.n_kv_head, c.head_dim,
                                          self.kv_dtype, self.device)
 
@@ -282,7 +287,9 @@ class Engine:
     # -- prefill ------------------------------------------------------------
 
     def encode(self, input_ids) -> torch.Tensor:
-        """Chunked prefill; returns the first generated token [B, 1]. The last
+        """Chunked prefill of the whole batch's prompt [B, P] (under dp the
+        rank prefills its rows); returns the first generated token of the
+        rank's rows [B/dp, 1]. The last
         chunk builds the SnapKV draft cache; StreamingLLM gathers its draft
         cache from the target cache afterwards, Quest builds the page
         boxes of the prefilled cache, and RetroInfer/SqueezedAttention its
@@ -294,6 +301,7 @@ class Engine:
         B, P = input_ids.shape
         if B != self.batch_size:
             raise ValueError(f"batch {B} != engine batch {self.batch_size}")
+        input_ids = sharding.shard_tokens(input_ids, self.mesh)
         chunk = self.prefill_chunk
         if P % chunk:
             raise ValueError(f"prefix length {P} must be a multiple of {chunk}")
@@ -395,7 +403,7 @@ class Engine:
                                         self.compaction_trigger(), need)
 
     def clear_kv(self):
-        zero = torch.zeros(self.batch_size, dtype=torch.int32,
+        zero = torch.zeros(self.local_batch, dtype=torch.int32,
                            device=self.device)
         if self.cache is not None:
             self.cache.set_lengths(zero)

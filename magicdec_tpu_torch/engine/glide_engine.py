@@ -25,6 +25,15 @@ stochastic round takes the greedy round's route (the JAX package runs it
 dense; the dense [B, N, S] form is that route's plain version, and no
 plain version runs on the card). On the CPU every route is the dense one.
 
+Parallelism: on a target Engine sharded over a dp x tp mesh the block is
+cut as a target layer (sharding.shard_glide_params; models/glide.py holds
+its collectives), the own cache [B/dp, cap, (Hkv/tp)*D] holds the rank's
+rows and KV heads, the tree verify's prefix part runs through the
+per-shard form flash_stacked_lse, the loops take their flags over every dp
+rank (spec.round_flags) and the streams are gathered at the end. The JAX
+package runs GliDe on a mesh through dense GSPMD, so its single-device
+stream is the reference.
+
 Losslessness scope (as in the JAX package): the linear verify is
 target_attn, the AR step's route, so its stream is bit-equal to the AR
 stream. The tree verify attends under the ancestor mask, so at numerical
@@ -45,12 +54,14 @@ from magicdec_tpu_torch.engine import attention_impls as impls
 from magicdec_tpu_torch.engine.backend import Engine
 from magicdec_tpu_torch.engine.sampling import argmax_tokens, categorical, uniform
 from magicdec_tpu_torch.engine.spec import (SpecStats, _accept_and_update,
-                                            _eot_array, _is_eot, _sync)
+                                            _eot_array, _is_eot, _sync,
+                                            finish_stats, round_flags)
 from magicdec_tpu_torch.models import glide as glide_lib
 from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.models.config import ModelArgs
 from magicdec_tpu_torch.ops.attention import (masked_attention_general,
                                               masked_attention_lse, merge_lse)
+from magicdec_tpu_torch.parallel import sharding
 
 
 def _rows(x: torch.Tensor, n: int) -> torch.Tensor:
@@ -76,17 +87,17 @@ def glide_round(params, glide_params, config: ModelArgs, cache, own_k, own_v,
     lenT0 = cache.lengths
     tgt_valid = _rows(lenT0, 1)
 
-    def draft(tok, i):
+    def draft(tok, i, unembed=True):
         return glide_lib.glide_forward(
             glide_params, params, config, tok, lenT0[:, None] + i, own_k,
             own_v, own_len + i, cache.k[-1], cache.v[-1], tgt_valid,
-            use_flash=use_flash)
+            use_flash=use_flash, unembed=unembed)
 
     tok, drafted = buffer0, []
     for i in range(gamma):
         tok = argmax_tokens(draft(tok, i)[:, -1:])
         drafted.append(tok)
-    draft(tok, gamma)
+    draft(tok, gamma, unembed=False)
     buffer = torch.cat([buffer0] + drafted, dim=1)          # [B, gamma+1]
 
     impl = impls.target_attn(config, lenT0, gamma + 1)
@@ -101,13 +112,13 @@ def glide_round(params, glide_params, config: ModelArgs, cache, own_k, own_v,
 @torch.inference_mode()
 def glide_generate(params, glide_params, config: ModelArgs, cache, own_k,
                    own_v, own_len, buffer0, eot, gamma: int,
-                   max_new_tokens: int, use_flash: bool = False):
+                   max_new_tokens: int, use_flash: bool = False, mesh=None):
     """Linear GliDe generation (the port's form of the JAX package's
     glide_generate_fused): rounds while no sequence hit EOS, some sequence
     has fewer than max_new_tokens tokens and the target cache has room for
-    gamma + 1 more, read on the host once per round. Returns (own_len,
-    output [B, max_new_tokens + gamma + 2], gen_counts [B], rounds,
-    accepted drafts)."""
+    gamma + 1 more, read on the host once per round (over every dp rank of
+    `mesh`). Returns (own_len, output [B, max_new_tokens + gamma + 2],
+    gen_counts [B], rounds, accepted drafts), of the rank's rows."""
     B, dev = buffer0.shape[0], buffer0.device
     cap = max_new_tokens + gamma + 2
     output = torch.zeros((B, cap + 1), dtype=torch.int32, device=dev)
@@ -115,8 +126,8 @@ def glide_generate(params, glide_params, config: ModelArgs, cache, own_k,
     accepted = torch.zeros((), dtype=torch.int64, device=dev)
     terminal = torch.zeros((), dtype=torch.bool, device=dev)
     rounds = 0
-    while bool(~terminal & (gen_counts.min() < max_new_tokens)
-               & (cache.lengths.max() + gamma + 1 <= cache.max_len)):
+    while round_flags(mesh, terminal, gen_counts, cache.lengths,
+                      max_new_tokens, gamma + 1, cache.max_len)[0]:
         own_len, buffer0, gen_counts, info = glide_round(
             params, glide_params, config, cache, own_k, own_v, own_len,
             buffer0, output, gen_counts, eot, gamma, use_flash)
@@ -218,7 +229,8 @@ def _tree_target_impl_flash(config: ModelArgs, lengths_before, positions,
         q, k = rot(q), rot(k)
         slots.write(ck, k, l)
         slots.write(cv, v, l)
-        ctx_p, m_p, l_p = impls.flash_stacked_lse(q, ck, cv, l, hi)
+        ctx_p, m_p, l_p = impls.flash_stacked_lse(q, ck, cv, l, hi,
+                                                  mesh=config.mesh)
         ctx_t, m_t, l_t = masked_attention_lse(q, k, v, tm)
         return merge_lse(ctx_p, m_p, l_p, ctx_t, m_t, l_t).reshape(B, N, -1)
 
@@ -254,9 +266,10 @@ def _level_route(tree: SpecTree, lvl, own_len, Sd: int, use_flash: bool):
 
 
 def _draft_level(params, glide_params, config, tree, d: int, node_tokens,
-                 own_k, own_v, own_len, cache, use_flash):
+                 own_k, own_v, own_len, cache, use_flash, unembed=True):
     """One glide forward over tree level d (its nodes at own slots own_len +
-    node id, rope position lenT0 + d); returns logits [B, n_lvl, V]."""
+    node id, rope position lenT0 + d); returns logits [B, n_lvl, V] (None
+    with unembed=False)."""
     B = node_tokens.shape[0]
     lvl = tree.levels[d]
     lenT0 = cache.lengths
@@ -265,20 +278,21 @@ def _draft_level(params, glide_params, config, tree, d: int, node_tokens,
         glide_params, params, config, toks,
         (lenT0[:, None] + d).expand(B, len(lvl)), own_k, own_v,
         own_len + int(lvl[0]), cache.k[-1], cache.v[-1],
-        _rows(lenT0, len(lvl)),
+        _rows(lenT0, len(lvl)), unembed=unembed,
         **_level_route(tree, lvl, own_len, own_k.shape[1], use_flash))
 
 
 def _write_leaf_level_kv(params, glide_params, config, tree: SpecTree,
                          node_tokens, own_k, own_v, own_len, cache,
                          use_flash: bool = False) -> None:
-    """Append the leaf level's K/V to the glide cache (logits discarded).
+    """Append the leaf level's K/V to the glide cache (no logits).
     The draft loop forwards levels 0..depth-1 only (leaves spawn no
     children), yet a fully accepted path ends at a leaf and _compact_path
     moves that slot into the live prefix: without this write the next
     round's draft would attend a slot never written."""
     _draft_level(params, glide_params, config, tree, len(tree.branching),
-                 node_tokens, own_k, own_v, own_len, cache, use_flash)
+                 node_tokens, own_k, own_v, own_len, cache, use_flash,
+                 unembed=False)
 
 
 def _tree_verify_logits(params, config, tree: SpecTree, cache, node_tokens,
@@ -377,13 +391,14 @@ def glide_tree_round(params, glide_params, config: ModelArgs, tree: SpecTree,
 @torch.inference_mode()
 def glide_tree_generate(params, glide_params, config: ModelArgs,
                         tree: SpecTree, cache, own_k, own_v, own_len, root0,
-                        eot, max_new_tokens: int, use_flash: bool = False):
+                        eot, max_new_tokens: int, use_flash: bool = False,
+                        mesh=None):
     """Greedy tree generation (the port's form of the JAX package's
     glide_tree_generate_fused): rounds while no sequence hit EOS, some
     sequence has fewer than max_new_tokens tokens and the target cache has
-    room for every node, read on the host once per round. Returns (own_len,
-    output [B, max_new_tokens + depth + 2], gen_counts [B], rounds,
-    accepted drafts)."""
+    room for every node, read on the host once per round (over every dp
+    rank of `mesh`). Returns (own_len, output [B, max_new_tokens + depth +
+    2], gen_counts [B], rounds, accepted drafts), of the rank's rows."""
     B, dev = root0.shape[0], root0.device
     depth1 = len(tree.branching) + 1
     O = max_new_tokens + depth1 + 1
@@ -393,8 +408,8 @@ def glide_tree_generate(params, glide_params, config: ModelArgs,
     terminal = torch.zeros((), dtype=torch.bool, device=dev)
     ar = torch.arange(depth1, dtype=torch.int32, device=dev)[None, :]
     rounds, root = 0, root0
-    while bool(~terminal & (gen_counts.min() < max_new_tokens)
-               & (cache.lengths.max() + tree.n_nodes <= cache.max_len)):
+    while round_flags(mesh, terminal, gen_counts, cache.lengths,
+                      max_new_tokens, tree.n_nodes, cache.max_len)[0]:
         own_len, emitted, emit_len, root, term = glide_tree_round(
             params, glide_params, config, tree, cache, own_k, own_v, own_len,
             root, eot, use_flash)
@@ -556,9 +571,9 @@ class GlideEngine:
             raise ValueError(f"own_capacity {cap} < the target's max_len "
                              f"{target.max_len}: the glide cache would drop "
                              f"verified tokens")
-        if target.config.mesh is not None and target.config.mesh.tp > 1:
-            raise NotImplementedError("GliDe under tensor parallelism is not "
-                                      "ported (ROADMAP A14b)")
+        if target.config.mesh is not None:
+            glide_params = sharding.shard_glide_params(
+                glide_params, target.mesh, target.model_config)
         if glide_params["wqkv"].device != target.device:
             raise ValueError(f"glide params lie on "
                              f"{glide_params['wqkv'].device}, the target on "
@@ -566,7 +581,7 @@ class GlideEngine:
         self.target = target
         self.glide_params = glide_params
         c = target.config
-        B = target.batch_size
+        B = target.local_batch
         self.own_k = torch.zeros((B, cap, c.n_kv_head * c.head_dim),
                                  dtype=target.kv_dtype, device=target.device)
         self.own_v = torch.zeros_like(self.own_k)
@@ -577,10 +592,11 @@ class GlideEngine:
     def encode(self, input_ids) -> torch.Tensor:
         """The target's chunked prefill, then the glide's own prefill over
         the same prompt in the same chunks (cross-attention causally bounded
-        per position). Returns the first generated token [B, 1]."""
+        per position). input_ids is the whole batch's; returns the first
+        generated token of the rank's rows [B/dp, 1]."""
         t = self.target
         buffer0 = t.encode(input_ids)
-        input_ids = t._tokens(input_ids)
+        input_ids = sharding.shard_tokens(t._tokens(input_ids), t.mesh)
         chunk = t.prefill_chunk
         self.own_len = torch.zeros_like(self.own_len)
         ar = torch.arange(chunk, dtype=torch.int32, device=t.device)[None, :]
@@ -590,7 +606,7 @@ class GlideEngine:
                 self.glide_params, t.params, t.config,
                 input_ids[:, i * chunk:(i + 1) * chunk], pos, self.own_k,
                 self.own_v, self.own_len, t.cache.k[-1], t.cache.v[-1],
-                pos + 1, use_flash=self.use_flash)
+                pos + 1, use_flash=self.use_flash, unembed=False)
             self.own_len = self.own_len + chunk
         return buffer0
 
@@ -600,12 +616,11 @@ class GlideEngine:
                  ) -> tuple[torch.Tensor, torch.Tensor, SpecStats]:
         """Linear (tree None, gamma drafts a round) or greedy tree
         speculation. Returns (output [B, cap], gen_counts [B], stats), cap =
-        max_new_tokens + gamma + 2 (linear) or + depth + 2 (tree). Timing
-        starts after both prefills."""
+        max_new_tokens + gamma + 2 (linear) or + depth + 2 (tree), of the
+        whole batch under dp. Timing starts after both prefills."""
         t = self.target
         eot = _eot_array(eot_ids, t.device)
         buffer0 = self.encode(input_ids)
-        B = buffer0.shape[0]
         stats = SpecStats()
         _sync(t.device)
         t0 = time.perf_counter()
@@ -613,17 +628,18 @@ class GlideEngine:
         if tree is None:
             self.own_len, output, gen_counts, rounds, accepted = glide_generate(
                 *common, t.cache, self.own_k, self.own_v, self.own_len,
-                buffer0, eot, gamma, max_new_tokens, self.use_flash)
-            stats.total_drafted = rounds * B * gamma
+                buffer0, eot, gamma, max_new_tokens, self.use_flash, t.mesh)
+            per_row = gamma
         else:
             (self.own_len, output, gen_counts, rounds,
              accepted) = glide_tree_generate(
                 *common, tree, t.cache, self.own_k, self.own_v, self.own_len,
-                buffer0, eot, max_new_tokens, self.use_flash)
-            stats.total_drafted = rounds * B * len(tree.branching)
+                buffer0, eot, max_new_tokens, self.use_flash, t.mesh)
+            per_row = len(tree.branching)
         _sync(t.device)
         stats.wall_time_s = time.perf_counter() - t0
         stats.rounds = rounds
-        stats.total_accepted_drafts = accepted
-        stats.generated_tokens = int(gen_counts.sum())
+        output, gen_counts = finish_stats(
+            t.mesh, stats, output, gen_counts,
+            torch.tensor(accepted, device=t.device), per_row)
         return output, gen_counts, stats

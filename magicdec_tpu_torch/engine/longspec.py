@@ -17,7 +17,10 @@ the draft Engine on the same mesh with replicate_tp=True (the whole draft
 and its whole-head kernels on every rank). Each round the drafted tokens
 are broadcast from tp rank 0, as the reference does
 (tests/SnapKV/longspec_benchmark.py:54-64), so the ranks feed one verify
-with the same tokens whatever their draft computed.
+with the same tokens whatever their draft computed. Under dp both Engines
+hold the rank's B/dp rows (the draft's too, replicated over tp only), the
+round loop's flags are taken over every dp rank (spec.round_flags) and the
+streams are gathered at the end, as engine/spec.py does.
 """
 
 from __future__ import annotations
@@ -31,9 +34,11 @@ from magicdec_tpu_torch.engine import attention_impls as impls
 from magicdec_tpu_torch.engine.backend import Engine
 from magicdec_tpu_torch.engine.sampling import argmax_tokens
 from magicdec_tpu_torch.engine.spec import (SpecStats, _accept_and_update,
-                                            _eot_array, _sync)
+                                            _eot_array, _sync, finish_stats,
+                                            round_flags)
 from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.parallel.collectives import broadcast_tp
+from magicdec_tpu_torch.parallel.sharding import shard_tokens
 
 
 def _draft_step_fn(dconfig, mode: str, budget: int, sink: int):
@@ -130,8 +135,9 @@ class LongSpecEngine:
         max_new_tokens + gamma + 2; rounds run under the condition of
         engine/spec.generate_selfspec, read on the host once per round."""
         dev = self.target.device
+        mesh = self.target.mesh
         input_ids = torch.as_tensor(input_ids, dtype=torch.int32, device=dev)
-        B = input_ids.shape[0]
+        B = self.target.local_batch
         eot = _eot_array(eot_ids, dev)
         cap = max_new_tokens + gamma + 2
         output = torch.zeros((B, cap + 1), dtype=torch.int32, device=dev)
@@ -146,7 +152,7 @@ class LongSpecEngine:
             self.draft.drop_cache()      # the full prefill cache is not needed
         # invariant: dcache.lengths is the slot of the last prompt token
         dcache.lengths = dcache.lengths - 1
-        last_acc = input_ids[:, -1:]
+        last_acc = shard_tokens(input_ids, mesh)[:, -1:]
         stale = torch.zeros(B, dtype=torch.bool, device=dev)
         d = self.draft
         step = _draft_step_fn(d.config, self.mode, d.draft_budget, d.sink_size)
@@ -158,9 +164,9 @@ class LongSpecEngine:
         _sync(dev)
         t0 = time.perf_counter()
         while True:
-            go = (~terminal & (gen_counts.min() < max_new_tokens)
-                  & (tcache.lengths.max() + gamma + 1 <= tcache.max_len))
-            if not bool(go):
+            go, _ = round_flags(mesh, terminal, gen_counts, tcache.lengths,
+                                max_new_tokens, gamma + 1, tcache.max_len)
+            if not go:
                 break
             buffer0, last_acc, stale, gen_counts, info = longspec_round(
                 self.target.params, self.target.config, d.params, step,
@@ -174,7 +180,6 @@ class LongSpecEngine:
         gen_counts = gen_counts + 1
         _sync(dev)
         stats.wall_time_s = time.perf_counter() - t0
-        stats.total_drafted = stats.rounds * B * gamma
-        stats.total_accepted_drafts = int(accepted)
-        stats.generated_tokens = int(gen_counts.sum())
-        return output[:, :cap], gen_counts, stats
+        output, gen_counts = finish_stats(mesh, stats, output[:, :cap],
+                                          gen_counts, accepted, gamma)
+        return output, gen_counts, stats

@@ -11,6 +11,13 @@ per round (of the flag that ends the loop, and for StreamingLLM and the
 round-buffer drafts of whether to compact first), as the JAX package's
 fused=False loop does.
 
+Under dp (an Engine on a dp x tp mesh) each rank runs its B/dp rows. The
+loop's flags are the JAX package's whole-batch reductions, so they are
+taken over every dp rank before the host reads them (round_flags: one
+all-reduce of four ints a round), every rank runs the same rounds, and the
+output rows of the dp blocks are gathered at the end: every rank returns
+the whole batch's stream and stats.
+
 Acceptance semantics (as in the JAX package):
   * a drafted token equal to the target argmax and not EOS is accepted;
   * accept = 1 + length of the accepted cumprod prefix (the +1 emits the
@@ -36,6 +43,9 @@ from magicdec_tpu_torch.engine import squeeze as squeeze_lib
 from magicdec_tpu_torch.engine.backend import Engine
 from magicdec_tpu_torch.engine.sampling import argmax_tokens, sample
 from magicdec_tpu_torch.models import llama
+from magicdec_tpu_torch.parallel.collectives import (all_gather_dp,
+                                                     all_reduce_dp)
+from magicdec_tpu_torch.parallel.sharding import shard_tokens
 
 
 def _is_eot(tokens: torch.Tensor, eot: torch.Tensor) -> torch.Tensor:
@@ -184,6 +194,37 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def round_flags(mesh, terminal, gen_counts, lengths, max_new_tokens: int,
+                room: int, max_len: int, need=None) -> tuple[bool, bool]:
+    """The round loop's condition and compaction flag, read on the host
+    once a round: go = no sequence hit EOS (terminal, 0-d bool), some
+    sequence has fewer than max_new_tokens tokens, and every cache length
+    has room for `room` more within max_len; need = the 0-d bool of some
+    sequence's window having to compact first (None: False). Under dp each
+    is taken over every dp rank's sequences (one all-reduce of the four
+    flags), so every rank runs the same rounds and compactions."""
+    if need is None:
+        need = torch.zeros_like(terminal)
+    flags = torch.stack([terminal, gen_counts.min() < max_new_tokens,
+                         lengths.max() + room > max_len,
+                         need]).to(torch.int32)
+    t, more, full, nd = all_reduce_dp(flags, mesh, "max").tolist()
+    return bool(not t and more and not full), bool(nd)
+
+
+def finish_stats(mesh, stats, output, gen_counts, accepted, drafted_per_row):
+    """The whole batch's output [B, ...] and gen_counts [B] (the dp blocks'
+    rows gathered in dp order) and stats: total_drafted = rounds x B x
+    drafted_per_row, the accepted drafts summed over the dp ranks."""
+    output = all_gather_dp(output, mesh)
+    gen_counts = all_gather_dp(gen_counts, mesh)
+    accepted = all_reduce_dp(accepted.reshape(1).to(torch.int64), mesh)
+    stats.total_drafted = stats.rounds * output.shape[0] * drafted_per_row
+    stats.total_accepted_drafts = int(accepted)
+    stats.generated_tokens = int(gen_counts.sum())
+    return output, gen_counts
+
+
 @torch.inference_mode()
 def generate_autoregressive(engine: Engine, input_ids, max_new_tokens: int,
                             eot_ids=(), temperature: float = 0.0,
@@ -208,7 +249,9 @@ def generate_autoregressive(engine: Engine, input_ids, max_new_tokens: int,
     _sync(dev)
     t0 = time.perf_counter()
     step = 1
-    while step < max_new_tokens and (not eot_ids or bool(alive.any())):
+    mesh = engine.mesh
+    while step < max_new_tokens and (not eot_ids or bool(all_reduce_dp(
+            alive.any().to(torch.int32).reshape(1), mesh, "max"))):
         impl = impls.target_attn(engine.config, engine.cache.lengths, 1)
         logits = llama.forward(engine.params, engine.config, tok, impl,
                                (engine.cache.k, engine.cache.v))
@@ -224,6 +267,7 @@ def generate_autoregressive(engine: Engine, input_ids, max_new_tokens: int,
         step += 1
     _sync(dev)
     stats.wall_time_s = time.perf_counter() - t0
+    output, counts = all_gather_dp(output, mesh), all_gather_dp(counts, mesh)
     stats.generated_tokens = int(counts.sum())
     stats.rounds = int(counts.max())
     return output, stats
@@ -251,8 +295,10 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
                          f"{engine.spec!r}")
     streaming = engine.spec == "streaming"
     dev = engine.device
+    mesh = engine.mesh
     input_ids = torch.as_tensor(input_ids, dtype=torch.int32, device=dev)
-    B = input_ids.shape[0]
+    local_ids = shard_tokens(input_ids, mesh)
+    B = local_ids.shape[0]
     eot = _eot_array(eot_ids, dev)
     cap = max_new_tokens + gamma + 2
     output = torch.zeros((B, cap + 1), dtype=torch.int32, device=dev)
@@ -261,7 +307,7 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
     buffer0 = engine.encode(input_ids)
     if streaming:
         # invariant: draft.lengths is the slot of the newest accepted token
-        last_acc = input_ids[:, -1:]
+        last_acc = local_ids[:, -1:]
         stale = torch.zeros(B, dtype=torch.bool, device=dev)
         engine.draft.lengths = engine.draft.lengths - 1
     st = None       # the round-buffer drafts' state
@@ -289,15 +335,16 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
     _sync(dev)
     t0 = time.perf_counter()
     while True:
-        go = (~terminal & (gen_counts.min() < max_new_tokens)
-              & (engine.cache.lengths.max() + gamma + 1 <= max_len))
+        need = None
         if streaming:
-            trigger = engine.compaction_trigger()
-            go, need = torch.stack(
-                [go, cache_lib.compaction_needed(engine.draft, trigger)]).tolist()
+            need = cache_lib.compaction_needed(engine.draft,
+                                               engine.compaction_trigger())
         elif st is not None:
-            go, need = torch.stack([go, st.compaction_needed()]).tolist()
-        if not bool(go):
+            need = st.compaction_needed()
+        go, need = round_flags(mesh, terminal, gen_counts,
+                               engine.cache.lengths, max_new_tokens,
+                               gamma + 1, max_len, need)
+        if not go:
             break
         if st is not None:
             if need:
@@ -326,7 +373,6 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
     gen_counts = gen_counts + 1
     _sync(dev)
     stats.wall_time_s = time.perf_counter() - t0
-    stats.total_drafted = stats.rounds * B * gamma
-    stats.total_accepted_drafts = int(accepted)
-    stats.generated_tokens = int(gen_counts.sum())
-    return output[:, :cap], gen_counts, stats
+    output, gen_counts = finish_stats(mesh, stats, output[:, :cap],
+                                      gen_counts, accepted, gamma)
+    return output, gen_counts, stats

@@ -10,7 +10,11 @@ max_clusters superset, and mask out (slot -1, colmask 0) the members of the
 clusters below the threshold, so the attended cluster count adapts per
 query. The mass uses the live member counts, which the index fold advances.
 The rule needs no kernel of its own (the JAX package leaves it to XLA); the
-gather is page_gather_single.
+gather is page_gather_single. Under a tp mesh the centroids hold the
+rank's KV heads, so each rank sums the mass over its heads and the ranks'
+sums are all-reduced before the normalisation and the top-k (as Quest's
+page scores): every rank keeps the same clusters, and each gathers its own
+columns through page_gather_single_sharded.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import torch
 
 from magicdec_tpu_torch.engine.retro import RetroState, retro_select_gather_fn
 from magicdec_tpu_torch.models.config import ModelArgs
+from magicdec_tpu_torch.parallel.collectives import all_reduce_tp
 
 
 def squeeze_select(config: ModelArgs, q: torch.Tensor, cent_l: torch.Tensor,
@@ -28,9 +33,9 @@ def squeeze_select(config: ModelArgs, q: torch.Tensor, cent_l: torch.Tensor,
                    threshold: float):
     """q [B, T, Hq, D] (rotated), cent_l [B, C, Hkv*D], counts_l [B, C]
     member counts. A cluster's estimated mass is count * softmax(q .
-    centroid * D^-1/2), summed over heads and query rows and normalised;
-    the top max_clusters by mass are ranked and those with mass >=
-    threshold kept. Returns (top_c [B, max_clusters] int32, keep
+    centroid * D^-1/2), summed over heads and query rows (over the tp
+    ranks' heads under a tp mesh: config.mesh) and normalised; the top
+    max_clusters by mass are ranked and those with mass >= threshold kept. Returns (top_c [B, max_clusters] int32, keep
     [B, max_clusters] bool)."""
     Hkv, Dh = config.n_kv_head, config.head_dim
     B, T = q.shape[:2]
@@ -39,7 +44,7 @@ def squeeze_select(config: ModelArgs, q: torch.Tensor, cent_l: torch.Tensor,
     cent = cent_l.reshape(B, C, Hkv, Dh)
     logit = torch.einsum("bthgd,bchd->bthgc", qg, cent) * (Dh ** -0.5)
     w = torch.softmax(logit, dim=-1) * counts_l.float()[:, None, None, None, :]
-    mass = w.sum(dim=(1, 2, 3))                                    # [B, C]
+    mass = all_reduce_tp(w.sum(dim=(1, 2, 3)), config.mesh)        # [B, C]
     mass = mass / torch.clamp(mass.sum(-1, keepdim=True), min=1e-9)
     top_mass, top_c = torch.topk(mass, max_clusters, dim=1)
     return top_c.to(torch.int32), top_mass >= threshold

@@ -11,6 +11,13 @@ target's full-context representation.
 The params are a flat dict in the JAX package's layout ([in, out] weights,
 KV-head-major wqkv, w_gate_up [D, 2, I]), so llama.params_from_numpy carries
 JAX glide params across as they are.
+
+Under tensor parallelism (config: the target rank's local config, whose
+mesh is set) the block is cut as a target layer (parallel/sharding.
+shard_glide_params): the rank runs its heads and its FFN columns, the
+row-parallel products (wo, wo_cross, w_down) are all-reduced over the tp
+ranks, and the embedding and the head are the target's vocab-parallel ones
+(llama.embed, then the rank's vocab columns gathered).
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from magicdec_tpu_torch.ops.flash_decode import (flash_decode,
                                                  flash_prefill)
 from magicdec_tpu_torch.ops.norms import rms_norm
 from magicdec_tpu_torch.ops.rope import rope
+from magicdec_tpu_torch.parallel.collectives import (all_gather_tp,
+                                                     all_reduce_tp)
 
 Params = dict[str, Any]
 
@@ -91,8 +100,10 @@ def glide_forward(glide: Params, target_params: Params, config: ModelArgs,
                   own_lengths: torch.Tensor, tgt_k_last: torch.Tensor,
                   tgt_v_last: torch.Tensor, tgt_valid_upto: torch.Tensor,
                   attn_mask=None, use_flash: bool = False,
-                  tree=None) -> torch.Tensor:
-    """One glide step; returns logits [B, T, V] f32.
+                  tree=None, unembed: bool = True) -> torch.Tensor | None:
+    """One glide step; returns logits [B, T, V] f32, or None with
+    unembed=False (the glide's prefill keeps only its cache writes: under
+    tp the logits of a whole chunk would cross the ranks for nothing).
 
     tokens [B, T] at absolute `positions` [B, T]; own_k / own_v
     [B, Sd, Hkv*D] are the glide's own self-attention cache, appended at
@@ -115,7 +126,8 @@ def glide_forward(glide: Params, target_params: Params, config: ModelArgs,
     c = config
     B, T = tokens.shape
     Hkv, Dh = c.n_kv_head, c.head_dim
-    x = F.embedding(tokens.long(), target_params["tok_embeddings"])
+    mesh = c.mesh
+    x = llama.embed(target_params, c, tokens.reshape(-1)).reshape(B, T, -1)
 
     # self-attention over the glide's own cache
     h = rms_norm(x, glide["self_norm"], c.norm_eps)
@@ -150,7 +162,8 @@ def glide_forward(glide: Params, target_params: Params, config: ModelArgs,
             attn_mask)
     # the context in the block's dtype: an f32 block training against a bf16
     # target (train.glide_loss) keeps it in f32, as JAX's promotion does
-    x = x + ctx.reshape(B, T, -1).to(glide["wo"].dtype) @ glide["wo"]
+    x = x + all_reduce_tp(ctx.reshape(B, T, -1).to(glide["wo"].dtype)
+                          @ glide["wo"], mesh)
 
     # cross-attention into the target's last-layer KV (GQA layout shared),
     # bounded by the verified prefix, so the flash route needs no tree part
@@ -165,14 +178,18 @@ def glide_forward(glide: Params, target_params: Params, config: ModelArgs,
                                      tgt_v_last.reshape(B, S, Hkv, Dh),
                                      tgt_valid_upto)
     w = glide["wo_cross"]
-    x = x + ctx.reshape(B, T, -1).to(w.dtype) @ w
+    x = x + all_reduce_tp(ctx.reshape(B, T, -1).to(w.dtype) @ w, mesh)
 
     # SwiGLU MLP
     h = rms_norm(x, glide["ffn_norm"], c.norm_eps)
     w_gu = glide["w_gate_up"]
     gate_up = (h @ w_gu.reshape(w_gu.shape[0], -1)).reshape(B, T, 2, -1)
-    x = x + (F.silu(gate_up[..., 0, :]) * gate_up[..., 1, :]) @ glide["w_down"]
+    x = x + all_reduce_tp((F.silu(gate_up[..., 0, :]) * gate_up[..., 1, :])
+                          @ glide["w_down"], mesh)
 
-    # the shared unembedding (final norm, f32 logits)
-    return llama.unembed(target_params, c, x.reshape(B * T, -1)).reshape(
-        B, T, -1)
+    if not unembed:
+        return None
+    # the shared unembedding (final norm, f32 logits; the vocab columns
+    # gathered under tp)
+    logits = llama.unembed(target_params, c, x.reshape(B * T, -1))
+    return all_gather_tp(logits, mesh, dim=1).reshape(B, T, -1)

@@ -287,7 +287,9 @@ def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
         # the fused kernels take whole weights and hold no collective
         if fused:
             raise ValueError("the fused decode block does not run on a "
-                             "tensor-parallel mesh (ROADMAP A14b)")
+                             "tensor-parallel mesh: its kernels take whole "
+                             "weights and hold no collective (the JAX "
+                             "package's fused_for_mesh keeps it off too)")
         fused = False
     use_fused = _fused_auto(params, x, T, fused)
     rows = x.shape[0]

@@ -1,11 +1,16 @@
-"""The collectives of tensor parallelism over a parallel/sharding.Mesh.
+"""The collectives of a parallel/sharding.Mesh.
 
 Under GSPMD the JAX package's collectives are inserted by XLA; here the
-port calls them itself: the all-reduce of the row-parallel products (wo,
-w_down), of the vocab-parallel embedding and of the cross-head scores (Quest
-pages, RetroInfer centroids, the k-means distances), the vocab all-gather of
-the logits, and the broadcast of a replicated draft's tokens. At tp == 1
-each returns its input and makes no torch.distributed call.
+port calls them itself. Over the tp group: the all-reduce of the
+row-parallel products (wo, w_down, GliDe's wo, wo_cross and w_down), of the
+vocab-parallel embedding and of the cross-head scores (Quest pages,
+RetroInfer centroids, SqueezedAttention's cluster mass, the k-means
+distances), the vocab all-gather of the logits, and the broadcast of a
+replicated draft's tokens. Over the dp group: the reduction of a
+generation's per-round decisions and stats (the JAX package's whole-batch
+reductions inside its while_loop), and the gather of the dp blocks' output
+rows. At tp == 1 (dp == 1) the tp (dp) calls return their input and make
+no torch.distributed call.
 
 Transport. nccl moves CUDA tensors between cards (one process a card).
 gloo moves CPU tensors, and takes CUDA tensors too for the three calls used
@@ -80,3 +85,33 @@ def broadcast_tp(x: torch.Tensor, mesh) -> torch.Tensor:
     dist.broadcast(x, src=dist.get_global_rank(mesh.group, 0),
                    group=mesh.group)
     return x
+
+
+def _dp(mesh) -> int:
+    return 1 if mesh is None else mesh.dp
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def all_reduce_dp(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """x reduced over the dp ranks ("sum" or "max"), in place; returns x.
+    For the integer flags and counts of a generation's rounds, so the
+    order of a sum does not matter."""
+    if _dp(mesh) == 1:
+        return x
+    _check(x, "all_reduce_dp")
+    dist.all_reduce(x, op=_OPS[op], group=mesh.dp_group)
+    return x
+
+
+def all_gather_dp(x: torch.Tensor, mesh, dim: int = 0) -> torch.Tensor:
+    """The dp ranks' x concatenated along `dim` in dp order (a new tensor;
+    x itself at dp == 1): the rows of every dp block, so each rank returns
+    the whole batch."""
+    if _dp(mesh) == 1:
+        return x
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.dp)]
+    dist.all_gather(parts, x, group=mesh.dp_group)
+    return torch.cat(parts, dim=dim)

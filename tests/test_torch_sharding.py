@@ -9,7 +9,12 @@ n_layer=2, n_head=8, n_kv_head=4, dim=128, vocab 512, float32, B=4, P=64,
 precision (conftest.py), TF32 is off in torch. The port's tp=2 streams must
 equal the JAX package's single-device streams token for token (which
 tests/test_sharding.py holds equal to its mesh streams), and every rank
-must return the same ones.
+must return the same ones. The world also runs GliDe (linear and a (2, 2)
+tree) and int8 and int4 weights (a model of dim 256, whose row-parallel
+shards hold whole 128-row int4 groups) against the JAX package's
+single-device streams: the JAX package runs GliDe on a mesh through dense
+GSPMD, and its param_pspecs would cut a quantized leaf along the wrong axis,
+so its single-device streams are the reference.
 """
 
 import jax
@@ -20,18 +25,21 @@ import torch
 
 from magicdec_tpu.cache import KVCache as JKVCache
 from magicdec_tpu.engine import attention_impls as jimpls
+from magicdec_tpu.engine import glide_engine as jge
 from magicdec_tpu.engine.backend import Engine as JEngine
 from magicdec_tpu.engine.longspec import LongSpecEngine as JLongSpec
 from magicdec_tpu.engine.spec import (generate_autoregressive as j_ar,
                                       generate_selfspec as j_spec)
+from magicdec_tpu.models import glide as jglide
 from magicdec_tpu.models import llama as jllama
 from magicdec_tpu.models.config import ModelArgs as JArgs
 from magicdec_tpu.parallel import sharding as jshard
+from magicdec_tpu.quant import int8 as jq
 from magicdec_tpu_torch.engine import attention_impls as timpls
 from magicdec_tpu_torch.engine.backend import Engine as TEngine
-from magicdec_tpu_torch.engine.glide_engine import GlideEngine
+from magicdec_tpu_torch.engine import offload
 from magicdec_tpu_torch.engine.retro import _tail_attend
-from magicdec_tpu_torch.models import glide as tglide
+from magicdec_tpu_torch.models import llama as tllama
 from magicdec_tpu_torch.models.config import ModelArgs as TArgs
 from magicdec_tpu_torch.models.llama import params_from_numpy
 from magicdec_tpu_torch.ops import flash_decode as tfd
@@ -43,7 +51,8 @@ from magicdec_tpu_torch.ops.page_gather import (page_gather,
                                                 page_gather_single_sharded)
 from magicdec_tpu_torch.parallel import collectives, sharding
 from magicdec_tpu_torch.parallel.launch import run_world
-from magicdec_tpu_torch.quant.int8 import quantize_params
+from magicdec_tpu_torch.quant.int8 import (Int4ColWeight, dequantize_int8,
+                                           quantize_params)
 
 import torch_tp_scenarios
 
@@ -63,9 +72,16 @@ CASES = {
     "streaming": dict(spec="streaming", draft_budget=48, sink_size=4),
     "quest": dict(spec="quest", draft_budget=48, latest_k=16, quest_page=16),
     "retro": dict(spec="retro", draft_budget=48, latest_k=16, retro_cap=16),
+    "squeeze": dict(spec="squeeze", draft_budget=48, latest_k=16,
+                    retro_cap=16),
 }
 # RetroInfer's fold path: enough tokens for the tail to compact
 FOLD_NEW = 40
+# the quantized runs' model: wo's K (256) and w_down's (512) cut in two
+# keep whole 128-row int4 groups
+QUANT_KW = dict(block_size=512, vocab_size=512, n_layer=2, n_head=8,
+                n_kv_head=4, dim=256, intermediate_size=512)
+QUANT_BUDGETS = (32, P)
 # first-step logits against JAX's mesh run: the two sides sum the
 # row-parallel partials in other orders (f32 rounding, ~1e-7 relative)
 LOGIT_REL = 1e-5
@@ -109,15 +125,48 @@ def cache_np():
 
 
 @pytest.fixture(scope="module")
-def world(jparams, prompt, padded_inputs, cache_np, tmp_path_factory):
+def jglide_params():
+    return jglide.init_glide_params(jax.random.PRNGKey(5), JArgs(**CFG_KW),
+                                    scale=0.3)
+
+
+def _portable(tree):
+    """A JAX params tree as numpy for the ranks, which must not import the
+    JAX package: its Int4ColWeight becomes the port's, holding numpy arrays
+    (llama.params_from_numpy reads either)."""
+    if isinstance(tree, jq.Int4ColWeight):
+        return Int4ColWeight(np.asarray(tree.q4), np.asarray(tree.s4),
+                             tuple(tree.out_shape))
+    if isinstance(tree, dict):
+        return {k: _portable(v) for k, v in tree.items()}
+    return None if tree is None else np.asarray(tree)
+
+
+@pytest.fixture(scope="module")
+def quant_inputs():
+    """The quantized model's whole JAX params per mode and its prompt."""
+    base = jllama.init_params(jax.random.PRNGKey(6), JArgs(**QUANT_KW),
+                              jnp.float32, scale=0.3)
+    prompt = np.random.default_rng(7).integers(
+        0, QUANT_KW["vocab_size"], size=(B, P)).astype(np.int32)
+    return {m: jq.quantize_params(base, m) for m in ("int8", "int4")}, prompt
+
+
+@pytest.fixture(scope="module")
+def world(jparams, prompt, padded_inputs, cache_np, jglide_params,
+          quant_inputs, tmp_path_factory):
     """Both ranks' results of every scenario, in rank order."""
     pparams, pprompt = padded_inputs
+    qparams, qprompt = quant_inputs
+    quant = (QUANT_KW, {m: _portable(p) for m, p in qparams.items()}, qprompt,
+             QUANT_BUDGETS)
     return run_world(
         torch_tp_scenarios.run, tp=TP, backend="gloo", devices=["cpu"] * TP,
         args=(CFG_KW, _np_tree(jparams), prompt),
         kwargs=dict(new=NEW, gamma=GAMMA, engine_kw=ENGINE_KW, cases=CASES,
                     padded=(PAD_KW, _np_tree(pparams), pprompt),
-                    cache_np=cache_np, fold_new=FOLD_NEW),
+                    cache_np=cache_np, fold_new=FOLD_NEW,
+                    glide_np=_portable(jglide_params), quant=quant),
         rendezvous_dir=str(tmp_path_factory.mktemp("rendezvous")),
         timeout_s=300)
 
@@ -205,6 +254,100 @@ def test_first_step_logits_agree_with_jax_mesh(world, jparams, prompt, snapkv):
     np.testing.assert_array_equal(world[0][key], world[1][key])
 
 
+@pytest.mark.parametrize("branching", [None, (2, 2)],
+                         ids=["linear", "tree_2_2"])
+def test_tp_glide_equals_jax_single_device(world, jparams, jglide_params,
+                                           prompt, branching):
+    """GliDe under tp=2 (the block cut as a target layer, the own cache on
+    the rank's heads): the stream, counts, rounds and accepted drafts equal
+    the JAX package's single-device GlideEngine's, on both ranks, and the
+    stream is the tp AR stream (exact in float32 for the tree too)."""
+    name = "glide_linear" if branching is None else "glide_tree"
+    jtree = None if branching is None else jge.SpecTree(branching)
+    eng = jge.GlideEngine(JEngine(JArgs(**CFG_KW), jparams, **ENGINE_KW),
+                          jglide_params)
+    jout, jcounts, jstats = eng.generate(jnp.asarray(prompt), NEW,
+                                         gamma=GAMMA, tree=jtree)
+    ar = world[0]["ar"]["out"]
+    for res in world:
+        got = res[name]
+        np.testing.assert_array_equal(got["out"], np.asarray(jout))
+        np.testing.assert_array_equal(got["counts"], np.asarray(jcounts))
+        assert (got["rounds"], got["accepted"]) == (
+            jstats.rounds, jstats.total_accepted_drafts)
+        assert got["own_heads"] == CFG_KW["n_kv_head"] // TP
+        assert got["lengths_equal"]
+        n = min(int(got["counts"].min()), NEW)
+        np.testing.assert_array_equal(got["out"][:, :n], ar[:, :n])
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_tp_quantized_streams_equal_jax_single_device(world, quant_inputs,
+                                                      mode):
+    """int8 and int4 weights cut for tp=2 in their stored layouts: AR and
+    SnapKV (budget 32 and the whole prefix) equal the JAX package's
+    single-device quantized streams on both ranks, with float32 caches; the
+    SnapKV streams are the tp AR stream and full budget accepts 1.0."""
+    qparams, qprompt = quant_inputs
+    cfg = JArgs(**QUANT_KW)
+    kw = dict(ENGINE_KW, kv_dtype=jnp.float32)
+    jar, _ = j_ar(JEngine(cfg, qparams[mode], **kw), jnp.asarray(qprompt),
+                  NEW)
+    for res in world:
+        np.testing.assert_array_equal(res[f"{mode}_ar"]["out"],
+                                      np.asarray(jar))
+    for budget in QUANT_BUDGETS:
+        jout, jcounts, _ = j_spec(
+            JEngine(cfg, qparams[mode], spec="snapkv", draft_budget=budget,
+                    window_size=8, **kw),
+            jnp.asarray(qprompt), gamma=GAMMA, max_new_tokens=NEW)
+        for res in world:
+            got = res[f"{mode}_snapkv_{budget}"]
+            np.testing.assert_array_equal(got["out"], np.asarray(jout))
+            np.testing.assert_array_equal(got["counts"], np.asarray(jcounts))
+            np.testing.assert_array_equal(got["out"][:, :NEW],
+                                          res[f"{mode}_ar"]["out"])
+            if budget == P:
+                assert got["acceptance"] == 1.0
+
+
+def _dequantized(w) -> torch.Tensor:
+    """A stored quantized layer weight as float32 in its [L, K, *out]
+    layout: the int8 dict through dequantize_int8, an Int4ColWeight from
+    its biased nibbles (n low, n + N/2 high) and its group scales."""
+    if isinstance(w, dict):
+        return dequantize_int8(w, torch.float32)
+    qu = w.q4.view(torch.uint8)
+    codes = torch.cat([qu & 0xF, qu >> 4], dim=-1).float() - 8.0
+    L, K, N = codes.shape
+    groups = w.s4.shape[1]
+    wf = (codes.reshape(L, groups, K // groups, N) * w.s4[:, :, None]
+          ).reshape(L, K, N)
+    return wf.reshape(L, K, *w.out_shape)
+
+
+@pytest.mark.parametrize("mode", ["int8", "int4"])
+def test_quantized_shards_dequantize_to_the_whole_weights_blocks(
+        quant_inputs, mode):
+    """Each rank's shard of each quantized leaf, dequantized, equals the
+    rank's block of the whole dequantized weight: the output block of a
+    column-parallel leaf (wqkv; w_gate_up's gate and up blocks), the K block
+    of a row-parallel one (wo, w_down)."""
+    qparams, _ = quant_inputs
+    whole = params_from_numpy(_portable(qparams[mode]), device="cpu")
+    cfg = TArgs(**QUANT_KW)
+    cuts = {"wqkv": -1, "w_gate_up": -1, "wo": 1, "w_down": 1}
+    for r in range(TP):
+        shard = sharding.shard_params(whole, _cpu_mesh(r), cfg)["layers"]
+        for name, axis in cuts.items():
+            full = _dequantized(whole["layers"][name])
+            n = full.shape[axis] // TP
+            want = full.narrow(axis, r * n, n)
+            got = _dequantized(shard[name])
+            assert type(shard[name]) is type(whole["layers"][name])
+            torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
 def _jax_block(x, mesh, rank):
     """The block of a JAX array that the mesh's tp rank `rank` holds."""
     dev = mesh.devices[0, rank]
@@ -283,24 +426,44 @@ def _cpu_mesh(rank=0, tp=TP):
                          device=torch.device("cpu"))
 
 
-def test_refusals(jparams):
+def test_refusals(jparams, tmp_path):
+    """What stays refused: a mesh larger than the world, a batch that does
+    not divide dp, an int4 row-parallel shard that would split a 128-row
+    scale group, offload on a mesh and the fused block under tp (as the
+    JAX package: its offload takes no mesh, its fused_for_mesh keeps the
+    block off), and KV heads that do not divide tp (pad_model_for_tp)."""
+    import torch.distributed as dist
+
     tparams = params_from_numpy(_np_tree(jparams), device="cpu")
     cfg = TArgs(**CFG_KW)
-    with pytest.raises(ValueError, match="C3"):
-        sharding.shard_params(quantize_params(tparams, "int8"), _cpu_mesh(),
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        with pytest.raises(ValueError, match="needs dp\\*tp ranks"):
+            sharding.make_mesh(dp=2, tp=TP, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    dp_mesh = sharding.Mesh(tp=1, rank=0, backend="gloo",
+                            device=torch.device("cpu"), dp=2)
+    with pytest.raises(ValueError, match="does not divide dp=2"):
+        TEngine(cfg, tparams, mesh=dp_mesh, **dict(ENGINE_KW, batch_size=3))
+    with pytest.raises(ValueError, match="does not divide dp=2"):
+        sharding.shard_tokens(torch.zeros((3, 4)), dp_mesh)
+    with pytest.raises(ValueError, match="128-row scale group"):
+        sharding.shard_params(quantize_params(tparams, "int4"), _cpu_mesh(),
                               cfg)
-    with pytest.raises(NotImplementedError, match="dp"):
-        sharding.make_mesh(dp=2, tp=TP)
+    local = sharding.local_config(cfg, _cpu_mesh())
+    with pytest.raises(NotImplementedError, match="tensor-parallel mesh"):
+        offload.offload_prefill(tparams, local, None, np.zeros((B, P)),
+                                n_clusters=4, cap=16, tail_keep=16,
+                                device="cpu")
+    with pytest.raises(ValueError, match="fused decode block"):
+        tllama.run_layers(tparams, local, torch.zeros((64, cfg.dim)), None,
+                          (), 1, 1, fused=True)
     uneven = TArgs(**PAD_KW)
     pparams = params_from_numpy(_np_tree(_jparams(PAD_KW, 1)), device="cpu")
     with pytest.raises(ValueError, match="pad_model_for_tp"):
         TEngine(uneven, pparams, mesh=_cpu_mesh(), **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="SqueezedAttention"):
-        TEngine(cfg, tparams, mesh=_cpu_mesh(), spec="squeeze",
-                draft_budget=48, **ENGINE_KW)
-    target = TEngine(cfg, tparams, mesh=_cpu_mesh(), **ENGINE_KW)
-    with pytest.raises(NotImplementedError, match="GliDe"):
-        GlideEngine(target, tglide.init_glide_params(cfg, device="cpu"))
 
 
 def test_collectives_at_tp1_return_their_input():
