@@ -119,6 +119,27 @@ exits non-zero):
                 package's production_shape defaults; P cut to 1024): AR and
                 SnapKV at budget 1024 = full budget, lossless and accepting
                 exactly 1.0.
+ 11a. hf_ruler  the tail on the main path: the main path's weights written
+                as an HF checkpoint directory named llama-3.2-1b (two
+                safetensors shards and their index, by this script's own
+                writer) and loaded back by checkpoint/convert_hf's
+                load_hf_checkpoint with no config and no device, and a
+                pytorch_model.bin of the first 2 layers loaded with a
+                2-layer config: every leaf bit-equal to the source params;
+                then RULER niah prompts (data/ruler.py, B=8, P=4096)
+                through AR and SnapKV 1024 (gamma 6, 64 new tokens) on the
+                loaded weights: the SnapKV stream equals AR, the RULER
+                scores are equal (both printed), launch counts as the path
+                implies; PhaseClock times the loads, a prefill and both
+                runs, device_trace traces a one-round SnapKV run on the
+                .bin's 2 layers (the trace must name the hand-written
+                decode and prefill kernels), step_cost_report times an AR
+                step; then
+                analysis.selection_fidelity on the prefilled cache's layer
+                0 and the last prompt position's rotated query (8 pages of
+                128: per-head true mass >= joint and >= per-head boxes,
+                all in [0, 1]) and find_alpha / best_gamma from the SnapKV
+                acceptance
  12. longspec   two-model SD with llama-3.2-1b as the target: a self-draft
                 (the same weights, full KV) must accept exactly 1.0, and a
                 2-layer draft of the same widths with its own weights must
@@ -424,6 +445,8 @@ def main(argv=None) -> int:
     params, prompt = main_inputs(torch, dev)
     launches, ar, random_tok_s = main_path(torch, dev, params, prompt)
     clock.mark("main_path")
+    launches = _add(launches, hf_ruler(torch, dev, params))
+    clock.mark("hf_ruler")
     launches = _add(launches, longspec(torch, dev, params, prompt, ar))
     launches = _add(launches, quant_and_fused(torch, dev, params, prompt))
     clock.mark("longspec_quant_fused")
@@ -1820,6 +1843,292 @@ def _spec_run(torch, cfg, params, prompt, name, spec, budget):
         torch, name, go, _path_launches(cfg.n_layer, spec))
     return dict(out=out.cpu(), counts=counts.cpu(), stats=stats,
                 total_s=seconds, launches=used)
+
+
+# the hf_ruler phase: the main path's weights written as an HF checkpoint
+# directory (HF_SHARDS safetensors files and their index; a pytorch_model.bin
+# of the first HF_BIN_LAYERS layers), loaded back by the tail's loader and
+# run on RULER prompts
+HF_SHARDS, HF_BIN_LAYERS = 2, 2
+RULER_TASK = "niah"
+TRACE_NEW = 2               # new tokens of the traced SnapKV run: a round
+STEP_ITERS = 10             # step_cost_report's timed AR steps
+FIDELITY_PAGES = BUDGET // QUEST_PAGE   # selection_fidelity's n_pages: 8
+# the hand-written kernels the trace must name (bf16 entries)
+TRACED_KERNELS = ("decode_split_mma_kernel", "prefill_mma_kernel")
+
+
+def hf_state_dict(torch, params, cfg):
+    """The port's params as an HF LlamaForCausalLM state dict (the inverse
+    of checkpoint/convert_hf.py's mapping), each tensor a CPU copy of its
+    own: [out, in] weights, q/k/v split out of the KV-head-major wqkv,
+    gate/up out of w_gate_up; no lm_head with tied embeddings."""
+    L, D = cfg.n_layer, cfg.dim
+    Dh, Hq, Hkv = cfg.head_dim, cfg.n_head, cfg.n_kv_head
+    G = Hq // Hkv
+    lp = params["layers"]
+    sd = {"model.embed_tokens.weight": params["tok_embeddings"],
+          "model.norm.weight": params["norm"]}
+    if not cfg.tie_word_embeddings:
+        sd["lm_head.weight"] = params["output"].t()
+    for i in range(L):
+        p = f"model.layers.{i}."
+        w = lp["wqkv"][i].reshape(D, Hkv, G + 2, Dh)
+        sd.update({
+            p + "self_attn.q_proj.weight": w[:, :, :G].reshape(D, Hq * Dh).t(),
+            p + "self_attn.k_proj.weight": w[:, :, G].reshape(D, Hkv * Dh).t(),
+            p + "self_attn.v_proj.weight": w[:, :, G + 1].reshape(D, Hkv * Dh).t(),
+            p + "self_attn.o_proj.weight": lp["wo"][i].t(),
+            p + "mlp.gate_proj.weight": lp["w_gate_up"][i][:, 0].t(),
+            p + "mlp.up_proj.weight": lp["w_gate_up"][i][:, 1].t(),
+            p + "mlp.down_proj.weight": lp["w_down"][i].t(),
+            p + "input_layernorm.weight": lp["attn_norm"][i],
+            p + "post_attention_layernorm.weight": lp["ffn_norm"][i]})
+    return {k: v.detach().to("cpu", copy=True).contiguous()
+            for k, v in sd.items()}
+
+
+def write_safetensors(torch, path, tensors):
+    """One safetensors file (the card's machine has no safetensors
+    package): the 8-byte little-endian header length, the JSON header
+    (padded to 8 bytes), each tensor's bytes in order."""
+    import struct
+
+    tags = {torch.float32: "F32", torch.float16: "F16",
+            torch.bfloat16: "BF16"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": tags[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    raw = json.dumps(header).encode()
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(raw)) + raw)
+        for t in tensors.values():
+            f.write(t.reshape(-1).view(torch.uint8).numpy())
+
+
+def write_hf_dir(torch, d, state, shards):
+    """state as HF's sharded layout in directory d: `shards` files of about
+    equal bytes (model-0000i-of-0000n.safetensors, tensors in order) and
+    model.safetensors.index.json with its weight_map."""
+    d.mkdir(parents=True)
+    total = sum(t.numel() * t.element_size() for t in state.values())
+    groups, size = [{}], 0
+    for name, t in state.items():
+        if size >= total * len(groups) / shards and len(groups) < shards:
+            groups.append({})
+        groups[-1][name] = t
+        size += t.numel() * t.element_size()
+    weight_map = {}
+    for i, group in enumerate(groups):
+        fname = f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors"
+        write_safetensors(torch, d / fname, group)
+        weight_map.update(dict.fromkeys(group, fname))
+    (d / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+
+
+def _hold_bits(torch, what, got, want):
+    """Every leaf of got equals want's bit for bit, on want's device, in
+    its dtype (None leaves alike)."""
+    from magicdec_tpu_torch.checkpoint.store import flatten_params
+
+    if (got["output"] is None) != (want["output"] is None):
+        fail(f"{what}: output None in one of the two params")
+    g, w = flatten_params(got), flatten_params(want)
+    if sorted(g) != sorted(w):
+        fail(f"{what}: leaves {sorted(g)} != {sorted(w)}")
+    for key, t in w.items():
+        if (g[key].device != t.device or g[key].dtype != t.dtype
+                or not torch.equal(g[key], t)):
+            fail(f"{what}: leaf {key} differs from the source params")
+
+
+def _traced_kernels(trace_dir):
+    """The device ms and launches by name of the kernels a trace written by
+    device_trace records whose names contain TRACED_KERNELS'."""
+    files = list(trace_dir.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"hf_ruler: device_trace wrote {[f.name for f in files]}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    found = {k: {"launches": 0, "ms": 0.0} for k in TRACED_KERNELS}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        for k in TRACED_KERNELS:
+            if k in e.get("name", ""):
+                found[k]["launches"] += 1
+                found[k]["ms"] += e.get("dur", 0.0) / 1e3
+    missing = [k for k, v in found.items() if not v["launches"]]
+    if missing:
+        fail(f"hf_ruler: the trace names no {missing}")
+    return files[0].stat().st_size, found
+
+
+def hf_ruler(torch, dev, params):
+    """The tail on the main path: the main path's llama-3.2-1b params
+    written as an HF checkpoint directory and loaded back bit for bit by
+    load_hf_checkpoint (sharded safetensors by the directory's name; a
+    .bin of the first layers with a config), then RULER niah prompts (B,
+    P) through AR and SnapKV 1024 on the loaded weights (lossless, equal
+    scores, launch counts), timed by PhaseClock, one short SnapKV run (on
+    the .bin's layers) traced by device_trace, an AR step by
+    step_cost_report, and selection_fidelity and find_alpha / best_gamma
+    on the run. Returns the launch counts of its main-path runs."""
+    import shutil
+    import tempfile
+
+    from magicdec_tpu_torch import analysis
+    from magicdec_tpu_torch.checkpoint.convert_hf import load_hf_checkpoint
+    from magicdec_tpu_torch.data import ruler
+    from magicdec_tpu_torch.engine.backend import Engine
+    from magicdec_tpu_torch.engine.spec import generate_selfspec
+    from magicdec_tpu_torch.models import llama
+    from magicdec_tpu_torch.models.config import ModelArgs
+    from magicdec_tpu_torch.ops.norms import rms_norm
+    from magicdec_tpu_torch.ops.rope import rope
+    from magicdec_tpu_torch.utils.profiling import (PhaseClock, device_trace,
+                                                    step_cost_report)
+
+    cfg = ModelArgs.from_name("llama-3.2-1b")
+    L = cfg.n_layer
+    bin_cfg = cfg.replace(n_layer=HF_BIN_LAYERS)
+    tmp = Path(tempfile.mkdtemp(prefix="hf_ruler-"))
+    try:
+        d, bin_dir = tmp / "llama-3.2-1b", tmp / "first-layers"
+        t = time.perf_counter()
+        write_hf_dir(torch, d, hf_state_dict(torch, params, cfg), HF_SHARDS)
+        bin_dir.mkdir()
+        torch.save(hf_state_dict(torch, _first_layers(params, HF_BIN_LAYERS),
+                                 bin_cfg), bin_dir / "pytorch_model.bin")
+        write_s = time.perf_counter() - t
+        st_bytes = sum(f.stat().st_size for f in d.glob("*.safetensors"))
+        bin_bytes = (bin_dir / "pytorch_model.bin").stat().st_size
+
+        clock = PhaseClock()
+        with clock.phase("load_safetensors", sync_on=params):
+            loaded, got_cfg = load_hf_checkpoint(d)
+        if got_cfg != cfg:
+            fail(f"hf_ruler: the directory's name gave {got_cfg}")
+        _hold_bits(torch, "hf_ruler safetensors", loaded, params)
+        with clock.phase("load_bin", sync_on=params):
+            first, _ = load_hf_checkpoint(bin_dir, config=bin_cfg)
+        _hold_bits(torch, "hf_ruler .bin", first,
+                   _first_layers(params, HF_BIN_LAYERS))
+
+        prompts, answers = ruler.prepare(RULER_TASK, P, B)
+        total = _zero()
+
+        def prefill():
+            eng = Engine(cfg, loaded, batch_size=B, max_len=MAX_LEN)
+            with clock.phase("prefill", sync_on=loaded):
+                tok = eng.encode(prompts)
+            return eng, tok
+
+        (eng, tok), used, _ = _drive(
+            torch, "hf_ruler prefill", prefill,
+            lambda r: dict(_zero(), flash_prefill=L * (P // 128)))
+        total = _add(total, used)
+        runs = {}
+        for name, spec, budget in (("ar", None, 0),
+                                   ("snapkv", "snapkv", BUDGET)):
+            with clock.phase(name, sync_on=loaded):
+                runs[name] = _spec_run(torch, cfg, loaded, prompts,
+                                       "hf_ruler " + name, spec, budget)
+            total = _add(total, runs[name]["launches"])
+        ar = runs["ar"]["out"]
+        _check_stream(torch, "hf_ruler snapkv", runs["snapkv"]["out"],
+                      runs["snapkv"]["counts"], ar, cfg.vocab_size)
+        scores = {k: ruler.score(RULER_TASK, r["out"].numpy(), answers)
+                  for k, r in runs.items()}
+        if scores["snapkv"] != scores["ar"]:
+            fail(f"hf_ruler: RULER scores {scores} differ")
+
+        # the traced round runs on the .bin's first layers, which keeps its
+        # trace a sixth of a 16-layer round's size
+        trace_dir = tmp / "trace"
+
+        def traced():
+            e = Engine(bin_cfg, first, batch_size=B, max_len=MAX_LEN,
+                       spec="snapkv", draft_budget=BUDGET, window_size=WINDOW)
+            with device_trace(str(trace_dir)):
+                result = generate_selfspec(e, prompts, GAMMA, TRACE_NEW)
+                torch.cuda.synchronize()
+            return result
+
+        _, used, trace_s = _drive(
+            torch, "hf_ruler traced snapkv", traced,
+            _path_launches(HF_BIN_LAYERS, "snapkv", new=TRACE_NEW))
+        total = _add(total, used)
+        del first
+        trace_bytes, traced_kernels = _traced_kernels(trace_dir)
+
+        # layer 0 of the prefilled cache and the last prompt position's
+        # rotated query
+        lp = loaded["layers"]
+        x = llama.embed(loaded, cfg, torch.as_tensor(prompts[:, -1],
+                                                     device=dev))
+        qkv = rms_norm(x, lp["attn_norm"][0], cfg.norm_eps).float() @ \
+            lp["wqkv"][0].float()
+        q = llama._split_qkv(qkv[:, None], cfg)[0]
+        q = rope(cfg, q, torch.full((B, 1), P - 1, device=dev))[:, 0]
+        fidelity = analysis.selection_fidelity(
+            q, eng.cache.k[0][:, :P], eng.cache.lengths, page=QUEST_PAGE,
+            n_pages=FIDELITY_PAGES)
+        if not (all(0.0 <= v <= 1.0 + 1e-6 for v in fidelity.values())
+                and fidelity["perhead_true"] >= fidelity["joint"] - 1e-6
+                and fidelity["perhead_true"] >= fidelity["perhead_box"] - 1e-6):
+            fail(f"hf_ruler: selection_fidelity {fidelity} breaks its "
+                 f"ordering")
+
+        state = {"tok": tok}
+
+        def ar_step():
+            state["tok"] = eng.inference(state["tok"])
+            return state["tok"]
+
+        cost, used, _ = _drive(
+            torch, "hf_ruler ar step",
+            lambda: step_cost_report(ar_step, iters=STEP_ITERS,
+                                     label="ar_step"),
+            lambda r: dict(_zero(), flash_decode_stacked=L * (STEP_ITERS + 1)))
+        total = _add(total, used)
+        del eng, state
+
+        s = runs["snapkv"]["stats"]
+        rate = s.acceptance_rate
+        ar_ms = cost["ar_step"]["ms"]
+        round_ms = s.wall_time_s / s.rounds * 1e3
+        ratio = max(round_ms - ar_ms, 0.0) / GAMMA / ar_ms
+        alpha = analysis.find_alpha(GAMMA, rate)
+        timings = clock.report()
+        line(phase="hf_ruler", model="llama-3.2-1b", dtype="bfloat16",
+             safetensors_shards=HF_SHARDS, safetensors_bytes=st_bytes,
+             bin_layers=HF_BIN_LAYERS, bin_bytes=bin_bytes, write_s=write_s,
+             load_safetensors_gb_s=st_bytes / 1e9 / timings[
+                 "load_safetensors"]["total_s"],
+             bits_equal=True, task=RULER_TASK, B=B, P=P, new_tokens=NEW,
+             gamma=GAMMA, budget=BUDGET, scores=scores, lossless=True,
+             acceptance=rate, rounds=s.rounds,
+             tok_s={k: r["stats"].generated_tokens / r["stats"].wall_time_s
+                    for k, r in runs.items()},
+             phase_clock=timings, ar_step=cost["ar_step"],
+             traced_run={"layers": HF_BIN_LAYERS, "new_tokens": TRACE_NEW,
+                         "seconds": trace_s,
+                         "trace_bytes": trace_bytes,
+                         "kernels": traced_kernels},
+             selection_fidelity=fidelity, alpha=alpha,
+             round_ms=round_ms, draft_cost_ratio=ratio,
+             best_gamma=analysis.best_gamma(alpha, ratio),
+             launches={k: v for k, v in total.items() if v})
+        del loaded
+        torch.cuda.empty_cache()
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def longspec(torch, dev, params, prompt, ar):

@@ -1,5 +1,6 @@
 """The JAX package's npz checkpoint format, read and written (port of
-magicdec_tpu/checkpoint/store.py's save_params and load_params).
+magicdec_tpu/checkpoint/store.py's save_params, load_params and
+hf_download).
 
 A checkpoint is a flat .npz of "/"-joined keys. Dtypes numpy lacks
 (bfloat16) are stored as a uint16 bit view plus a `<key>@dtype` tag; they are
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from magicdec_tpu_torch.checkpoint.download import snapshot_download
 
 
 def flatten_params(tree, prefix: str = "") -> dict:
@@ -81,3 +84,11 @@ def load_params(path: str, device=None, dtype=None) -> dict:
     if "tok_embeddings" in out:
         out.setdefault("output", None)
     return out
+
+
+def hf_download(repo_id: str, local_dir: str | None = None,
+                token: str | None = None) -> str:
+    """HF snapshot download wrapper (as the JAX package's store.hf_download:
+    local_dir and token passed as given). Raises a clear error where
+    huggingface_hub is missing."""
+    return snapshot_download(repo_id, local_dir, token)

@@ -30,7 +30,7 @@ Acceptance semantics (as in the JAX package):
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -178,6 +178,8 @@ class SpecStats:
     wall_time_s: float = 0.0
     compactions: int = 0        # StreamingLLM / round-buffer tail shifts
     index_build_s: float = 0.0  # RetroInfer/Squeeze index build at encode
+    draft_time_s: float = 0.0
+    phase_times: dict = field(default_factory=dict)
 
     @property
     def acceptance_rate(self) -> float:

@@ -43,15 +43,20 @@ def test_port_imports_without_jax_or_the_jax_package():
     assert "magicdec_tpu_torch.engine.serve" in mods
     assert "magicdec_tpu_torch.engine.offload" in mods
     assert "magicdec_tpu_torch.engine.wave_buffer" in mods
+    for tail in ("checkpoint.convert_hf", "checkpoint.download", "data.ruler",
+                 "data.longbench", "analysis", "utils.profiling"):
+        assert "magicdec_tpu_torch." + tail in mods
     code = textwrap.dedent(f"""
         import importlib, sys
         sys.modules["jax"] = None
         sys.modules["magicdec_tpu"] = None
+        sys.modules["safetensors"] = None
         sys.path.insert(0, {str(REPO)!r})
         for name in {mods!r} + ["chip_smoke"]:
             importlib.import_module(name)
         bad = [m for m in sys.modules
-               if (m == "jax" or m.startswith(("jax.", "jaxlib", "magicdec_tpu.")))
+               if (m == "jax" or m.startswith(("jax.", "jaxlib", "magicdec_tpu.",
+                                               "safetensors")))
                and sys.modules[m] is not None]
         assert not bad, bad
         print("ok")
@@ -131,6 +136,21 @@ def test_serve_and_offload_raise_without_a_gpu(monkeypatch):
     out, _ = offload.offload_generate(params, cfg, state, store, buffer0, 4,
                                       device="cpu", **gen)
     assert out.shape == (1, 4) and out.device.type == "cpu"
+
+
+def test_checkpoint_loading_raises_without_a_gpu(monkeypatch, tmp_path):
+    """load_hf_checkpoint and params_from_hf_state_dict run on the card
+    unless given device='cpu'; with no GPU they raise before reading a
+    file."""
+    from magicdec_tpu_torch.checkpoint import convert_hf
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert_hf.load_hf_checkpoint(tmp_path / "llama-3.2-1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convert_hf.params_from_hf_state_dict({}, None)
+    with pytest.raises(FileNotFoundError):
+        convert_hf.load_hf_checkpoint(tmp_path / "llama-3.2-1b", device="cpu")
 
 
 def _run_smoke(cwd):
