@@ -18,6 +18,14 @@ all-reduce of four ints a round), every rank runs the same rounds, and the
 output rows of the dp blocks are gathered at the end: every rank returns
 the whole batch's stream and stats.
 
+Spans (utils/profiling.span, recorded only while the recorder is on): a
+`job` around each generate_* call; in generate_selfspec a `round` per round,
+ending in its `round_flags` read (the first read, before any round, sits in
+the job), and in snapkv_round gamma `draft.step`, a `verify` and an `accept`,
+each step with `step_setup` (the attention impl: positions, rope tables)
+and `forward` (llama.forward and the argmax); in generate_autoregressive a
+`step` per step with `step_setup`, `forward` and `update`.
+
 Acceptance semantics (as in the JAX package):
   * a drafted token equal to the target argmax and not EOS is accepted;
   * accept = 1 + length of the accepted cumprod prefix (the +1 emits the
@@ -29,8 +37,9 @@ Acceptance semantics (as in the JAX package):
 
 from __future__ import annotations
 
+import functools
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass
 
 import torch
 
@@ -46,6 +55,7 @@ from magicdec_tpu_torch.models import llama
 from magicdec_tpu_torch.parallel.collectives import (all_gather_dp,
                                                      all_reduce_dp)
 from magicdec_tpu_torch.parallel.sharding import shard_tokens
+from magicdec_tpu_torch.utils.profiling import span
 
 
 def _is_eot(tokens: torch.Tensor, eot: torch.Tensor) -> torch.Tensor:
@@ -95,25 +105,32 @@ def snapkv_round(params, config, cache: KVCache, draft: DraftKVCache,
     lens, tok = lenD0, buffer0
     drafted = []
     for i in range(gamma):
-        impl = impls.snapkv_draft_attn(config, lenT0 + i, lens, 1)
-        logits = llama.forward(params, config, tok, impl, (draft.k, draft.v),
-                               last_only=True)
-        tok = argmax_tokens(logits)
-        lens = lens + 1
-        drafted.append(tok)
-    buffer = torch.cat([buffer0] + drafted, dim=1)          # [B, gamma+1]
+        with span("draft.step", i):
+            with span("step_setup"):
+                impl = impls.snapkv_draft_attn(config, lenT0 + i, lens, 1)
+            with span("forward"):
+                logits = llama.forward(params, config, tok, impl,
+                                       (draft.k, draft.v), last_only=True)
+                tok = argmax_tokens(logits)
+            lens = lens + 1
+            drafted.append(tok)
 
     # verify: target attention, dual-append at the round-start draft offset
     # (overwriting the spec-written entries with target-quality k/v)
-    impl = impls.verify_dual_attn(config, lenT0, lenD0, gamma + 1)
-    logits = llama.forward(params, config, buffer, impl,
-                           (cache.k, cache.v, draft.k, draft.v))
-    target_tokens = argmax_tokens(logits)
+    with span("verify"):
+        buffer = torch.cat([buffer0] + drafted, dim=1)      # [B, gamma+1]
+        with span("step_setup"):
+            impl = impls.verify_dual_attn(config, lenT0, lenD0, gamma + 1)
+        with span("forward"):
+            logits = llama.forward(params, config, buffer, impl,
+                                   (cache.k, cache.v, draft.k, draft.v))
+            target_tokens = argmax_tokens(logits)
 
-    accept, bonus, gen_counts, terminal, accepted = _accept_and_update(
-        buffer, target_tokens, eot, gamma, output, gen_counts)
-    cache.lengths = lenT0 + accept
-    draft.lengths = lenD0 + accept
+    with span("accept"):
+        accept, bonus, gen_counts, terminal, accepted = _accept_and_update(
+            buffer, target_tokens, eot, gamma, output, gen_counts)
+        cache.lengths = lenT0 + accept
+        draft.lengths = lenD0 + accept
     return bonus, gen_counts, dict(terminal=terminal, accepted_drafts=accepted,
                                    accept_nums=accept)
 
@@ -178,8 +195,6 @@ class SpecStats:
     wall_time_s: float = 0.0
     compactions: int = 0        # StreamingLLM / round-buffer tail shifts
     index_build_s: float = 0.0  # RetroInfer/Squeeze index build at encode
-    draft_time_s: float = 0.0
-    phase_times: dict = field(default_factory=dict)
 
     @property
     def acceptance_rate(self) -> float:
@@ -227,6 +242,16 @@ def finish_stats(mesh, stats, output, gen_counts, accepted, drafted_per_row):
     return output, gen_counts
 
 
+def _job(generate):
+    """Run `generate` (a decode entry) inside one `job` span."""
+    @functools.wraps(generate)
+    def job(*args, **kwargs):
+        with span("job"):
+            return generate(*args, **kwargs)
+    return job
+
+
+@_job
 @torch.inference_mode()
 def generate_autoregressive(engine: Engine, input_ids, max_new_tokens: int,
                             eot_ids=(), temperature: float = 0.0,
@@ -254,17 +279,23 @@ def generate_autoregressive(engine: Engine, input_ids, max_new_tokens: int,
     mesh = engine.mesh
     while step < max_new_tokens and (not eot_ids or bool(all_reduce_dp(
             alive.any().to(torch.int32).reshape(1), mesh, "max"))):
-        impl = impls.target_attn(engine.config, engine.cache.lengths, 1)
-        logits = llama.forward(engine.params, engine.config, tok, impl,
-                               (engine.cache.k, engine.cache.v))
-        if temperature > 0.0:
-            nxt = sample(logits, generator, temperature, top_p)
-        else:
-            nxt = argmax_tokens(logits)
-        engine.cache.lengths = engine.cache.lengths + alive.to(torch.int32)
-        output[:, step] = torch.where(alive, nxt[:, 0], 0)
-        counts = counts + alive.to(torch.int32)
-        alive = alive & ~_is_eot(nxt[:, 0], eot)
+        with span("step", step):
+            with span("step_setup"):
+                impl = impls.target_attn(engine.config, engine.cache.lengths,
+                                         1)
+            with span("forward"):
+                logits = llama.forward(engine.params, engine.config, tok,
+                                       impl, (engine.cache.k, engine.cache.v))
+            with span("update"):
+                if temperature > 0.0:
+                    nxt = sample(logits, generator, temperature, top_p)
+                else:
+                    nxt = argmax_tokens(logits)
+                engine.cache.lengths = (engine.cache.lengths
+                                        + alive.to(torch.int32))
+                output[:, step] = torch.where(alive, nxt[:, 0], 0)
+                counts = counts + alive.to(torch.int32)
+                alive = alive & ~_is_eot(nxt[:, 0], eot)
         tok = nxt
         step += 1
     _sync(dev)
@@ -275,6 +306,7 @@ def generate_autoregressive(engine: Engine, input_ids, max_new_tokens: int,
     return output, stats
 
 
+@_job
 @torch.inference_mode()
 def generate_selfspec(engine: Engine, input_ids, gamma: int,
                       max_new_tokens: int, eot_ids=()
@@ -336,39 +368,45 @@ def generate_selfspec(engine: Engine, input_ids, gamma: int,
     max_len = engine.cache.max_len
     _sync(dev)
     t0 = time.perf_counter()
-    while True:
-        need = None
-        if streaming:
-            need = cache_lib.compaction_needed(engine.draft,
-                                               engine.compaction_trigger())
-        elif st is not None:
-            need = st.compaction_needed()
-        go, need = round_flags(mesh, terminal, gen_counts,
+
+    def read_flags(terminal, gen_counts):
+        # the host's one read a round: run another round? compact first?
+        with span("round_flags"):
+            need = None
+            if streaming:
+                need = cache_lib.compaction_needed(
+                    engine.draft, engine.compaction_trigger())
+            elif st is not None:
+                need = st.compaction_needed()
+            return round_flags(mesh, terminal, gen_counts,
                                engine.cache.lengths, max_new_tokens,
                                gamma + 1, max_len, need)
-        if not go:
-            break
-        if st is not None:
-            if need:
-                st.compact(engine.cache, engine.config.mesh)
-                stats.compactions += 1
-            buffer0, gen_counts, info = retro_lib.roundtail_round(
-                engine.params, engine.config, engine.cache, st, buffer0,
-                output, gen_counts, eot, gamma)
-        elif streaming:
-            engine.compact_draft(need)
-            stats.compactions += need
-            buffer0, last_acc, stale, gen_counts, info = streaming_round(
-                engine.params, engine.config, engine.cache, engine.draft,
-                buffer0, last_acc, stale, output, gen_counts, eot, gamma,
-                engine.draft_budget, engine.sink_size)
-        else:
-            buffer0, gen_counts, info = snapkv_round(
-                engine.params, engine.config, engine.cache, engine.draft,
-                buffer0, output, gen_counts, eot, gamma)
-        stats.rounds += 1
-        accepted = accepted + info["accepted_drafts"]
-        terminal = terminal | info["terminal"]
+
+    go, need = read_flags(terminal, gen_counts)
+    while go:
+        with span("round", stats.rounds):
+            if st is not None:
+                if need:
+                    st.compact(engine.cache, engine.config.mesh)
+                    stats.compactions += 1
+                buffer0, gen_counts, info = retro_lib.roundtail_round(
+                    engine.params, engine.config, engine.cache, st, buffer0,
+                    output, gen_counts, eot, gamma)
+            elif streaming:
+                engine.compact_draft(need)
+                stats.compactions += need
+                buffer0, last_acc, stale, gen_counts, info = streaming_round(
+                    engine.params, engine.config, engine.cache, engine.draft,
+                    buffer0, last_acc, stale, output, gen_counts, eot, gamma,
+                    engine.draft_budget, engine.sink_size)
+            else:
+                buffer0, gen_counts, info = snapkv_round(
+                    engine.params, engine.config, engine.cache, engine.draft,
+                    buffer0, output, gen_counts, eot, gamma)
+            stats.rounds += 1
+            accepted = accepted + info["accepted_drafts"]
+            terminal = terminal | info["terminal"]
+            go, need = read_flags(terminal, gen_counts)
     # final bonus token
     idx = torch.clamp(gen_counts, max=cap - 1).long()
     output[torch.arange(B, device=dev), idx] = buffer0[:, 0]
