@@ -87,8 +87,8 @@ exits non-zero):
                 planted fault (l of a merge skipping the last split) rejected,
                 merge_lse of two halves within twice the one-pass limit
   9. reference  a small f32 model: logits of the card's path (kernels, cuBLAS)
-                vs the CPU plain path, with plain, int8, int4 and fused
-                weights; Quest on it (B=2, P=512, 32 new
+                vs the CPU plain path, with plain weights unfused and fused,
+                and int8 and int4 weights; Quest on it (B=2, P=512, 32 new
                 tokens, gamma 3, budget P + 128 = full coverage): lossless
                 and accepting >= 0.9; RetroInfer on it on the fold path
                 (TAIL_COVERS_MAX lowered to 0: 72 new tokens, latest_k 32,
@@ -115,7 +115,8 @@ exits non-zero):
                 accept exactly 1.0 (Quest's full coverage is printed: its
                 draft reads the pages in another order than the verify), and
                 each run's kernel launch counts (zeroed before it) must be
-                those its path implies. Then B=16, gamma=4 (the JAX
+                those its path implies (every decode forward on the fused
+                pair, the default route). Then B=16, gamma=4 (the JAX
                 package's production_shape defaults; P cut to 1024): AR and
                 SnapKV at budget 1024 = full budget, lossless and accepting
                 exactly 1.0.
@@ -133,8 +134,8 @@ exits non-zero):
                 implies; PhaseClock times the loads, a prefill and both
                 runs, device_trace traces a one-round SnapKV run on the
                 .bin's 2 layers (the trace must name the hand-written
-                decode and prefill kernels), step_cost_report times an AR
-                step; then
+                decode and prefill kernels and the fused block's product),
+                step_cost_report times an AR step; then
                 analysis.selection_fidelity on the prefilled cache's layer
                 0 and the last prompt position's rotated query (8 pages of
                 128: per-head true mass >= joint and >= per-head boxes,
@@ -147,11 +148,12 @@ exits non-zero):
                 streaming 1024); launch counts as the path implies.
  12a. quant     llama-3.2-1b quantized on the card from the main path's
                 weights: int8 (AR, SnapKV full) and int4 (AR, SnapKV 1024 and
-                full), then set_fused_mode("auto") (AR, SnapKV 1024 and
-                full): each spec stream equals its own AR stream, full budget
-                accepts exactly 1.0, launch counts as the path implies
-                (int4_matmul 4 L per forward, the fused pair L per forward
-                of T <= 32)
+                full), then the main path's bf16 weights under
+                set_fused_mode("off") (AR, SnapKV 1024 and full, on rows
+                padded to llama.row_bucket): each spec stream equals its own
+                AR stream, full budget accepts exactly 1.0, launch counts as
+                the path implies (int4_matmul 4 L per forward, no fused
+                pair)
  12b. glide     GliDe on the main path's model with a random glide block
                 (seed 5, scale 0.3): linear (gamma 6), greedy tree (2,2) and
                 (4,2,2) generations and 4 stochastic tree (2,2) rounds; the
@@ -207,8 +209,9 @@ exits non-zero):
                 equal, every speculative stream equal to the tp AR stream,
                 full budgets exactly 1.0, each rank's launch counts as its
                 path implies (every launch through a per-shard form), the
-                first decode step's logits bit-equal to llama8b's (tp=1)
-                with the row-parallel partials rounded as tp=2 rounds them
+                first decode step's logits bit-equal to llama8b's (tp=1,
+                on the unfused route the tp ranks take) with the
+                row-parallel partials rounded as tp=2 rounds them
                 (_TpRounding); their distance to plain tp=1's and the share
                 of the tp AR stream equal to tp=1's are printed
  12j. tp_1b     llama-3.2-1b at full width in a world of two ranks on the
@@ -281,7 +284,13 @@ exits non-zero):
                 graph capture keeps the programmatic launch edges between a
                 call's kernels); centroid_scores against C (32, 130, 520,
                 1024) with the bound and the plain version at each C and
-                the whole call at several aims of scores_plan; and the
+                the whole call at several aims of scores_plan; the fused
+                pair at llama-3.1-8b's widths at the decode rows of B=32
+                (M = 32, 160 and 928: AR and draft steps, a gamma 4 verify,
+                a GliDe tree (4,2,2) verify), each kernel alone, beside the
+                unfused chain at the 1024 rows it pads them to, and a
+                forward's products both ways (`decode_rows`; M=32 rows
+                bit-equal inside 160 and 928); and the
                 return_lse forms at the GliDe shapes (SDPA, which returns no
                 (m, l), as the yardstick). The gathers are timed at both
                 head dims (the D=128 page_gather is the llama-3.1-8b Quest
@@ -304,9 +313,9 @@ exits non-zero):
                 index_select) beside the kernel on the whole tensors at the
                 same lengths
  14. profile    device-busy share, launches, top kernels and top host ops
-                of an AR step (bf16, int8, int4, fused), of a GliDe tree
-                (2,2) round and of a SnapKV, a Quest and a RetroInfer round at
-                budget 1024 (torch.profiler)
+                of an AR step (bf16 fused, int8, int4, bf16 unfused), of a
+                GliDe tree (2,2) round and of a SnapKV, a Quest and a
+                RetroInfer round at budget 1024 (torch.profiler)
 Then each phase's seconds, the card's name and power limit (nvidia-smi),
 one JSON line of the kernels, and the last line {"ok": true, "device":
 {...}}.
@@ -480,6 +489,7 @@ def main(argv=None) -> int:
                + time_kernels(torch, dev, errs, launches128, D=128)
                + sharded_kernels(torch, dev, _add(_add(
                    launches_tp, launches_1b), launches_dp)))
+    time_decode_rows(torch, dev)
     clock.mark("times_and_sharded_kernels")
     gather_variants(torch, dev)
     step_profile(torch, dev)
@@ -1336,8 +1346,9 @@ def _to(tree, d):
 def check_reference(torch, dev):
     """The small f32 model's logits (a 128-token prefill chunk, then a
     7-token step) on the card's path against the CPU plain path: plain
-    weights, int8 and int4 weights (quantize_params), and plain weights
-    with fused=True (the fused block for both forwards)."""
+    weights unfused (fused=False; "auto" would run the step fused on the
+    card), int8 and int4 weights (quantize_params), and plain weights with
+    fused=True (the fused block for both forwards)."""
     from magicdec_tpu_torch.engine import attention_impls as impls
     from magicdec_tpu_torch.models import llama
     from magicdec_tpu_torch.quant.int8 import quantize_params
@@ -1345,7 +1356,7 @@ def check_reference(torch, dev):
     cfg = _small_cfg()
     params = llama.init_params(cfg, torch.float32, scale=0.1, seed=1,
                                device="cpu")
-    variants = {"plain": (params, None),
+    variants = {"plain": (params, False),
                 "int8": (quantize_params(params, "int8"), None),
                 "int4": (quantize_params(params, "int4"), None),
                 "fused": (params, True)}
@@ -1407,7 +1418,8 @@ def quest_small_f32(torch, dev):
         r = result[-1].rounds
         return dict(_zero(), flash_prefill=L * Ps // 128,
                     flash_decode_stacked=L * r, page_gather=L * r,
-                    flash_decode_stacked_masked=L * gamma * r)
+                    flash_decode_stacked_masked=L * gamma * r,
+                    **_fused_pair(L * (gamma + 1) * r))
 
     (out, counts, stats), used, _ = _drive(torch, "quest_small_f32", go,
                                            expect)
@@ -1460,7 +1472,8 @@ def retro_small_f32(torch, dev):
         return dict(_zero(), flash_prefill=L * Ps // 128,
                     flash_decode_stacked=L * r, page_gather_single=L * r,
                     centroid_scores=L * r,
-                    flash_decode_stacked_masked=L * gamma * r)
+                    flash_decode_stacked_masked=L * gamma * r,
+                    **_fused_pair(L * (gamma + 1) * r))
 
     saved, retro.TAIL_COVERS_MAX = retro.TAIL_COVERS_MAX, 0
     try:
@@ -1564,6 +1577,24 @@ def _zero():
 
 def _add(a, b):
     return {k: a[k] + b[k] for k in a}
+
+
+def _fused_pair(n):
+    """The fused pair's launch counts for n layers of forwards on the fused
+    route (the default: plain weights on the card, T <= 32, no tp mesh):
+    fused_qkv and fused_post_attn once a layer each."""
+    return dict(fused_qkv=n, fused_post_attn=n)
+
+
+@contextlib.contextmanager
+def _fused_mode(llama, mode):
+    """llama.set_fused_mode(mode) within, the mode before it after."""
+    saved = llama._FUSED_MODE
+    llama.set_fused_mode(mode)
+    try:
+        yield
+    finally:
+        llama.set_fused_mode(saved)
 
 
 # (batch, gamma) row cases of gemm_rows: the main path's, and the JAX
@@ -1741,9 +1772,10 @@ def main_path(torch, dev, params, prompt):
     def expect16(spec):
         def launches(result):
             r = result[-1].rounds
+            steps = NEW - 1 if spec is None else (B16_GAMMA + 1) * r
             return dict(_zero(), flash_prefill=L * B16_P // 128,
-                        flash_decode_stacked=(L * (NEW - 1) if spec is None
-                                              else L * (B16_GAMMA + 1) * r))
+                        flash_decode_stacked=L * steps,
+                        **_fused_pair(L * steps))
         return launches
 
     for name, spec in (("b16_ar", None), ("b16_snapkv_full", "snapkv")):
@@ -1799,12 +1831,14 @@ def main_path(torch, dev, params, prompt):
 def _path_launches(L, spec, new=NEW, sharded=False):
     """The launch counts a B=8, P-token main-path run of `new` tokens
     implies (AR or self-speculation in mode spec), as a function of its
-    result; sharded: a tp rank's run, whose every launch goes through a
-    per-shard form too."""
+    result: every decode forward (new - 1 AR steps, or gamma draft steps
+    and a verify a round) on the fused pair; sharded: a tp rank's run,
+    whose every launch goes through a per-shard form too and whose
+    forwards stay unfused."""
     def launches(result):
         r = result[-1].rounds
-        decode = (L * (new - 1) if spec is None
-                  else L * (GAMMA + 1) * r if spec == "snapkv" else L * r)
+        steps = new - 1 if spec is None else (GAMMA + 1) * r
+        decode = (L * steps if spec in (None, "snapkv") else L * r)
         draft = L * GAMMA * r
         clustered = spec in ("retro", "squeeze")
         out = dict(_zero(), flash_prefill=L * (P // 128),
@@ -1814,7 +1848,8 @@ def _path_launches(L, spec, new=NEW, sharded=False):
                        spec == "quest" or clustered),
                    page_gather=L * r * (spec == "quest"),
                    page_gather_single=L * r * clustered,
-                   centroid_scores=L * r * (spec == "retro"))
+                   centroid_scores=L * r * (spec == "retro"),
+                   **_fused_pair(0 if sharded else L * steps))
         if sharded:
             out.update({k: out[base] for k, (_, _, base) in SHARDED.items()})
         return out
@@ -1855,7 +1890,8 @@ TRACE_NEW = 2               # new tokens of the traced SnapKV run: a round
 STEP_ITERS = 10             # step_cost_report's timed AR steps
 FIDELITY_PAGES = BUDGET // QUEST_PAGE   # selection_fidelity's n_pages: 8
 # the hand-written kernels the trace must name (bf16 entries)
-TRACED_KERNELS = ("decode_split_mma_kernel", "prefill_mma_kernel")
+TRACED_KERNELS = ("decode_split_mma_kernel", "prefill_mma_kernel",
+                  "block_gemm_kernel")
 
 
 def hf_state_dict(torch, params, cfg):
@@ -2094,7 +2130,8 @@ def hf_ruler(torch, dev, params):
             torch, "hf_ruler ar step",
             lambda: step_cost_report(ar_step, iters=STEP_ITERS,
                                      label="ar_step"),
-            lambda r: dict(_zero(), flash_decode_stacked=L * (STEP_ITERS + 1)))
+            lambda r: dict(_zero(), flash_decode_stacked=L * (STEP_ITERS + 1),
+                           **_fused_pair(L * (STEP_ITERS + 1))))
         total = _add(total, used)
         del eng, state
 
@@ -2167,7 +2204,8 @@ def longspec(torch, dev, params, prompt, ar):
                         flash_decode_stacked=L * r + (
                             0 if spec == "streaming" else draft),
                         flash_decode_intervals=(draft if spec == "streaming"
-                                                else 0))
+                                                else 0),
+                        **_fused_pair(L * r + draft))
 
         (out, counts, stats), used, seconds = _drive(torch, name, go, expect)
         _check_stream(torch, f"longspec {name}", out, counts, ar,
@@ -2188,12 +2226,14 @@ def longspec(torch, dev, params, prompt, ar):
 def quant_and_fused(torch, dev, params, prompt):
     """llama-3.2-1b at full width with weights quantized on the card from the
     main path's seeded bf16 ones (int8: AR and SnapKV at full budget; int4:
-    AR, SnapKV 1024 and full budget), then with the fused decode block
-    (set_fused_mode("auto"): AR, SnapKV 1024 and full budget). Each
-    speculative stream must equal its own AR stream, each full budget must
-    accept exactly 1.0, and the launch counts must be those the path
-    implies: int4_matmul 4 L per forward (prefill chunks included), the
-    fused pair L per forward of T <= 32 (none in prefill)."""
+    AR, SnapKV 1024 and full budget), then with the main path's bf16
+    weights and the fused decode block off (set_fused_mode("off"): AR,
+    SnapKV 1024 and full budget on the padded rows; the main path runs them
+    fused, the default). Each speculative stream must equal its own AR
+    stream, each full budget must accept exactly 1.0, and the launch counts
+    must be those the path implies: int4_matmul 4 L per forward (prefill
+    chunks included), no fused pair (quantized weights and the "off" mode
+    take the unfused path)."""
     from magicdec_tpu_torch.engine.backend import Engine
     from magicdec_tpu_torch.engine.spec import (generate_autoregressive,
                                                 generate_selfspec)
@@ -2213,8 +2253,6 @@ def quant_and_fused(torch, dev, params, prompt):
                         flash_decode_stacked=L * steps)
             if mode == "int4":
                 want["int4_matmul"] = 4 * L * (chunks + steps)
-            if mode == "fused":
-                want["fused_qkv"] = want["fused_post_attn"] = L * steps
             return want
         return launches
 
@@ -2247,13 +2285,10 @@ def quant_and_fused(torch, dev, params, prompt):
         runs[f"{mode}_ar"]["quantize_s"] = quant_s
         del qparams
         torch.cuda.empty_cache()
-    llama.set_fused_mode("auto")
-    try:
-        run("fused", params, None, 0)
-        run("fused", params, "snapkv", BUDGET)
-        run("fused", params, "snapkv", P)
-    finally:
-        llama.set_fused_mode("off")
+    with _fused_mode(llama, "off"):
+        run("unfused", params, None, 0)
+        run("unfused", params, "snapkv", BUDGET)
+        run("unfused", params, "snapkv", P)
 
     for name, r in runs.items():
         if name.endswith("_ar"):
@@ -2293,7 +2328,8 @@ def _glide_expect(L, chunks, tree):
     verify launches with return_lse per chunk of 16 nodes."""
     def launches(result):
         r = result[-1].rounds
-        want = dict(_zero(), flash_prefill=(L + 2) * chunks)
+        want = dict(_zero(), flash_prefill=(L + 2) * chunks,
+                    **_fused_pair(L * r))
         if tree is None:
             want.update(flash_decode_intervals=2 * (GAMMA + 1) * r,
                         flash_decode_stacked=L * r)
@@ -2435,7 +2471,7 @@ def glide_f32(torch, dev, params, prompt):
     (ar, _, ar_stats), used_ar, s_ar = _drive(
         torch, "glide_f32 ar", go_ar, lambda r: dict(
             _zero(), flash_prefill=L * chunks,
-            flash_decode_stacked=L * (NEW - 1)))
+            flash_decode_stacked=L * (NEW - 1), **_fused_pair(L * (NEW - 1))))
     (out, counts, stats), used, seconds = _drive(
         torch, "glide_f32 tree_2_2", go_tree, _glide_expect(L, chunks, tree))
     _check_stream(torch, "glide_f32 tree_2_2", out, counts, ar.cpu(),
@@ -2485,7 +2521,8 @@ def _serve_expect(L):
     def launches(result):
         srv = result[0]
         return dict(_zero(), flash_prefill=L * (P // 128) * srv.admissions,
-                    flash_decode_stacked=L * (GAMMA + 1) * srv.rounds)
+                    flash_decode_stacked=L * (GAMMA + 1) * srv.rounds,
+                    **_fused_pair(L * (GAMMA + 1) * srv.rounds))
     return launches
 
 
@@ -2541,7 +2578,8 @@ def serve(torch, dev, params):
     (static_out, static_rounds, static_s), used_static, _ = _drive(
         torch, "serve static", go_static, lambda r: dict(
             _zero(), flash_prefill=L * (P // 128) * groups,
-            flash_decode_stacked=L * (GAMMA + 1) * r[1]))
+            flash_decode_stacked=L * (GAMMA + 1) * r[1],
+            **_fused_pair(L * (GAMMA + 1) * r[1])))
 
     def go_serve(budget):
         def go():
@@ -2590,7 +2628,8 @@ def serve(torch, dev, params):
         (out, _, st), used, _ = _drive(
             torch, f"serve solo {i}", go_solo, lambda r: dict(
                 _zero(), flash_prefill=L * (P // 128),
-                flash_decode_stacked=L * (GAMMA + 1) * r[-1].rounds))
+                flash_decode_stacked=L * (GAMMA + 1) * r[-1].rounds,
+                **_fused_pair(L * (GAMMA + 1) * r[-1].rounds)))
         used_solo = _add(used_solo, used)
         want = out[0, :new_lens[i]].cpu().numpy()
         same = np.cumprod(served[i] == want)
@@ -3122,8 +3161,9 @@ def llama8b(torch, dev, profile_steps=8, profile_rounds=2):
     cut_cfg = cfg.replace(n_layer=TP8B_LAYERS)
     cut = _first_layers(params, TP8B_LAYERS)
     for name in ("plain", "tp_rounding"):
+        # the tp world's route: tp forwards never run the fused block
         with (_TpRounding(llama, cfg.dim) if name == "tp_rounding"
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), _fused_mode(llama, "off"):
             with _FirstDecodeLogits(llama) as first:
                 out, _ = generate_autoregressive(
                     Engine(cut_cfg, cut, batch_size=B, max_len=MAX_LEN),
@@ -3385,7 +3425,8 @@ def tp_rank(mesh, prompt):
         out = dict(_zero(), flash_prefill=(L + DRAFT_LAYERS) * chunks,
                    flash_decode_stacked=(L + DRAFT_LAYERS * GAMMA) * r,
                    flash_prefill_sharded=L * chunks,
-                   flash_decode_stacked_sharded=L * r)
+                   flash_decode_stacked_sharded=L * r,
+                   **_fused_pair(DRAFT_LAYERS * GAMMA * r))
         return out
 
     keep("longspec_small_full", *_drive(
@@ -3579,7 +3620,7 @@ def _glide_tp_expect(L, chunks, tree):
     base = _glide_expect(L, chunks, tree)
 
     def launches(result):
-        want = base(result)
+        want = dict(base(result), **_fused_pair(0))
         want["flash_prefill_sharded"] = L * chunks
         if tree is None:
             want["flash_decode_stacked_sharded"] = want["flash_decode_stacked"]
@@ -3707,7 +3748,10 @@ def _tp1_refs(torch, dev, prompt):
     refs = {}
     for mode in ("bf16", "int8", "int4"):
         w = params if mode == "bf16" else quantize_params(params, mode)
-        with _TpRounding(llama, cfg.dim), _FirstDecodeLogits(llama) as first:
+        # unfused, as the tp ranks run (bf16: the fused block would skip
+        # _TpRounding's products)
+        with (_TpRounding(llama, cfg.dim), _fused_mode(llama, "off"),
+              _FirstDecodeLogits(llama) as first):
             generate_autoregressive(Engine(cfg, w, batch_size=B,
                                            max_len=MAX_LEN), prompt, 2)
         refs[mode] = first.logits.numpy()
@@ -5311,6 +5355,105 @@ def _pdl_in_capture(torch, dev, fb):
     return res
 
 
+# the decode-phase row counts of a B=32 batch (the benchmark's): AR and draft
+# steps, a gamma 4 verify, a GliDe tree (4,2,2) verify of 29 nodes; and the
+# rows the unfused path runs each of them at (llama.row_bucket(32, T))
+DECODE_ROWS = {"step": 32, "verify": 160, "tree_verify": 928}
+PADDED_ROWS = 1024
+
+
+def time_decode_rows(torch, dev):
+    """The fused pair at llama-3.1-8b's widths (Mistral-7B's: dim 4096, 32/8
+    heads of 128, FFN 14336) at each row count of DECODE_ROWS, beside the
+    unfused chain (rms_norm, cuBLAS products, the elementwise ops) at the
+    PADDED_ROWS rows the unfused path pads all of them to: device ms a
+    layer (CUDA graph, FUSED_TIME_LAYERS["8b"] layers cycled), with the
+    bound and each kernel of a call alone, and a forward's products both
+    ways (a layer's times 32 layers). Fails unless the M=32 rows get the
+    same bits inside every larger row count."""
+    import torch.nn.functional as F
+
+    from magicdec_tpu_torch.ops import fused_block as fb
+    from magicdec_tpu_torch.ops.norms import rms_norm
+
+    D, HqD, I, O = FUSED_WIDTHS["8b"]
+    L, n_layer = FUSED_TIME_LAYERS["8b"], 32
+    saved = _counts()
+    g = torch.Generator(device=dev).manual_seed(93)
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    w = {k: [(torch.randn(shape, generator=g, device=dev) * 0.02).to(
+        torch.bfloat16) for _ in range(L)]
+         for k, shape in (("wqkv", (D, O)), ("wo", (HqD, D)),
+                          ("gu", (D, 2, I)), ("wd", (I, D)))}
+    n = torch.ones(D, **bf)
+    x = torch.randn((PADDED_ROWS, D), generator=g, device=dev).to(**bf)
+    ctx = torch.randn((PADDED_ROWS, HqD), generator=g, device=dev).to(**bf)
+    wbytes = 2 * (D * O + HqD * D + 2 * D * I + I * D)
+    res, bits = {}, {}
+    for name, M in (*DECODE_ROWS.items(), ("padded", PADDED_ROWS)):
+        xm, cm = x[:M], ctx[:M]
+
+        def qkv(l):
+            return fb.fused_qkv(xm, n, w["wqkv"][l])
+
+        def post(l):
+            return fb.fused_post_attn(xm, cm, w["wo"][l], n, w["gu"][l],
+                                      w["wd"][l])
+
+        def chain(l):
+            h = rms_norm(xm, n) @ w["wqkv"][l]
+            t = xm + cm @ w["wo"][l]
+            gu = (rms_norm(t, n) @ w["gu"][l].reshape(D, -1)).view(M, 2, I)
+            return h, t + (F.silu(gu[:, 0]) * gu[:, 1]) @ w["wd"][l]
+
+        b_ms, b_by = _bound(wbytes + 2 * M * (2 * D + O + HqD),
+                            M * wbytes)
+        r = dict(rows=M, bound_ms=b_ms, bound_by=b_by)
+        if name == "padded":
+            r["unfused_chain_ms"] = _time_ms(torch, chain, L, graph=True)
+            r["forward_products_ms"] = n_layer * r["unfused_chain_ms"]
+            res[name] = r
+            continue
+        r["fused_qkv_ms"] = _time_ms(torch, qkv, L, graph=True)
+        r["fused_post_attn_ms"] = _time_ms(torch, post, L, graph=True)
+        r["forward_products_ms"] = n_layer * (r["fused_qkv_ms"]
+                                              + r["fused_post_attn_ms"])
+        scratch = fb._post_attn_launch(xm, cm, w["wo"][0], n, w["gu"][0],
+                                       w["wd"][0])
+        r["passes_ms"] = {p_name: _time_ms(
+            torch, lambda l, p=p: fb._post_attn_launch(
+                xm, cm, w["wo"][l], n, w["gu"][l], w["wd"][l], passes=1 << p,
+                scratch=scratch), L, graph=True)
+            for p, p_name in enumerate(("wo", "gate_up", "down"))}
+        qscratch = fb._qkv_launch(xm, n, w["wqkv"][0])
+        r["qkv_product_ms"] = _time_ms(
+            torch, lambda l: fb._qkv_launch(xm, n, w["wqkv"][l], passes=2,
+                                            scratch=qscratch), L, graph=True)
+        r["row_tiles"] = -(-M // 64)
+        res[name] = r
+        if M != DECODE_ROWS["step"]:
+            m = DECODE_ROWS["step"]
+            bits[name] = (
+                torch.equal(fb.fused_qkv(x[:m], n, w["wqkv"][0]),
+                            qkv(0)[:m])
+                and torch.equal(fb.fused_post_attn(
+                    x[:m], ctx[:m], w["wo"][0], n, w["gu"][0], w["wd"][0]),
+                    post(0)[:m]))
+            if not bits[name]:
+                fail(f"decode_rows: the M={m} rows differ from the same rows "
+                     f"inside M={M}")
+        del scratch, qscratch
+    _set_counts(saved)
+    step = res["step"]["fused_qkv_ms"] + res["step"]["fused_post_attn_ms"]
+    line(phase="decode_rows", widths=dict(D=D, HqD=HqD, I=I, O=O),
+         layers_cycled=L, forward_layers=n_layer, rows=res,
+         verify_over_step=(res["verify"]["fused_qkv_ms"]
+                           + res["verify"]["fused_post_attn_ms"]) / step,
+         rows_bitexact_at_32=bits)
+    del w, x, ctx
+    torch.cuda.empty_cache()
+
+
 def _profile(torch, fn, n):
     """Device-busy share of n calls of fn (after 2 warm-up calls): the union
     of the kernel intervals torch.profiler records over the host wall time,
@@ -5410,15 +5553,12 @@ def step_profile(torch, dev, steps=8, rounds=2):
     del geng, state, gp
     torch.cuda.empty_cache()
     from magicdec_tpu_torch.quant.int8 import quantize_params
-    for mode in ("int8", "int4", "fused"):
-        w = params if mode == "fused" else quantize_params(params, mode)
-        llama.set_fused_mode("auto" if mode == "fused" else "off")
-        try:
+    for mode in ("int8", "int4", "unfused"):
+        w = params if mode == "unfused" else quantize_params(params, mode)
+        with _fused_mode(llama, "off"):
             eng = Engine(cfg, w, batch_size=B, max_len=MAX_LEN)
             state = {"tok": eng.encode(prompt)}
             res[f"{mode}_ar_step"] = _profile(torch, ar_step, steps)
-        finally:
-            llama.set_fused_mode("off")
         del eng, state, w
         torch.cuda.empty_cache()
     for spec in ("snapkv", "quest", "retro"):

@@ -19,8 +19,8 @@
 // CTAs run in parallel and in no order, so each pass over a weight is its
 // own kernel.
 //
-// bf16 (post_kernel): four passes of one weight-streaming design: the qkv
-// product with the RMSNorm of x folded into its operand and the bias in its
+// bf16 (block_gemm_kernel): four passes of one weight-streaming design: the
+// qkv product with the RMSNorm of x folded into its operand and the bias in its
 // epilogue; the wo product with the residual (t); the gate/up product with
 // the RMSNorm of t folded into its operand and SwiGLU in its epilogue (a);
 // the w_down product with the residual (out). A CTA of 8 warps owns 64 rows
@@ -57,8 +57,10 @@
 // first weight stages (which no kernel of the call writes), then wait before
 // they read their activation or sums of squares. Two CTAs fit an SM (~97 KB
 // of shared memory each, <= 128 registers a thread), so a dependent CTA
-// fills its ring beside a running one. Nothing of the launch is chosen from
-// M and a row's products never mix with another row's, so a row's bits do
+// fills its ring beside a running one. Nothing of the launch but the number
+// of 64-row tiles is chosen from M, and those run one after another within
+// a column block in launch order (so a verify's tiles share each weight box
+// in L2); a row's products never mix with another row's, so a row's bits do
 // not depend on how many rows share the call.
 //
 // f32 (the exact checks): the first port's kernels. One GEMM kernel, a CTA of
@@ -446,11 +448,16 @@ __device__ __forceinline__ float swiglu(float gate, float up) {
   return round_to<__nv_bfloat16>(silu) * round_to<__nv_bfloat16>(up);
 }
 
-// grid (S, column blocks, ceil(M / 64)), clusters of (S, 1, 1), pa::NTH
-// threads, pa::BYTES (+ 2 K for the normed passes) of dynamic shared memory
+// grid (S, ceil(M / 64), column blocks), clusters of (S, 1, 1), pa::NTH
+// threads, pa::BYTES (+ 2 K for the normed passes) of dynamic shared memory.
+// The row tile runs faster than the column block in launch order, so the
+// row tiles of one column block are resident together and stream its weight
+// boxes through L2 once: a verify's or a tree verify's rows read the weight
+// from HBM about once, not once a row tile.
 template <int MODE>
 __global__ void __launch_bounds__(pa::NTH, 2)
-post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostSplits splits) {
+block_gemm_kernel(const __grid_constant__ PostMaps maps, const PostArgs p,
+                  const PostSplits splits) {
   namespace cg = cooperative_groups;
   extern __shared__ __align__(16) char smem_raw[];
   __shared__ __align__(8) uint64_t full[pa::STAGES];
@@ -459,7 +466,8 @@ post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostS
   const uint32_t ring = smem_u32(smem);
   __nv_bfloat16* norm_s = reinterpret_cast<__nv_bfloat16*>(smem + pa::RING);
   const int S = gridDim.x, split = blockIdx.x;
-  const int c0 = blockIdx.y * p.col_step, c1 = c0 + p.second, m0 = blockIdx.z * pa::BM;
+  const int block = blockIdx.z;  // the column block
+  const int c0 = block * p.col_step, c1 = c0 + p.second, m0 = blockIdx.y * pa::BM;
   const int rows = min(pa::BM, p.M - m0);  // rows of this tile that exist (>= 1)
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   // the split's stages, read by constant index (a dynamic index into the
@@ -592,7 +600,7 @@ post_kernel(const __grid_constant__ PostMaps maps, const PostArgs p, const PostS
     }
     if (MODE == WO) {  // the RMSNorm's sum of squares of t's row in this block
       const float ss = block_ssq(r);
-      if (lane == 0) p.ssq[(int64_t)(m0 + row) * p.nb + blockIdx.y] = ss;
+      if (lane == 0) p.ssq[(int64_t)(m0 + row) * p.nb + block] = ss;
     }
   }
   cluster.sync();  // no CTA leaves while another still reads its partial
@@ -623,13 +631,13 @@ ssq_kernel(const __nv_bfloat16* x, float* ssq, int M, int D, int nb) {
 // one pass: act [M, K] @ w [K, W] through the epilogue MODE into out [M, N],
 // the K stages cut at bounds[0..S]
 template <int MODE>
-int post_pass(const void* act, const void* w, int W, const void* aux, const void* norm,
-              void* out, float* ssq, int nb, int M, int N, int K, int col_step, int second,
-              int n_blocks, const int* bounds, int S, float eps, int fault,
-              cudaStream_t stream) {
+int block_gemm_pass(const void* act, const void* w, int W, const void* aux, const void* norm,
+                    void* out, float* ssq, int nb, int M, int N, int K, int col_step,
+                    int second, int n_blocks, const int* bounds, int S, float eps, int fault,
+                    cudaStream_t stream) {
   static SmemLimit limit;
   const int bytes = pa::BYTES + (normed(MODE) ? 2 * K : 0);
-  const cudaError_t e = limit.ensure((const void*)post_kernel<MODE>, bytes);
+  const cudaError_t e = limit.ensure((const void*)block_gemm_kernel<MODE>, bytes);
   if (e != cudaSuccess) return (int)e;
   EncodeTiled enc = encode_tiled();
   PostMaps maps;
@@ -645,9 +653,9 @@ int post_pass(const void* act, const void* w, int W, const void* aux, const void
                       static_cast<const __nv_bfloat16*>(norm),
                       static_cast<__nv_bfloat16*>(out), ssq, nb, M, N, K, col_step, second,
                       eps, fault};
-  const dim3 grid(S, n_blocks, (M + pa::BM - 1) / pa::BM);
-  return (int)launch_ex(post_kernel<MODE>, grid, dim3(pa::NTH), bytes, stream, S, true, maps,
-                        args, splits);
+  const dim3 grid(S, (M + pa::BM - 1) / pa::BM, n_blocks);
+  return (int)launch_ex(block_gemm_kernel<MODE>, grid, dim3(pa::NTH), bytes, stream, S, true,
+                        maps, args, splits);
 }
 
 // the two kernels (those whose bit is set in `passes`: 1 the sums of
@@ -664,8 +672,9 @@ int fused_qkv_bf16(const void* x, const void* norm, const void* w, const void* b
     if (e != cudaSuccess) return (int)e;
   }
   if (!(passes & 2)) return 0;
-  return post_pass<QKV>(x, w, O, bias, norm, out, ssq, nb, M, O, D, 2 * pa::BOX, pa::BOX,
-                        (O + 2 * pa::BOX - 1) / (2 * pa::BOX), bounds, S, eps, fault, stream);
+  return block_gemm_pass<QKV>(x, w, O, bias, norm, out, ssq, nb, M, O, D, 2 * pa::BOX,
+                              pa::BOX, (O + 2 * pa::BOX - 1) / (2 * pa::BOX), bounds, S, eps,
+                              fault, stream);
 }
 
 // the three passes (those whose bit is set in `passes`: 1 wo, 2 gate/up, 4
@@ -678,15 +687,15 @@ int fused_post_attn_bf16(const void* x, const void* ctx, const void* wo, const v
   const int nb = (D + 2 * pa::BOX - 1) / (2 * pa::BOX);
   int rc = 0;
   if (passes & 1)
-    rc = post_pass<WO>(ctx, wo, D, x, nullptr, t, ssq, nb, M, D, HqD, 2 * pa::BOX, pa::BOX,
-                       nb, plans[0], S[0], eps, fault, stream);
+    rc = block_gemm_pass<WO>(ctx, wo, D, x, nullptr, t, ssq, nb, M, D, HqD, 2 * pa::BOX,
+                             pa::BOX, nb, plans[0], S[0], eps, fault, stream);
   // w_gate_up [D, 2, I] read as [D, 2I]: gate column i, up column I + i
   if (!rc && (passes & 2))
-    rc = post_pass<GATE_UP>(t, w_gate_up, 2 * I, nullptr, norm, a, ssq, nb, M, I, D, pa::BOX,
-                            I, I / pa::BOX, plans[1], S[1], eps, fault, stream);
+    rc = block_gemm_pass<GATE_UP>(t, w_gate_up, 2 * I, nullptr, norm, a, ssq, nb, M, I, D,
+                                  pa::BOX, I, I / pa::BOX, plans[1], S[1], eps, fault, stream);
   if (!rc && (passes & 4))
-    rc = post_pass<DOWN>(a, w_down, D, t, nullptr, out, nullptr, nb, M, D, I, 2 * pa::BOX,
-                         pa::BOX, nb, plans[2], S[2], eps, fault, stream);
+    rc = block_gemm_pass<DOWN>(a, w_down, D, t, nullptr, out, nullptr, nb, M, D, I, 2 * pa::BOX,
+                               pa::BOX, nb, plans[2], S[2], eps, fault, stream);
   return rc;
 }
 

@@ -31,10 +31,13 @@ gemm_rows, which also times the padding).
 The four weight products of a block run through quant/int8.py qmatmul, so
 a layer weight may be plain or quantized (quantize_params: int8, or int4
 through the int4_matmul kernel); the quantized paths keep the padded rows.
-With the fused decode block on (set_fused_mode("auto"), plain weights on a
-CUDA device, T <= 32) the products and their norms, residuals and SwiGLU
-run in ops/fused_block.py's kernels, whose rows do not depend on the row
-count, so the token rows run unpadded through the layers.
+By default (set_fused_mode("auto")) every forward of T <= 32 tokens with
+plain weights on a CUDA device and no tensor-parallel mesh runs the
+products and their norms, residuals and SwiGLU in ops/fused_block.py's
+kernels instead, whose rows do not depend on the row count, so the token
+rows run unpadded through the layers and only the unembedding keeps the
+padded rows. The fused block rounds at the TPU kernels' points, not at the
+unfused path's, so a stream is compared with streams of its own route.
 """
 
 from __future__ import annotations
@@ -238,34 +241,43 @@ def _reduce_rows(y: torch.Tensor, rows: int, config: ModelArgs):
     return y
 
 
-_FUSED_MODE = "off"  # "auto" | "off": see set_fused_mode
+_FUSED_MODE = "auto"  # "auto" | "off": see set_fused_mode
 
 
 def set_fused_mode(mode: str):
-    """Process-wide switch of the fused decode block, as in the JAX
-    package: "auto" routes every forward of T <= 32 tokens with plain
-    weights on a CUDA device through fused_qkv and fused_post_attn (decode,
-    verify and draft steps; prefill chunks keep the unfused path); "off"
-    (the default) keeps the unfused path everywhere."""
+    """Process-wide switch of the fused decode block: "auto" (the default)
+    routes every forward of T <= DECODE_ROWS_PER_SEQ tokens with plain
+    weights on a CUDA device and no tensor-parallel mesh through fused_qkv
+    and fused_post_attn (AR, draft and verify steps; prefill chunks keep
+    the unfused path); "off" keeps the unfused path everywhere."""
     global _FUSED_MODE
     if mode not in ("auto", "off"):
         raise ValueError(f"fused mode {mode!r}: auto or off")
     _FUSED_MODE = mode
 
 
-def _fused_auto(params: Params, x: torch.Tensor, T: int,
+def _fused_auto(params: Params, config: ModelArgs, x: torch.Tensor, T: int,
                 fused: bool | None) -> bool:
-    """Resolve the fused switch: an explicit value wins (True with quantized
-    weights raises: the fused kernels take plain weights); "auto" means a
-    CUDA device, T <= 32 and plain weights."""
+    """Resolve the fused switch from what the forward observes: an explicit
+    value wins (True with quantized weights or on a tp mesh raises); "auto"
+    means a CUDA device, T <= DECODE_ROWS_PER_SEQ, plain weights and no tp
+    mesh. Off under tensor parallelism, as the JAX package's
+    fused_for_mesh: the fused kernels take whole weights and hold no
+    collective."""
     quantized = is_quantized(params["layers"]["wqkv"])
+    tp = config.mesh is not None and config.mesh.tp > 1
     if fused is not None:
         if fused and quantized:
             raise ValueError("the fused decode block takes plain weights, "
                              "not quantized ones")
+        if fused and tp:
+            raise ValueError("the fused decode block does not run on a "
+                             "tensor-parallel mesh: its kernels take whole "
+                             "weights and hold no collective (the JAX "
+                             "package's fused_for_mesh keeps it off too)")
         return fused
-    return (_FUSED_MODE == "auto" and x.is_cuda and T <= 32
-            and not quantized)
+    return (_FUSED_MODE == "auto" and x.is_cuda
+            and T <= DECODE_ROWS_PER_SEQ and not quantized and not tp)
 
 
 def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
@@ -282,16 +294,7 @@ def run_layers(params: Params, config: ModelArgs, x: torch.Tensor,
     backward pass and recomputes its activations, the attention logits
     among them, there. It changes no value: remat=False runs the layers as
     they are."""
-    if config.mesh is not None and config.mesh.tp > 1:
-        # off under tensor parallelism, as the JAX package's fused_for_mesh:
-        # the fused kernels take whole weights and hold no collective
-        if fused:
-            raise ValueError("the fused decode block does not run on a "
-                             "tensor-parallel mesh: its kernels take whole "
-                             "weights and hold no collective (the JAX "
-                             "package's fused_for_mesh keeps it off too)")
-        fused = False
-    use_fused = _fused_auto(params, x, T, fused)
+    use_fused = _fused_auto(params, config, x, T, fused)
     rows = x.shape[0]
     if use_fused:
         x = x[:B * T]

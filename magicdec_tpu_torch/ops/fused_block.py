@@ -8,7 +8,8 @@ attention, each with its plain PyTorch version and a launch count.
 fused_block.py fused_qkv (pallas_call at :96) and fused_post_attn
 (pallas_call at :191) with hand-written CUDA C++ kernels for sm_90a
 (csrc/fused_block.cu, built by ops/_build.py). models/llama.py routes every
-forward of T <= 32 tokens through them when the fused mode is on.
+forward of T <= 32 tokens with plain weights on the card and no
+tensor-parallel mesh through them (the fused mode "auto", its default).
 
 Rounding points, as the TPU kernels (x's dtype is bf16 on the card's main
 path, f32 in the exact tests): RMSNorm normalizes in f32, rounds to x's
@@ -22,9 +23,11 @@ Every row is computed by a fixed sequence of operations that does not
 depend on the number of rows in the call, so a draft row (M = B) and the
 same row inside a verify (M = B * (gamma + 1)) get the same bits: the
 kernels never choose a tile or a split from M (`launch_plan` and
-`qkv_plan` read K and N alone), and the plain versions run at rows padded
-to a multiple of ROW_BUCKET (PyTorch's CPU GEMM and row reductions pick
-their blocking from the shape).
+`qkv_plan` read K and N alone; M sets only the number of 64-row tiles,
+which a column block runs side by side so they share its weight in L2),
+and the plain versions run at rows padded to a multiple of ROW_BUCKET
+(PyTorch's CPU GEMM and row reductions pick their blocking from the
+shape).
 
 On tensors on the CPU a wrapper runs the plain version; on CUDA tensors it
 launches the kernels or raises.

@@ -510,6 +510,49 @@ def test_card_fused_qkv_split_matches_plain(cuda, D, O):
                        fb.fused_qkv(x, n, wqkv, b)[:8])
 
 
+@pytest.mark.cuda
+def test_card_fused_rows_bitexact_at_verify_sizes(cuda):
+    """At Mistral-7B's widths (D = HqD = 4096, I = 14336, O = 6144), bf16:
+    fused_qkv and fused_post_attn rows at M=32 (an AR or draft step of 32
+    sequences) equal the same rows inside M=160 (a gamma 4 verify: three
+    64-row tiles) and M=928 (a GliDe tree verify of 29 nodes: fifteen) bit
+    for bit; at M=160 each output holds its plain f32 limit and
+    MEAN_LIMIT, and the limit rejects each launched with the last K
+    split's partial left out of its sum (wo, w_down and the qkv product
+    split K in 4 at these widths)."""
+    from magicdec_tpu_torch.ops import fused_block as fb
+
+    D, HqD, I, O = 4096, 4096, 14336, 6144
+    dtype = torch.bfloat16
+    rng = np.random.default_rng(22)
+    x, ctx = _rand(rng, cuda, dtype, 928, D), _rand(rng, cuda, dtype, 928, HqD)
+    n = 1.0 + _rand(rng, cuda, dtype, D, s=0.1)
+    wqkv = _rand(rng, cuda, dtype, D, O, s=0.02)
+    wo = _rand(rng, cuda, dtype, HqD, D, s=0.02)
+    gu = _rand(rng, cuda, dtype, D, 2, I, s=0.02)
+    wd = _rand(rng, cuda, dtype, I, D, s=0.02)
+    step_qkv = fb.fused_qkv(x[:32], n, wqkv)
+    step_post = fb.fused_post_attn(x[:32], ctx[:32], wo, n, gu, wd)
+    for M in (160, 928):
+        assert torch.equal(fb.fused_qkv(x[:M], n, wqkv)[:32], step_qkv)
+        assert torch.equal(fb.fused_post_attn(x[:M], ctx[:M], wo, n, gu,
+                                              wd)[:32], step_post)
+    M = 160
+    for launch, plain in (
+            (lambda **kw: fb._qkv_launch(x[:M], n, wqkv, **kw)[0],
+             lambda: fb.fused_qkv_plain_f32_and_limit(x[:M], n, wqkv)),
+            (lambda **kw: fb._post_attn_launch(x[:M], ctx[:M], wo, n, gu, wd,
+                                               **kw)[0],
+             lambda: fb.fused_post_attn_plain_f32_and_limit(
+                 x[:M], ctx[:M], wo, n, gu, wd))):
+        ref, limit = plain()
+        err = (launch().float() - ref).abs()
+        assert bool((err <= limit).all()), float((err / limit).max())
+        assert float(err.mean()) <= fb.MEAN_LIMIT * float(ref.abs().mean())
+        faulty = launch(fault=1).float()
+        assert not bool(((faulty - ref).abs() <= limit).all())
+
+
 def _assert_lse(got, want, dtype):
     """(ctx, m, l) of a return_lse kernel against the plain f32 (m, l): m
     where the row is not empty, l everywhere (tfd.lse_limits); empty rows

@@ -12,6 +12,9 @@ kernels are patched into interpret mode (no JAX file changes).
 """
 
 import functools
+import json
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -142,7 +145,8 @@ def test_fused_selfspec_lossless_and_full_budget_exact_bf16(monkeypatch):
     rows do not depend on the row count. The fused block must have run."""
     calls = []
     monkeypatch.setattr(tllama, "_fused_auto",
-                        lambda params, x, T, fused: calls.append(T) or T <= 32)
+                        lambda params, config, x, T, fused:
+                        calls.append(T) or T <= 32)
     cfg = TArgs.from_name("test-tiny")
     params = tllama.init_params(cfg, torch.bfloat16, scale=0.3, seed=6,
                                 device="cpu")
@@ -162,18 +166,79 @@ def test_fused_selfspec_lossless_and_full_budget_exact_bf16(monkeypatch):
 
 
 def test_fused_switch():
-    """"auto" leaves CPU forwards unfused; fused=True with quantized weights
-    raises; only "auto" and "off" are modes."""
+    """"auto" is the default; it routes a forward fused on a CUDA device at
+    T <= 32 with plain weights and no tp mesh, and leaves CPU tensors,
+    quantized weights, T > 32 and a tp mesh unfused; "off" leaves every
+    forward unfused; an explicit value wins, and fused=True with quantized
+    weights or on a tp mesh raises; only "auto" and "off" are modes. (The
+    CUDA device is a stand-in here: the route reads only x.is_cuda.)"""
+    from types import SimpleNamespace
+
+    from magicdec_tpu_torch.parallel.sharding import Mesh
+
+    assert tllama._FUSED_MODE == "auto"
     cfg = TArgs.from_name("test-tiny")
     params = tllama.init_params(cfg, seed=1, device="cpu")
+    q8 = quantize_params(params, "int8")
+    tp = cfg.replace()
+    tp.mesh = Mesh(tp=2, rank=0, backend="gloo", device=torch.device("cpu"))
     x = torch.zeros(64, cfg.dim)
-    tllama.set_fused_mode("auto")
+    card = SimpleNamespace(is_cuda=True)
+    auto = tllama._fused_auto
+    assert auto(params, cfg, card, 1, None)
+    assert auto(params, cfg, card, 32, None)
+    assert not auto(params, cfg, x, 1, None)          # a CPU tensor
+    assert not auto(q8, cfg, card, 1, None)           # quantized weights
+    assert not auto(params, cfg, card, 33, None)      # T > 32 (prefill)
+    assert not auto(params, tp, card, 1, None)        # a tp mesh
+    assert auto(params, cfg, x, 1, True)
+    assert not auto(params, cfg, card, 1, False)
+    tllama.set_fused_mode("off")
     try:
-        assert not tllama._fused_auto(params, x, 1, None)
-        assert tllama._fused_auto(params, x, 1, True)
+        assert not auto(params, cfg, card, 1, None)
+        assert auto(params, cfg, card, 1, True)
     finally:
-        tllama.set_fused_mode("off")
+        tllama.set_fused_mode("auto")
     with pytest.raises(ValueError, match="plain weights"):
-        tllama._fused_auto(quantize_params(params, "int8"), x, 1, True)
+        auto(q8, cfg, x, 1, True)
+    with pytest.raises(ValueError, match="tensor-parallel mesh"):
+        auto(params, tp, card, 1, True)
     with pytest.raises(ValueError, match="auto or off"):
         tllama.set_fused_mode("on")
+
+
+def _kernels(source: str) -> dict:
+    """{name: body} of every __global__ function of a CUDA source."""
+    out = {}
+    for m in re.finditer(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                         r"\s*)?(\w+)\s*\(", source):
+        start = source.index("{", m.end())
+        depth, i = 0, start
+        while True:
+            depth += {"{": 1, "}": -1}.get(source[i], 0)
+            i += 1
+            if depth == 0:
+                break
+        out[m.group(1)] = source[start:i]
+    return out
+
+
+def test_product_kernels_are_named_as_gemms():
+    """The benchmark's gemm_roofline readers count the device time of the
+    operations whose names hold a substring of
+    portbench/data/gemm_kernels.json. Every kernel of csrc/fused_block.cu
+    that runs a weight product (a wgmma stage or the f32 CUDA-core stage)
+    carries such a substring, so the products the fused block runs on the
+    card stay within the readers' time; ssq_kernel, a norm's reduction,
+    carries none."""
+    root = Path(__file__).resolve().parents[1]
+    patterns = json.loads((root / "portbench" / "data" / "gemm_kernels.json")
+                          .read_text())["name_contains"]
+    kernels = _kernels((root / "magicdec_tpu_torch" / "csrc"
+                        / "fused_block.cu").read_text())
+    products = {n for n, body in kernels.items()
+                if "_mma(" in body or "stage_f32(" in body}
+    assert "block_gemm_kernel" in products and "ssq_kernel" in kernels
+    for name in products:
+        assert any(p in name for p in patterns), name
+    assert not any(p in "ssq_kernel" for p in patterns)
