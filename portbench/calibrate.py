@@ -22,6 +22,13 @@ sampled sequences:
     path broken underneath (FAULTS), its served tokens judged the same way.
 With the cell's limits in place each line also says whether each variant
 passes them. One JSON line a seed goes to stdout and to --out.
+
+A cell of several chips runs its jobs over a tensor-parallel world of its
+cards (world.calibrate): each rank draws its blocks of the seed's weights,
+each variant (int8, a fault) is planted inside every rank before its engine
+is built, and rank 0's served tokens come back here, where the readings are
+taken once the world has exited. no_all_reduce, the exchange between the
+ranks left out, is a fault of such a cell.
 """
 
 import time
@@ -83,8 +90,17 @@ def _prefill_half_keys(prompt_len):
     return _patched(ai, "flash_prefill", make)
 
 
+def _no_all_reduce(prompt_len):
+    """The exchange between tp ranks left out: the row-parallel products
+    (wo, w_down) and the vocab-parallel embedding keep each rank's partial
+    sum (a no-op on one card, where nothing is exchanged)."""
+    from magicdec_tpu_torch.models import llama
+    return _patched(llama, "all_reduce_tp", lambda old: lambda x, mesh: x)
+
+
 FAULTS = {"no_kv_write": _no_kv_write, "prompt_keys_only": _prompt_keys_only,
-          "prefill_half_keys": _prefill_half_keys}
+          "prefill_half_keys": _prefill_half_keys,
+          "no_all_reduce": _no_all_reduce}
 
 
 def _ints(text):
@@ -111,7 +127,41 @@ def judge(numbers: dict, limits: dict):
                          for k, v in numbers.items()})
 
 
-def main(argv=None):
+def _device_name(device) -> str:
+    import torch
+    return (torch.cuda.get_device_name(device) if device.type == "cuda"
+            else str(device))
+
+
+def _read_into(line: dict, name: str, rec, cell, seed: int, params, device,
+               control_seeds) -> None:
+    """The readings of variant `name`'s job on seed (the fp8 control's too,
+    for the program on a control seed), judged at the cell's limits."""
+    sz, rows = cell.sizes, cell.traffic["check_rows"]
+    products = (("f32", "fp8") if name == "program" and seed in control_seeds
+                else ("f32",))
+    t = time.perf_counter()
+    got = readings(rec, rows, seed, params, sz, device, products)
+    if name == "program":
+        line.update(job_s=rec.job_s, encode_s=rec.encode_s,
+                    reference_s=time.perf_counter() - t,
+                    acceptance=(rec.accepted / rec.drafted
+                                if rec.drafted else None))
+    line[name] = got["f32"]
+    line[name]["passes"] = judge(got["f32"], cell.limits)
+    if "fp8" in got:
+        line["fp8"] = got["fp8"]
+        line["fp8"]["passes"] = judge(got["fp8"], cell.limits)
+
+
+def main(argv=None, bench_file=None, root=None, backend=None, devices=None,
+         timeout_s=None):
+    """The command: a cell of one chip in this process on cuda:0, a cell of
+    several over a tensor-parallel world of nccl ranks on cuda:0 ..
+    (world.calibrate), each variant planted inside every rank before its
+    engine is built, the readings taken here. A test or a rehearsal passes
+    devices and backend (gloo ranks on the CPU or sharing a card, an nccl
+    world of one), and bench_file and root for its own files."""
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--workload", required=True)
     p.add_argument("--seeds", type=_ints, required=True)
@@ -122,21 +172,56 @@ def main(argv=None):
     p.add_argument("--out", default=None)
     args = p.parse_args(argv)
     import torch
-    device = torch.device("cuda", 0)
-    cell = layout.load_cell(args.workload)
+    cell = layout.load_cell(args.workload, bench_file, root)
     sz, tr = cell.sizes, cell.traffic
-    P, N, rows = tr["prompt_len"], tr["new_tokens"], tr["check_rows"]
+    P, N = tr["prompt_len"], tr["new_tokens"]
     faults = [f for f in args.faults.split(",") if f]
+    seeds = sorted(set(args.seeds) | set(args.control_seeds)
+                   | set(args.int8_seeds) | set(args.fault_seeds))
+    if devices is None and cell.chips > 1:
+        backend, devices = "nccl", [f"cuda:{i}" for i in range(cell.chips)]
+    out = open(args.out, "a") if args.out else None
+
+    def emit(line):
+        text = json.dumps(line)
+        print(text, flush=True)
+        if out:
+            out.write(text + "\n")
+            out.flush()
+
+    if devices is not None:
+        from portbench import world
+        plan = [(seed, ["program"]
+                 + (["int8"] if seed in args.int8_seeds else [])
+                 + (faults if seed in args.fault_seeds else []))
+                for seed in seeds]
+        recs = world.calibrate(
+            cell, plan, backend or "nccl", devices,
+            timeout_s or 600 + 300 * sum(len(v) for _, v in plan))
+        device = torch.device(devices[0])
+        dtype, params = getattr(torch, cell.config["torch_dtype"]), None
+        for seed, names in plan:
+            if params is None:
+                params = weights.make(sz, seed, device, dtype)
+            else:
+                weights.redraw(params, sz, seed)
+            line = {"cell": cell.name, "seed": seed,
+                    "device": _device_name(device), "tp": len(devices)}
+            for name in names:
+                _read_into(line, name, recs.pop((seed, name)), cell, seed,
+                           params, device, args.control_seeds)
+            emit(line)
+        return 0
+
+    device = torch.device("cuda", 0)
     params = weights.make(sz, args.seeds[0], device,
                           getattr(torch, cell.config["torch_dtype"]))
-    out = open(args.out, "a") if args.out else None
     warm = tr["warmup"]
     jobs = Jobs(cell, params, args.seeds[0], device)
     engine = jobs.engine(warm["prompt_len"], warm["new_tokens"])
     jobs.run(engine, "warmup", warm["prompt_len"], warm["new_tokens"])
     del engine
-    for seed in sorted(set(args.seeds) | set(args.control_seeds)
-                       | set(args.int8_seeds) | set(args.fault_seeds)):
+    for seed in seeds:
         weights.redraw(params, sz, seed)
         line = {"cell": cell.name, "seed": seed,
                 "device": torch.cuda.get_device_name(device)}
@@ -155,27 +240,11 @@ def main(argv=None):
                 del engine
                 gc.collect()
                 _sync(device)
-            products = (("f32", "fp8") if name == "program"
-                        and seed in args.control_seeds else ("f32",))
-            t = time.perf_counter()
-            got = readings(rec, rows, seed, params, sz, device, products)
-            if name == "program":
-                line.update(job_s=rec.job_s, encode_s=rec.encode_s,
-                            reference_s=time.perf_counter() - t,
-                            acceptance=(rec.accepted / rec.drafted
-                                        if rec.drafted else None))
-            line[name] = got["f32"]
-            line[name]["passes"] = judge(got["f32"], cell.limits)
-            if "fp8" in got:
-                line["fp8"] = got["fp8"]
-                line["fp8"]["passes"] = judge(got["fp8"], cell.limits)
+            _read_into(line, name, rec, cell, seed, params, device,
+                       args.control_seeds)
             del rec
         del variants, prm
-        text = json.dumps(line)
-        print(text, flush=True)
-        if out:
-            out.write(text + "\n")
-            out.flush()
+        emit(line)
     return 0
 
 

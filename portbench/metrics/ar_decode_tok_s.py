@@ -1,6 +1,6 @@
 """ar_decode_tok_s: decode_tok_s (metrics/decode_tok_s.py) in the
-autoregressive decode cells, whose runs spread far less than the SnapKV
-cells' host-paced rounds, so it has a bound of its own."""
+autoregressive decode cells, under a bound of its own: their runs spread
+otherwise than the SnapKV cells' (PERF.md, section 2)."""
 
 from portbench.metrics import reader
 

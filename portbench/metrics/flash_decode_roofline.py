@@ -10,7 +10,7 @@ KERNELS = ("decode_split_mma_kernel", "decode_merge_kernel")
 
 
 def read(run):
-    t, pk = run.trace, roofline.peaks(run.device_name)
+    t, pk = run.trace, roofline.peaks(run.device_name, run.chips)
     if t is None or t.part != "decode" or pk is None:
         return None
     seconds = t.kernel_seconds(lambda n: any(k in n for k in KERNELS))

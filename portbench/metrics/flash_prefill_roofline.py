@@ -10,7 +10,7 @@ KERNEL = "prefill_mma_kernel"
 
 
 def read(run):
-    t, pk = run.trace, roofline.peaks(run.device_name)
+    t, pk = run.trace, roofline.peaks(run.device_name, run.chips)
     if t is None or t.part != "encode" or pk is None:
         return None
     seconds = t.kernel_seconds(lambda n: KERNEL in n)

@@ -18,7 +18,7 @@ def is_gemm(name: str) -> bool:
 
 
 def read(run):
-    t, pk = run.trace, roofline.peaks(run.device_name)
+    t, pk = run.trace, roofline.peaks(run.device_name, run.chips)
     if t is None or t.part != "decode" or pk is None:
         return None
     seconds = t.kernel_seconds(is_gemm)

@@ -38,8 +38,10 @@ class JobRecord:
 @dataclass
 class Run:
     """A run of one cell: its files, the window's jobs, set-up, memory and,
-    with --trace 1, the traced part."""
+    with --trace 1, the traced part. Over a world of several cards (world.py)
+    the jobs, clocks and trace are rank 0's and the peak the fullest rank's."""
     cell: object                # layout.Cell
+    chips: int = 1              # cards the cell runs on; the peaks scale by it
     jobs: list = field(default_factory=list)
     setup_s: float = 0.0
     setup_parts: dict = field(default_factory=dict)   # seconds by phase
@@ -47,6 +49,8 @@ class Run:
     peak_bytes: int = 0
     device_name: str = ""
     trace: object = None        # trace.Trace
+    # traced over a world: [(busy_s, window_s)] of each rank's traced part
+    rank_busy: list = field(default_factory=list)
     trace_s: float = 0.0        # the traced job, profiler included
     check_s: float = 0.0        # the reference's comparison
 

@@ -26,10 +26,14 @@ ELEM = 2            # bytes of a bf16 weight or KV element
 LOGIT = 4           # the logits are float32
 
 
-def peaks(device_name: str):
-    """The peaks of the card named device_name, or None for a card not in
-    the table (its roofline metrics are then left out)."""
-    return next((p for k, p in PEAKS.items() if k in device_name), None)
+def peaks(device_name: str, chips: int = 1):
+    """The peaks of `chips` cards named device_name, or None for a card not
+    in the table (its roofline metrics are then left out). A cell over a
+    tensor-parallel world of several cards sets the whole model's work
+    against all of them: the same share as rank 0's block of the work
+    against its one card, where tp cuts the work evenly."""
+    pk = next((p for k, p in PEAKS.items() if k in device_name), None)
+    return None if pk is None else {k: chips * v for k, v in pk.items()}
 
 
 @dataclass(frozen=True)

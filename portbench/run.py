@@ -3,6 +3,10 @@
     python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> \
         --trace <0|1>
 
+A cell of one chip runs in this process as below; a cell of several runs
+the same steps over a tensor-parallel world of its cards, one process a
+card (world.py).
+
 Set-up (imports, the weights drawn on the card from the seed, a warm-up job
 on a small engine at the cell's batch and chunk, the run's Engine) is timed
 from process start. The window then runs whole jobs back to back, each one
@@ -78,8 +82,9 @@ class Jobs:
     """The cell's traffic (traffic/<name>.json) on the program: engines and
     jobs."""
 
-    def __init__(self, cell, params, seed: int, device):
+    def __init__(self, cell, params, seed: int, device, mesh=None):
         self.cell, self.params, self.seed, self.device = cell, params, seed, device
+        self.mesh = mesh    # a rank's tp mesh (world.py); None on one card
         self.tr = cell.traffic
         self.entry = self.tr["entry"]
         self.cfg = model_args(cell.config)
@@ -98,7 +103,7 @@ class Jobs:
                       draft_budget=tr.get("draft_budget", 0),
                       window_size=tr.get("window_size", 32),
                       prefill_chunk=tr.get("prefill_chunk", 128),
-                      device=self.device)
+                      device=self.device, mesh=self.mesh)
 
     def run(self, engine, job, prompt_len: int, new_tokens: int,
             hooks=None) -> JobRecord:
@@ -196,8 +201,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool, device) -> tuple:
     _sync(device)
     marks.append(("engine", time.perf_counter()))
 
-    run = Run(cell=cell, device_name=(torch.cuda.get_device_name(device)
-                                      if device.type == "cuda" else "cpu"))
+    run = Run(cell=cell, chips=cell.chips,
+              device_name=(torch.cuda.get_device_name(device)
+                           if device.type == "cuda" else "cpu"))
     run.setup_s = time.perf_counter() - T0
     run.setup_parts = {name: t - prev for (name, t), prev in
                        zip(marks, [T0] + [t for _, t in marks[:-1]])}
@@ -241,20 +247,28 @@ def result_line(run: Run, checks: dict, trace: bool, device) -> dict:
             "failed": checks["short_rows"]["value"],
             "metrics": metrics, "device": dev}
     if trace:
-        dev["busy_s"] = run.trace.busy_s
-        dev["window_s"] = run.trace.window_s
+        # over a world, the mean of every rank's traced part
+        busy = run.rank_busy or [(run.trace.busy_s, run.trace.window_s)]
+        dev["busy_s"] = sum(b for b, _ in busy) / len(busy)
+        dev["window_s"] = sum(w for _, w in busy) / len(busy)
         line["breakdown"] = run.trace.breakdown()
     line["checks"] = checks
     return line
 
 
-def main(argv=None, device=None, bench_file=None, root=None) -> int:
+def main(argv=None, device=None, bench_file=None, root=None, backend=None,
+         devices=None, timeout_s=None, plant=None) -> int:
     """The command. device None: the card, refused without enough of them;
-    a test passes device and, for its own files, bench_file and root."""
+    a cell of one chip runs in this process on cuda:0, a cell of several
+    over a tensor-parallel world of nccl ranks on cuda:0 .. (world.py). A
+    test passes device (in this process) or devices and backend (a world:
+    gloo ranks on the CPU or sharing a card, an nccl world of one), and for
+    its own files bench_file and root; timeout_s and plant (a callable
+    planted in every rank, world.run_rank) reach the world."""
     args = parse_args(argv)
     import torch
     cell = layout.load_cell(args.workload, bench_file, root)
-    if device is None:
+    if device is None and devices is None:
         if (not torch.cuda.is_available()
                 or torch.cuda.device_count() < cell.chips):
             print(f"portbench: {cell.name} needs {cell.chips} CUDA "
@@ -262,11 +276,22 @@ def main(argv=None, device=None, bench_file=None, root=None) -> int:
                   f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
                   file=sys.stderr)
             return 2
-        device = torch.device("cuda", 0)
-    run, checks = run_cell(cell, args.seed, args.seconds, bool(args.trace),
-                           device)
+        if cell.chips > 1:
+            backend, devices = "nccl", [f"cuda:{i}" for i in range(cell.chips)]
+        else:
+            device = torch.device("cuda", 0)
+    if devices is None:
+        run, checks = run_cell(cell, args.seed, args.seconds,
+                               bool(args.trace), device)
+        ranks_loaded = []
+    else:
+        from portbench import world
+        run, checks, ranks_loaded = world.run_cell(
+            cell, args.seed, args.seconds, bool(args.trace), backend or "nccl",
+            devices, T0, timeout_s, plant)
+        device = torch.device(devices[0])
     line = result_line(run, checks, bool(args.trace), device)
-    bad = forbidden_modules()
+    bad = sorted(set(forbidden_modules()) | set(ranks_loaded))
     if bad:
         print(f"portbench: loaded {bad} (JAX or the JAX package)",
               file=sys.stderr)

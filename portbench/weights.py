@@ -64,10 +64,18 @@ def redraw(params: dict, s: Sizes, seed: int, std: float = 0.02,
            bias_std: float = 0.02) -> None:
     """Draw every random leaf of params again, in place, for seed."""
     for name in shapes(s):
-        t = params["layers"][name] if name in LAYER_LEAVES else params[name]
-        gen = torch.Generator(device=t.device).manual_seed(
-            derive(seed, "weights", name))
-        t.normal_(0.0, bias_std if name == "bqkv" else std, generator=gen)
+        fill(params["layers"][name] if name in LAYER_LEAVES else params[name],
+             name, seed, std, bias_std)
+
+
+def fill(t: torch.Tensor, name: str, seed: int, std: float = 0.02,
+         bias_std: float = 0.02) -> None:
+    """Draw the whole leaf `name` into t, in place: one normal_ call from
+    its own generator on t's device. A leaf drawn alone (world.rank_params)
+    is bit for bit the leaf that make draws."""
+    gen = torch.Generator(device=t.device).manual_seed(
+        derive(seed, "weights", name))
+    t.normal_(0.0, bias_std if name == "bqkv" else std, generator=gen)
 
 
 def prompts(seed: int, job: int, batch: int, length: int, vocab: int,
